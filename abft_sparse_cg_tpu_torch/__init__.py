@@ -3,13 +3,13 @@ PyTorch, with hand-written CUDA kernels for one NVIDIA H100.
 
 The package mirrors the layout of ``abft_sparse_cg_tpu`` (the JAX/Pallas
 reference, which stays as it is): every module here has its counterpart
-at the same path there.  The NumPy host layer of the reference — matrix
-loading (``formats``), fault injection (``inject``), the codeword layouts
-and the NumPy codec (``ecc.layout``/``ecc.codec``), matrix generation
-(``utils.matgen``) — imports no JAX and is reused by import, so both
-packages consume byte-identical ``ProtectedMatrix`` planes.  The
-modules ``formats`` and ``inject`` here re-export the parts a caller of
-the port needs.  Nothing in this package imports ``jax``.
+at the same path there.  The NumPy host layer — matrix loading and the
+protected layouts (``formats``), fault injection (``inject``), the
+codeword layouts and the NumPy codec (``ecc.layout``/``ecc.codec``), the
+matrix generators (``utils.matgen``/``utils.matzoo``) and the CLI
+parser — is the port's own copy, tested byte-identical to the
+reference's.  Nothing in this package imports ``jax`` or any module of
+the JAX package.
 
 Targets:
 
@@ -17,15 +17,19 @@ Targets:
   torch  plain PyTorch on the CPU (float64 by default): the port's
          correctness oracle, line-for-line comparable with ``-t jnp``
   cuda   the CUDA kernels of ``csrc/`` on ``cuda:0`` (float32):
-         ``dia_spmv_detect`` (ops.spmv_cuda) and the whole-solve
-         ``fused_cg_dia`` (solver.fused)
+         ``dia_spmv_detect``/``ell_spmv_detect`` (ops.spmv_cuda) and
+         the whole-solve ``fused_cg_dia``/``fused_cg_ell``
+         (solver.fused)
   ====== ===========================================================
 
 Subpackages:
-  ecc       tensor paths of the codec, value derivation, rotated fold
-  ops       BLAS-1, the plain DIA SpMV with ABFT, the CUDA SpMV wrapper
+  ecc       codeword layouts, the codec (tensor and NumPy paths), value
+            derivation, rotated fold
+  formats   Matrix Market I/O, assembly, the DIA/ELL protected layouts
+  ops       BLAS-1, the plain DIA/ELL SpMV with ABFT, the CUDA wrappers
   solver    CG (Python loops) and the whole-solve fused CG wrapper
   backends  (target, mode) registry behind the CLI
+  utils     matrix generators and the zoo of structural families
 """
 
 __version__ = "0.1.0"

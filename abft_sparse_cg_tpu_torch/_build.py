@@ -1,17 +1,19 @@
 """Build the CUDA kernels of ``csrc/`` at first use and load them.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds):
+Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds).  ``build()``
+starts one ``nvcc`` per source, all at once, and waits for them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/torch_kernels/<hash>/libabft_cuda.so
-         csrc/*.cu
+         -Xcompiler -fPIC -o build/torch_kernels/<hash>/lib<name>.so
+         csrc/<name>.cu
 
-The library is keyed by a hash of the sources and the flags, built into
-``build/torch_kernels/`` at the repository root (listed in .gitignore),
-and loaded with ctypes.  Every pointer and the stream cross the boundary
-as ``ctypes.c_void_p``; each C function returns a ``cudaError_t`` that
-the wrappers turn into an exception.  Nothing here runs at import.
+The libraries are keyed by a hash of the sources and the flags, built
+into ``build/torch_kernels/`` at the repository root (listed in
+.gitignore), and loaded with ctypes.  Every pointer and the stream cross
+the boundary as ``ctypes.c_void_p``; each C function returns a
+``cudaError_t`` that the wrappers turn into an exception.  Nothing here
+runs at import.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["library", "build_seconds", "BUILD_DIR"]
+__all__ = ["library", "build", "build_seconds", "BUILD_DIR", "check"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -32,18 +34,34 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+# source name -> {C function: argtypes}
 _SIGNATURES = {
-    "abft_dia_spmv_detect": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I,
-                             _P, _I, _P],
-    "abft_fused_grid": [_I, _P],
-    "abft_fused_cg_dia": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                          _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _F, _I,
-                          _P],
-    "abft_dia_spmv_block": [],
+    "dia_spmv_detect": {
+        "abft_dia_spmv_detect": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
+                                 _I, _P, _I, _P],
+        "abft_dia_spmv_block": [],
+    },
+    "fused_cg_dia": {
+        "abft_fused_grid": [_I, _P],
+        "abft_fused_cg_dia": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                              _F, _I, _P],
+    },
+    "ell_spmv_detect": {
+        "abft_ell_spmv_detect": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _I, _P,
+                                 _P, _I, _I, _P, _I, _P],
+        "abft_ell_spmv_block": [],
+    },
+    "fused_cg_ell": {
+        "abft_fused_ell_grid": [_I, _P],
+        "abft_fused_cg_ell": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                              _P, _I, _F, _I, _P],
+    },
 }
 
-_lib = None
+_libs = {}
 _build_seconds = None
 
 
@@ -74,34 +92,55 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this source hash has
-    not been built yet."""
-    global _lib, _build_seconds
-    if _lib is not None:
-        return _lib
-    out_dir = os.path.join(BUILD_DIR, _digest())
-    out = os.path.join(out_dir, "libabft_cuda.so")
+def _out_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, _digest(), f"lib{name}.so")
+
+
+def build():
+    """Compile every source whose library of this hash is missing, one
+    ``nvcc`` per source, all started together; then load them all."""
+    global _build_seconds
+    if len(_libs) == len(_SIGNATURES):
+        return
     t0 = time.perf_counter()
-    if not os.path.exists(out):
-        os.makedirs(out_dir, exist_ok=True)
+    procs = []
+    for name in _SIGNATURES:
+        out = _out_path(name)
+        if os.path.exists(out):
+            continue
+        os.makedirs(os.path.dirname(out), exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cus = [p for p in _sources() if p.endswith(".cu")]
-        subprocess.run([_nvcc(), *_FLAGS, "-o", tmp, *cus], check=True)
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half
+        src = os.path.join(_CSRC, f"{name}.cu")
+        procs.append((name, out, tmp, subprocess.Popen(
+            [_nvcc(), *_FLAGS, "-o", tmp, src])))
+    failed = []
+    for name, out, tmp, proc in procs:
+        if proc.wait() != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build never sees half
+    if failed:
+        raise RuntimeError(f"nvcc failed for csrc/{', '.join(failed)}.cu")
+    for name, sigs in _SIGNATURES.items():
+        lib = ctypes.CDLL(_out_path(name))
+        for fn_name, argtypes in sigs.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _libs[name] = lib
     _build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(out)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (every library is built
+    first if this source hash has not been built yet)."""
+    build()
+    return _libs[name]
 
 
 def build_seconds():
-    """Seconds the first ``library()`` call of this process spent
-    building and loading (None before that call)."""
+    """Seconds the first ``build()`` of this process spent compiling and
+    loading (None before that call)."""
     return _build_seconds
 
 

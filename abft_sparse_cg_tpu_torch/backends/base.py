@@ -13,7 +13,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from abft_sparse_cg_tpu.ecc.layout import OVERALL_PARITY_BIT
+from ..ecc.layout import OVERALL_PARITY_BIT
 
 from ..ops.spmv import ERRCODES
 

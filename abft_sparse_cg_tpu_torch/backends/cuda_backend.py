@@ -2,12 +2,13 @@
 
 Counterpart of ``abft_sparse_cg_tpu.backends.pallas_backend`` (:65-291),
 single device, live detection: the unpreconditioned standard solve runs
-in the whole-solve kernel B (solver.fused) — every input this target
-accepts (a DIA matrix, float32) lies inside its envelope, so the
-reference's per-iteration tier has no counterpart here yet;
-``spmv_once`` runs the cuda SpmvImpl's ``full`` — kernel A in modes
-none/constraints, the plain check-and-correct oracle in the ECC modes,
-as the reference's ``_wrap_mode`` does.
+in a whole-solve kernel (solver.fused) — B for a DIA matrix, D for a
+banded-ELL one; every input this target accepts (DIA, or ELL with K <=
+512, float32) lies inside their envelope, so the reference's
+per-iteration tier has no counterpart here yet; ``spmv_once`` runs the
+cuda SpmvImpl's ``full`` — kernel A or C in modes none/constraints, the
+plain check-and-correct oracle in the ECC modes, as the reference's
+``_wrap_mode`` does.
 
 ``cuda-<mode>`` is registered only when ``torch.cuda.is_available()``,
 the way the reference registers ``cpu`` only when its library is built.

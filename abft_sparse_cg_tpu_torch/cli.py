@@ -1,30 +1,266 @@
 """Command-line interface of the port — the counterpart of cli.py:93-482.
 
-Same flags (parsed by the reference's own ``parse_arguments``, which
-imports no jax), defaults, stdout lines and exit codes as the JAX CLI,
-so ``run_tests`` drives ``bin/cg-csr-torch`` unchanged: the config echo,
-the injection banner, ``[ECC]`` lines, ``iteration ... rr =`` lines,
-``ran for``, ``time taken``, ``total error``.  Targets: ``torch`` (the
-default: plain PyTorch, CPU, float64 by default) and ``cuda`` (the
-kernels, float32).  ``main`` returns the exit code.
+Same flags, defaults, stdout lines and exit codes as the JAX CLI (the
+parser below is a copy of its ``parse_arguments``, with ``torch`` as
+the default target), so ``run_tests`` drives ``bin/cg-csr-torch``
+unchanged: the config echo, the injection banner, ``[ECC]`` lines,
+``iteration ... rr =`` lines, ``ran for``, ``time taken``, ``total
+error``.  Targets: ``torch`` (the default: plain PyTorch, CPU, float64
+by default) and ``cuda`` (the kernels, float32).  ``main`` returns the
+exit code.
 
 Flags of features this package has not ported yet print a one-line
 error and exit 1: --devices, --solver pipelined, -p/--precond jacobi,
 --refine, --checkpoint/--checkpoint-every/--resume, --check-interval
-K > 1, --profile and --format coo.
+K > 1, --profile and --format coo; so do matrices that route to the
+flat or split execution layouts.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
 
-from abft_sparse_cg_tpu.cli import parse_arguments
-
-__all__ = ["main", "main_csr"]
+__all__ = ["main", "main_csr", "parse_arguments"]
 
 _ROADMAP = "is not ported to the PyTorch/CUDA package yet (ROADMAP.md queue 1)"
+
+_USAGE_OPTIONS = """Options:
+  -h  --help                  Print this message
+  -b  --num-blocks      B     Number of times to block input matrix
+  -c  --convergence     C     Convergence threshold
+  -f  --matrix-file     M     Path to matrix-market format file
+  -i  --iterations      I     Maximum number of iterations
+  -l  --list                  List available implementations
+  -m  --mode            MODE  ABFT mode
+  -t  --target          TARG  Implementation target
+  -x  --inject-bitflip        Inject a random bit-flip into A
+      --format          F     Storage format: csr | coo
+      --seed            S     Seed b-vector and injector RNGs
+      --dtype           D     Compute dtype: auto | f32 | f64
+      --quiet                 Suppress per-iteration residual output
+      --profile         DIR   Write a profiler trace of the solve
+      --devices         N     Row-shard the solve over N devices
+      --solver          S     CG variant: standard | pipelined
+      --reps            N     Executions averaged into 'time taken'
+                              (default: 10 on cuda, 1 on torch)
+      --refine          K     Mixed-precision refinement: up to K
+                              rounds of f32 inner CG + binary64
+                              true-residual restart (f64-level final
+                              accuracy at f32 kernel speed)
+      --check-interval  K     Lazy ABFT schedule: verify every K-th
+                              iteration, snapshot-rollback on a
+                              trigger (default 1 = live; 'auto' =
+                              live on the whole-solve kernels)
+      --checkpoint      PATH  Segment the solve and snapshot CG state
+                              to PATH (.npz) between segments
+      --checkpoint-every N    Iterations per segment (default: 100)
+      --resume                Resume from --checkpoint PATH if present
+  -p  --precond         P     Preconditioner: none | jacobi
+
+  The -l|--list argument will provide a list of tuples that describe
+  which implementations are available to be passed to the
+  -t|--target and -m|--mode arguments.
+
+  The -x|--inject-bitflip argument optionally takes a number to
+  control how many bits to flip, and either INDEX or VALUE to
+  restrict the region of bits in the matrix element to target.
+"""
+
+DEFAULT_MATRIX = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)),
+    "..", "matrices", "shallow_water1", "shallow_water1.mtx",
+)
+
+
+def _parse_double(s):
+    try:
+        return float(s)
+    except ValueError:
+        return -1.0
+
+
+def _parse_int(s):
+    try:
+        v = int(s)
+        return v
+    except ValueError:
+        return -1
+
+
+def parse_arguments(argv, fmt):
+    params = {
+        "max_itrs": 1000,
+        "conv_threshold": 0.001,
+        "num_bit_flips": 0,
+        "bitflip_kind": "ANY",
+        "num_blocks": 25,
+        "matrix_file": os.path.normpath(DEFAULT_MATRIX),
+        "target": "torch",
+        "mode": "none",
+        "fmt": fmt,
+        "seed": None,
+        "dtype": "auto",
+        "quiet": False,
+        "list": False,
+        "profile": None,
+        "precond": "none",
+        "devices": 0,
+        "solver": "standard",
+        "reps": 0,
+        "checkpoint": None,
+        "checkpoint_every": 100,
+        "resume": False,
+    }
+    i = 0
+    n = len(argv)
+    while i < n:
+        a = argv[i]
+        if a in ("--convergence", "-c"):
+            i += 1
+            if i >= n or (v := _parse_double(argv[i])) < 0:
+                print("Invalid convergence threshold")
+                raise SystemExit(1)
+            params["conv_threshold"] = v
+        elif a in ("--iterations", "-i"):
+            i += 1
+            if i >= n or (v := _parse_int(argv[i])) < 0:
+                print("Invalid number of iterations")
+                raise SystemExit(1)
+            params["max_itrs"] = v
+        elif a in ("--list", "-l"):
+            params["list"] = True
+        elif a in ("--num-blocks", "-b"):
+            i += 1
+            if i >= n or (v := _parse_int(argv[i])) < 1:
+                print("Invalid number of blocks")
+                raise SystemExit(1)
+            params["num_blocks"] = v
+        elif a in ("--matrix-file", "-f"):
+            i += 1
+            if i >= n:
+                print("Matrix filename required")
+                raise SystemExit(1)
+            params["matrix_file"] = argv[i]
+        elif a in ("--mode", "-m"):
+            i += 1
+            if i >= n:
+                print("ABFT mode required")
+                raise SystemExit(1)
+            params["mode"] = argv[i]
+        elif a in ("--target", "-t"):
+            i += 1
+            if i >= n:
+                print("Implementation target required")
+                raise SystemExit(1)
+            params["target"] = argv[i]
+        elif a in ("--inject-bitflip", "-x"):
+            params["num_bit_flips"] = 1
+            # Greedy optional sub-args, like the reference (cg.cpp:254-274).
+            while i + 1 < n and not argv[i + 1].startswith("-"):
+                i += 1
+                if argv[i] == "INDEX":
+                    params["bitflip_kind"] = "INDEX"
+                elif argv[i] == "VALUE":
+                    params["bitflip_kind"] = "VALUE"
+                elif (v := _parse_int(argv[i])) >= 1:
+                    params["num_bit_flips"] = v
+                else:
+                    print("Invalid bit-flip parameter")
+                    raise SystemExit(1)
+        elif a == "--format":
+            i += 1
+            if i >= n or argv[i] not in ("csr", "coo"):
+                print("Invalid format (csr|coo)")
+                raise SystemExit(1)
+            params["fmt"] = argv[i]
+        elif a == "--seed":
+            i += 1
+            if i >= n or (v := _parse_int(argv[i])) < 0:
+                print("Invalid seed")
+                raise SystemExit(1)
+            params["seed"] = v
+        elif a == "--dtype":
+            i += 1
+            if i >= n or argv[i] not in ("auto", "f32", "f64"):
+                print("Invalid dtype (auto|f32|f64)")
+                raise SystemExit(1)
+            params["dtype"] = argv[i]
+        elif a == "--quiet":
+            params["quiet"] = True
+        elif a == "--profile":
+            i += 1
+            if i >= n:
+                print("Profile directory required")
+                raise SystemExit(1)
+            params["profile"] = argv[i]
+        elif a == "--devices":
+            i += 1
+            if i >= n or (v := _parse_int(argv[i])) < 1:
+                print("Invalid device count")
+                raise SystemExit(1)
+            params["devices"] = v
+        elif a == "--solver":
+            i += 1
+            if i >= n or argv[i] not in ("standard", "pipelined"):
+                print("Invalid solver (standard|pipelined)")
+                raise SystemExit(1)
+            params["solver"] = argv[i]
+        elif a == "--reps":
+            i += 1
+            if i >= n or (v := _parse_int(argv[i])) < 1:
+                print("Invalid rep count")
+                raise SystemExit(1)
+            params["reps"] = v
+        elif a == "--checkpoint":
+            i += 1
+            if i >= n:
+                print("Checkpoint path required")
+                raise SystemExit(1)
+            params["checkpoint"] = argv[i]
+        elif a == "--checkpoint-every":
+            i += 1
+            if i >= n or (v := _parse_int(argv[i])) < 1:
+                print("Invalid checkpoint interval")
+                raise SystemExit(1)
+            params["checkpoint_every"] = v
+        elif a == "--resume":
+            params["resume"] = True
+        elif a == "--refine":
+            i += 1
+            if i >= n or (v := _parse_int(argv[i])) < 0:
+                print("Invalid refine count")
+                raise SystemExit(1)
+            params["refine"] = v
+        elif a == "--check-interval":
+            i += 1
+            if i < n and argv[i] == "auto":
+                # Kept symbolic: the backend resolves it once the
+                # matrix routes.
+                params["check_interval"] = "auto"
+            elif i >= n or (v := _parse_int(argv[i])) < 1:
+                print("Invalid check interval")
+                raise SystemExit(1)
+            else:
+                params["check_interval"] = v
+        elif a in ("--precond", "-p"):
+            i += 1
+            if i >= n or argv[i] not in ("none", "jacobi"):
+                print("Invalid preconditioner (none|jacobi)")
+                raise SystemExit(1)
+            params["precond"] = argv[i]
+        elif a in ("--help", "-h"):
+            exe = f"cg-{fmt}-torch"
+            print(f"\nUsage: {exe} [OPTIONS]\n")
+            print(_USAGE_OPTIONS)
+            raise SystemExit(0)
+        else:
+            print(f"Unrecognized argument '{a}' (try '--help')")
+            raise SystemExit(1)
+        i += 1
+    return params
 
 
 def _unported_flag(params):
@@ -59,9 +295,7 @@ def main(argv=None, fmt="csr") -> int:
         if hasattr(signal, "SIGPIPE"):
             signal.signal(signal.SIGPIPE, signal.SIG_DFL)
     argv = sys.argv[1:] if argv is None else argv
-    # The default target is torch (the parser's own default names the JAX
-    # package's jnp); a -t later on the command line overrides it.
-    return _main(parse_arguments(["-t", "torch", *argv], fmt))
+    return _main(parse_arguments(argv, fmt))
 
 
 def _main(params):
@@ -96,11 +330,9 @@ def _main(params):
         return 1
     try:
         mat = build_protected(params["fmt"], assembled, params["mode"])
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
+        # Flat and split layouts: one line, exit 1.
         print(str(e))
-        return 1
-    if mat.exec_kind != "dia":
-        print(f"the {mat.exec_kind!r} execution layout {_ROADMAP}")
         return 1
 
     N, nnz = mat.N, mat.nnz

@@ -24,10 +24,16 @@ def _u32(a, device):
     return None if a is None else from_numpy_u32(np.asarray(a), device)
 
 
+def _i32(a, device):
+    return None if a is None else torch.tensor(
+        np.asarray(a, dtype=np.int32), device=device)
+
+
 def matrix_device_from_numpy(fields, device: torch.device) -> MatrixDevice:
-    """The DIA fields of a JAX ``MatrixDevice``: ``words`` (sequence of
-    uint32 planes), ``cksum``, ``values``, ``fold``, ``fold_ck``; the
-    value plane keeps its dtype."""
+    """The DIA and ELL fields of a JAX ``MatrixDevice``: ``words``
+    (sequence of uint32 planes), ``cksum``, ``values``, ``fold``,
+    ``fold_ck``, ``ell_len``, ``gidx``, ``perm_pos``; the value plane
+    keeps its dtype."""
     values = np.asarray(fields["values"])
     return MatrixDevice(
         words=tuple(_u32(w, device) for w in fields["words"]),
@@ -35,6 +41,9 @@ def matrix_device_from_numpy(fields, device: torch.device) -> MatrixDevice:
         values=torch.tensor(values, device=device),
         fold=_u32(fields.get("fold"), device),
         fold_ck=_u32(fields.get("fold_ck"), device),
+        ell_len=_i32(fields.get("ell_len"), device),
+        gidx=_i32(fields.get("gidx"), device),
+        perm_pos=_i32(fields.get("perm_pos"), device),
     )
 
 

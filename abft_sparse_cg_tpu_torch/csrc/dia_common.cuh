@@ -1,30 +1,37 @@
-// Shared device code of the two DIA kernels (dia_spmv_detect.cu,
-// fused_cg_dia.cu): the stencil row product, the live ABFT signals and
-// fixed-order block reductions.
+// Shared device code of the four kernels (dia_spmv_detect.cu,
+// fused_cg_dia.cu, ell_spmv_detect.cu, fused_cg_ell.cu): the DIA stencil
+// and banded-ELL row products, the live ABFT signals and fixed-order
+// block and grid reductions.
 //
-// Arithmetic order.  The row product sums the diagonals in the order
-// d = 0..D-1 with explicitly rounded multiplies and adds (__fmul_rn /
-// __fadd_rn), so nvcc cannot contract them into FMAs: w is bit-identical
-// to the plain PyTorch version (ops/spmv.py::dia_product) on the same
-// inputs.  Reductions use fixed-order per-block partials (no float
-// atomics), so two runs of one solve give identical results.
+// Arithmetic order.  The row products sum the diagonals (d = 0..D-1) or
+// the slots (k = 0..ell_len[r]-1) in order with explicitly rounded
+// multiplies and adds (__fmul_rn / __fadd_rn), so nvcc cannot contract
+// them into FMAs: w is bit-identical to the plain PyTorch versions
+// (ops/spmv.py::dia_product, ::ell_product) on the same inputs.
+// Reductions use fixed-order per-block partials (no float atomics), so
+// two runs of one solve give identical results.
 //
-// Signals (ops/spmv_cuda.py::_mode_signals):
+// Signals (ops/spmv_cuda.py::_mode_signals), over a (D, R) or (K, R)
+// plane, padding slots included (they hold zero codewords):
 //   parity  OR over elements of popcount(plane[d, r]) & 1 — the streamed
 //           plane is the rotated fold, whose columns all have odd weight,
 //           so this is each element's overall parity;
-//   cksum   XOR of the D x 8 words of every exact 8-row block compared
-//           with that block's encode-time checksum (ell_cksum / fold_ck).
-//           This is the jnp path's granularity (ops/spmv.py:425-438),
-//           strictly finer than the TPU kernels' chunk-congruence
-//           classes, so the trigger fires wherever theirs does.
+//   cksum   XOR of the D x 8 (K x 8) words of every exact 8-row block
+//           compared with that block's encode-time checksum (ell_cksum /
+//           fold_ck).  This is the jnp path's granularity (ops/spmv.py:
+//           425-438), strictly finer than the TPU kernels' chunk-
+//           congruence classes, so the trigger fires wherever theirs
+//           does.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define ABFT_MAX_D 128
+#define ABFT_MAX_K 512
 #define ABFT_FULL_MASK 0xffffffffu
+#define ABFT_ECC_COL_MASK 0x00ffffffu
+#define ABFT_ERR_BREAKDOWN 7  // ops/spmv.py ERR_BREAKDOWN
 
 // Diagonal offsets, passed by value (kernel parameter space): uniform
 // across the grid and read with no memory traffic.
@@ -62,6 +69,62 @@ __device__ __forceinline__ float dia_row(const float* __restrict__ vals,
   return w;
 }
 
+// Banded-ELL gather index of one slot: the stored word masked with
+// ``gmask`` (the ECC byte off in the ECC modes; all ones for the raw col
+// word or the permuted gidx plane), read as int32, then the jnp gather's
+// out-of-range rule (ops/spmv.py::take_clamped): below zero wraps once
+// by R, then clamp into [0, R).  A flipped index bit therefore reads a
+// wrong x entry but never leaves the vector.
+__device__ __forceinline__ int ell_gather(uint32_t word, uint32_t gmask,
+                                          int R) {
+  int g = (int)(word & gmask);
+  if (g < 0) g += R;
+  return min(max(g, 0), R - 1);
+}
+
+// w[r] = sum over k < ell_len[r] of vals[k, r] * x[g(k, r)]; slot k of
+// row r lives at k * R + r (transposed ELL), so the 32 rows of a warp
+// read each slot as one coalesced 128-byte line.  Offsets are 64-bit:
+// K * R reaches 38M slots on the dense-radius-3d -b 10 matrix.
+//
+// The slots go ABFT_ELL_BATCH at a time: every value, gather-word and x
+// load of a batch is issued before the batch is summed (still in slot
+// order, so w does not change).  Written as one plain loop, ptxas
+// scheduled each slot's loads after the previous slot's x gather had
+// returned (one slot in flight per thread, at the 32 registers that
+// full occupancy allows), and kernel D's mode-none solve was markedly
+// slower (PERF.md §6).
+#define ABFT_ELL_BATCH 8
+template <bool kCoherent>
+__device__ __forceinline__ float ell_row(const float* __restrict__ vals,
+                                         const uint32_t* __restrict__ gsrc,
+                                         uint32_t gmask,
+                                         const int* __restrict__ ell_len,
+                                         int K, int R, const float* x,
+                                         int r) {
+  const int n = min(__ldg(ell_len + r), K);
+  float w = 0.0f;
+  int k = 0;
+  for (; k + ABFT_ELL_BATCH <= n; k += ABFT_ELL_BATCH) {
+    float v[ABFT_ELL_BATCH], xv[ABFT_ELL_BATCH];
+#pragma unroll
+    for (int j = 0; j < ABFT_ELL_BATCH; ++j) {
+      const size_t o = (size_t)(k + j) * R + r;
+      v[j] = __ldg(vals + o);
+      xv[j] = load_f<kCoherent>(x + ell_gather(__ldg(gsrc + o), gmask, R));
+    }
+#pragma unroll
+    for (int j = 0; j < ABFT_ELL_BATCH; ++j)
+      w = __fadd_rn(w, __fmul_rn(v[j], xv[j]));
+  }
+  for (; k < n; ++k) {
+    const size_t o = (size_t)k * R + r;
+    const int g = ell_gather(__ldg(gsrc + o), gmask, R);
+    w = __fadd_rn(w, __fmul_rn(__ldg(vals + o), load_f<kCoherent>(x + g)));
+  }
+  return w;
+}
+
 // Signals of row r; nonzero if they fired.  Must be called by all 32
 // lanes of a warp on 32 consecutive rows starting at a multiple of 32
 // (the 8-row XOR uses warp shuffles within aligned groups of 8 lanes).
@@ -81,6 +144,43 @@ __device__ __forceinline__ int dia_row_signals(const DiaSignals& s, int D,
     if ((r & 7) == 0 && acc != __ldg(s.base + (r >> 3))) bad = 1;
   }
   return bad;
+}
+
+// ell_row and dia_row_signals in ONE pass over the K slots of row r:
+// each slot's signal word is loaded beside its value and gather word
+// (the product still stops at ell_len[r]), so the three plane streams
+// are in flight together.  Same results as the two calls; kernel D
+// uses it because a separate signal pass made its secded solve much
+// slower (PERF.md §6).  Nonzero ``*bad`` if the signals fired;
+// the warp-shuffle rule of dia_row_signals applies.
+template <bool kCoherent>
+__device__ __forceinline__ float ell_row_signals(
+    const float* __restrict__ vals, const uint32_t* __restrict__ gsrc,
+    uint32_t gmask, const int* __restrict__ ell_len, int K, int R,
+    const float* x, int r, const DiaSignals& s, int* bad) {
+  const int n = min(__ldg(ell_len + r), K);
+  float w = 0.0f;
+  uint32_t acc = 0;
+  int odd = 0;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const size_t o = (size_t)k * R + r;
+    const uint32_t v = __ldg(s.plane + o);
+    if (s.use_parity) odd |= __popc(v) & 1;
+    acc ^= v;
+    if (k < n) {
+      const int g = ell_gather(__ldg(gsrc + o), gmask, R);
+      w = __fadd_rn(w, __fmul_rn(__ldg(vals + o), load_f<kCoherent>(x + g)));
+    }
+  }
+  if (s.use_cksum) {
+    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 1);
+    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 2);
+    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 4);
+    if ((r & 7) == 0 && acc != __ldg(s.base + (r >> 3))) odd = 1;
+  }
+  *bad |= odd;
+  return w;
 }
 
 // Block-wide sum in a fixed order; every thread gets the total.  ``buf``
@@ -110,4 +210,21 @@ __device__ __forceinline__ int block_any(int v, int* buf) {
   const int any = buf[0];
   __syncthreads();
   return any;
+}
+
+// Fixed-order sum of a whole grid's per-block partials, computed by
+// every block (fused kernels, after a grid sync; __ldcg: other blocks
+// wrote them).
+__device__ __forceinline__ float grid_total(const float* part, float* buf) {
+  float v = 0.0f;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
+    v += __ldcg(part + i);
+  return block_sum(v, buf);
+}
+
+__device__ __forceinline__ int grid_any(const int* part, int* buf) {
+  int v = 0;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
+    v |= __ldcg(part + i);
+  return block_any(v, buf);
 }

@@ -25,8 +25,9 @@
 // (D values + D signal words per row) plus the CG vectors (p read in the
 // stencil, w written and read back, x/r/p updated: ~9 floats per row)
 // — and, at small sizes, the three grid-wide barriers per iteration.
-// At -b 10 (819,200 rows) the whole working set (~33 MB) fits in the
-// 50 MB L2; at -b 100 (8.2M rows, ~330 MB) it streams from HBM.
+// At -b 10 (819,200 rows) the bytes of one iteration (36 MB in mode
+// none, 46 MB in secded) fit in the 50 MB L2; at -b 100 (8.2M rows,
+// 360-459 MB) they stream from HBM.
 //
 // What the design does about it: one persistent cooperative launch for
 // the whole solve (no per-iteration launch, no host round trip for the
@@ -55,7 +56,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kBlock = 256;
-constexpr int kErrBreakdown = 7;  // ops/spmv.py ERR_BREAKDOWN
 
 struct FusedArgs {
   const float* vals;      // (D, R)
@@ -76,21 +76,6 @@ struct FusedArgs {
   int trace_len;
   float conv;
 };
-
-// Fixed-order sum of the grid's partials, computed by every block.
-__device__ __forceinline__ float grid_total(const float* part, float* buf) {
-  float v = 0.0f;
-  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
-    v += __ldcg(part + i);
-  return block_sum(v, buf);
-}
-
-__device__ __forceinline__ int grid_any(const int* part, int* buf) {
-  int v = 0;
-  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
-    v |= __ldcg(part + i);
-  return block_any(v, buf);
-}
 
 __global__ void __launch_bounds__(kBlock)
 fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs) {
@@ -144,7 +129,7 @@ fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs) {
     const float rr1 = grid_total(a.part_rr, fbuf);
     // 5. breakdown: exit without the update
     if (pw <= 0.0f || !isfinite(rr1)) {
-      err = kErrBreakdown;
+      err = ABFT_ERR_BREAKDOWN;
       break;
     }
     // 6. the update (each thread touches only its own rows)

@@ -1,0 +1,236 @@
+// Kernel D: fused_cg_ell — the whole detect-fast CG loop over a
+// banded-ELL matrix in one kernel.
+//
+// Replaces the ELL branch of the TPU kernel abft_sparse_cg_tpu/solver/
+// fused.py::_make_kernel (is_ell at :494, the window gather of p at
+// :819-860, pallas_call at :1248; the plan at :183-216).  It is kernel B
+// (fused_cg_dia.cu) with the banded-ELL row product of kernel C in place
+// of the stencil: the same contract, exit states (convergence, upto, a
+// trigger, a breakdown), rr trace and in-place update of x, r, p, and the
+// same re-execution of a triggered iteration by the caller after a
+// repair (solver/fused.py).  One iteration:
+//   1. w = A p over the (K, R) planes, pw = p . w, and the signals
+//      in the same pass over the slots (ell_row_signals);
+//   2. grid sync; every block reduces the pw partials and the flags in
+//      the same fixed order; a trigger exits before any update;
+//   3. alpha = rz / pw, r1 = r - alpha w (in the w buffer), rr1 partials;
+//      grid sync; reduce rr1; pw <= 0 or a non-finite rr1 exits with
+//      err = 7 (ERR_BREAKDOWN) before any update;
+//   4. x += alpha p, r = r1, p = r1 + (rr1 / rz) p, trace[itr] = rr1;
+//      grid sync (the next product gathers p at arbitrary rows).
+//
+// What bounds it on the H100: bytes per iteration — the plane streams (K
+// values + K gather words + K signal words per row in the detecting
+// modes) plus ~9 floats of CG vectors per row and the gathered p.  At
+// dense-radius-3d -b 10 that is 426 MB per iteration in secded (272 MB
+// in mode none), far past the 50 MB L2: HBM-bound.  Measured by
+// chip_smoke.py on NVIDIA H100 80GB HBM3, 700.00 W: 0.231 ms per secded
+// iteration (55% of 3.35 TB/s), 0.126 ms in mode none (64%).
+//
+// What the design does about it: one persistent cooperative launch for
+// the whole solve, every plane read once per iteration in coalesced
+// slot rows (one thread per row), the signal word of each slot loaded
+// in the same loop as its value and gather word (ell_row_signals; a
+// separate signal pass made the secded solve much slower, PERF.md §6),
+// and a kernel without the signal code for mode none.  The gather of p goes
+// through L2 (__ldcg): other blocks rewrite p every iteration and L1 is
+// not coherent across SMs, so the read-only path (__ldg) would read
+// stale values.  The reductions are kernel B's
+// (redundant per-block sums of the grid's partials, no float atomics:
+// two runs print identical rr lines), and so is the uncapped grid
+// (PERF.md Open question 3).  Kept as its own file rather than a
+// template shared with kernel B so that kernel B's measured code stays
+// as it was.
+//
+// Interface: plain C through ctypes; launches with
+// cudaLaunchCooperativeKernel on the caller's stream, allocates
+// nothing, returns the cudaError_t.
+
+#include <cooperative_groups.h>
+
+#include "dia_common.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kBlock = 256;
+
+struct EllPlanes {
+  const float* vals;      // (K, R)
+  const uint32_t* gsrc;   // (K, R) col word or gidx
+  const int* ell_len;     // (R)
+  uint32_t gmask;
+  int K;
+};
+
+struct FusedArgs {
+  int R;
+  float* x;               // (R) in place
+  float* r;               // (R) in place
+  float* p;               // (R) in place
+  float* w;               // (R) scratch: A p, then r1
+  DiaSignals sig;
+  float* part_pw;         // (grid) per-block partials
+  float* part_rr;         // (grid)
+  int* part_flag;         // (grid)
+  const int* iscal_in;    // itr, upto
+  const float* fscal_in;  // rr, rz
+  int* iscal_out;         // itr, trig, err
+  float* fscal_out;       // rr, rz
+  float* trace;           // (trace_len), written at [itr_in, itr_out)
+  int trace_len;
+  float conv;
+};
+
+// kSignals: the detecting modes (a signal plane is streamed); mode none
+// runs the instance without the signal code.
+template <bool kSignals>
+__global__ void __launch_bounds__(kBlock)
+fused_cg_ell_kernel(FusedArgs a, EllPlanes m) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float fbuf[33];
+  __shared__ int ibuf[1];
+  const int R = a.R;
+  const int stride = gridDim.x * blockDim.x;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  int itr = a.iscal_in[0];
+  const int upto = a.iscal_in[1];
+  float rr = a.fscal_in[0];
+  float rz = a.fscal_in[1];
+  int trig = 0, err = 0;
+
+  while (itr < upto && rr > a.conv) {
+    // 1. ELL product + pw + signals
+    float pw_l = 0.0f;
+    int bad = 0;
+    for (int i = tid; i < R; i += stride) {
+      const float wr =
+          kSignals ? ell_row_signals<true>(m.vals, m.gsrc, m.gmask,
+                                           m.ell_len, m.K, R, a.p, i, a.sig,
+                                           &bad)
+                   : ell_row<true>(m.vals, m.gsrc, m.gmask, m.ell_len, m.K,
+                                   R, a.p, i);
+      a.w[i] = wr;
+      pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
+    }
+    const float bpw = block_sum(pw_l, fbuf);
+    const int bbad = block_any(bad, ibuf);
+    if (threadIdx.x == 0) {
+      a.part_pw[blockIdx.x] = bpw;
+      a.part_flag[blockIdx.x] = bbad;
+    }
+    grid.sync();
+    // 2. reduce; a trigger exits before any update
+    const float pw = grid_total(a.part_pw, fbuf);
+    if (grid_any(a.part_flag, ibuf)) {
+      trig = 1;
+      break;
+    }
+    // 3. r1 = r - alpha w into the w buffer, rr1 partials
+    const float alpha = __fdiv_rn(rz, pw);
+    float rr_l = 0.0f;
+    for (int i = tid; i < R; i += stride) {
+      const float r1 =
+          __fsub_rn(__ldcg(a.r + i), __fmul_rn(alpha, __ldcg(a.w + i)));
+      a.w[i] = r1;
+      rr_l = __fadd_rn(rr_l, __fmul_rn(r1, r1));
+    }
+    const float brr = block_sum(rr_l, fbuf);
+    if (threadIdx.x == 0) a.part_rr[blockIdx.x] = brr;
+    grid.sync();
+    const float rr1 = grid_total(a.part_rr, fbuf);
+    if (pw <= 0.0f || !isfinite(rr1)) {
+      err = ABFT_ERR_BREAKDOWN;
+      break;
+    }
+    // 4. the update (each thread touches only its own rows)
+    const float beta = __fdiv_rn(rr1, rz);
+    for (int i = tid; i < R; i += stride) {
+      const float pv = __ldcg(a.p + i);
+      const float r1 = __ldcg(a.w + i);
+      a.x[i] = __fadd_rn(__ldcg(a.x + i), __fmul_rn(alpha, pv));
+      a.r[i] = r1;
+      a.p[i] = __fadd_rn(r1, __fmul_rn(beta, pv));
+    }
+    if (tid == 0 && itr < a.trace_len) a.trace[itr] = rr1;
+    itr += 1;
+    rr = rr1;
+    rz = rr1;
+    grid.sync();
+  }
+  if (tid == 0) {
+    a.iscal_out[0] = itr;
+    a.iscal_out[1] = trig;
+    a.iscal_out[2] = err;
+    a.fscal_out[0] = rr;
+    a.fscal_out[1] = rz;
+  }
+}
+
+}  // namespace
+
+// Largest co-resident grid for the cooperative launch on ``device``:
+// SMs x resident blocks per SM, for both instances.  Returns a
+// cudaError_t.
+extern "C" int abft_fused_ell_grid(int device, int* grid) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int coop = 0, sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm_none = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fused_cg_ell_kernel<true>, kBlock, 0);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm_none, fused_cg_ell_kernel<false>, kBlock, 0);
+  if (err != cudaSuccess) return (int)err;
+  *grid = sms * min(per_sm, per_sm_none);
+  return *grid > 0 ? (int)cudaSuccess : (int)cudaErrorLaunchOutOfResources;
+}
+
+extern "C" int abft_fused_cg_ell(
+    const float* vals, const uint32_t* gsrc, unsigned gmask,
+    const int* ell_len, int K, int R, float* x, float* r, float* p,
+    float* w, const uint32_t* plane, const uint32_t* base, int use_parity,
+    int use_cksum, float* part_pw, float* part_rr, int* part_flag,
+    int grid, const int* iscal_in, const float* fscal_in, int* iscal_out,
+    float* fscal_out, float* trace, int trace_len, float conv, int device,
+    void* stream) {
+  if (K < 1 || K > ABFT_MAX_K || R % 32 != 0 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  int max_grid = 0;
+  int rc = abft_fused_ell_grid(device, &max_grid);
+  if (rc != (int)cudaSuccess) return rc;
+  if (grid > max_grid) return (int)cudaErrorCooperativeLaunchTooLarge;
+  EllPlanes m{vals, gsrc, ell_len, gmask, K};
+  FusedArgs a;
+  a.R = R;
+  a.x = x;
+  a.r = r;
+  a.p = p;
+  a.w = w;
+  a.sig = DiaSignals{plane, base, use_parity, use_cksum};
+  a.part_pw = part_pw;
+  a.part_rr = part_rr;
+  a.part_flag = part_flag;
+  a.iscal_in = iscal_in;
+  a.fscal_in = fscal_in;
+  a.iscal_out = iscal_out;
+  a.fscal_out = fscal_out;
+  a.trace = trace;
+  a.trace_len = trace_len;
+  a.conv = conv;
+  void* args[] = {&a, &m};
+  const void* fn = plane != nullptr
+                       ? (const void*)fused_cg_ell_kernel<true>
+                       : (const void*)fused_cg_ell_kernel<false>;
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      fn, dim3(grid), dim3(kBlock), args, 0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}

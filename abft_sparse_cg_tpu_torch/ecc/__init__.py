@@ -1,5 +1,6 @@
-"""Software-ECC tensor paths: codec, value derivation, rotated fold.
+"""Software ECC: codeword layouts, the codec, value derivation, the fold.
 
-The codeword layouts, masks and the NumPy codec are the reference's
-(``abft_sparse_cg_tpu.ecc.layout`` / ``.codec``), imported, not copied.
+``layout`` is a copy of the JAX package's; ``codec``, ``values`` and
+``fold`` hold the tensor paths the device code uses plus the NumPy paths
+the host build and fault injection use.
 """

@@ -2,8 +2,8 @@
 
 Counterpart of the jnp paths of ``abft_sparse_cg_tpu.ecc.codec``
 (:75-280), with the same semantics mode by mode (see that module's
-table).  Encoding, fault injection and the NumPy paths stay in the
-reference's codec, which this package imports.
+table), plus a copy of its NumPy paths: ``encode`` (the matrix build)
+and ``flip_bits`` (fault injection), which work on uint32 NumPy planes.
 
 Word representation.  PyTorch has no usable uint32 arithmetic (``<<``
 and ``>>`` on ``torch.uint32`` raise on the CPU) and no popcount, so:
@@ -24,11 +24,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from abft_sparse_cg_tpu.ecc.codec import ECC_MODES, MODES
-from abft_sparse_cg_tpu.ecc.layout import (
+from .layout import (
     CodewordLayout,
     NUM_PARITY_BITS,
     OVERALL_PARITY_BIT,
+    SED_PARITY_BIT,
 )
 
 __all__ = [
@@ -45,7 +45,12 @@ __all__ = [
     "syndrome",
     "decode_flipped_bit",
     "check_and_correct",
+    "encode",
+    "flip_bits",
 ]
+
+MODES = ("none", "constraints", "sed", "sec7", "sec8", "secded")
+ECC_MODES = ("sed", "sec7", "sec8", "secded")
 
 MASK32 = 0xFFFFFFFF
 
@@ -188,3 +193,66 @@ def check_and_correct(mode: str, words: Sequence[torch.Tensor],
         double = ~par & has_syn
         flags = dict(flags, double=double, detected=double)
     return corrected, flags
+
+
+# --------------------------------------------------------------------------
+# NumPy paths (host side): encode at build time, flip bits for injection
+# --------------------------------------------------------------------------
+
+def _np_parity32(x: np.ndarray) -> np.ndarray:
+    return np.bitwise_count(x).astype(np.uint32) & np.uint32(1)
+
+
+def _np_overall_parity(words) -> np.ndarray:
+    acc = words[0]
+    for w in words[1:]:
+        acc = acc ^ w
+    return _np_parity32(acc)
+
+
+def _np_syndrome(words, layout: CodewordLayout) -> np.ndarray:
+    masks = layout.masks
+    result = np.zeros_like(words[0])
+    for p in range(1, NUM_PARITY_BITS + 1):
+        acc = words[0] & np.uint32(masks[p - 1, 0])
+        for w in range(1, layout.num_words):
+            acc = acc ^ (words[w] & np.uint32(masks[p - 1, w]))
+        result = result | (_np_parity32(acc) << np.uint32(32 - p))
+    return result
+
+
+def encode(mode: str, words, layout: CodewordLayout):
+    """Set the ECC bits of ``mode`` into fresh uint32 codeword planes.
+
+    ``words`` must carry a clean 24-bit column (high byte zero).  Returns
+    a new list of planes; only the column word changes.  Hamming bits
+    first, then overall parity over the codeword including them (the
+    reference's encode order)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown ABFT mode: {mode!r}")
+    words = list(words)
+    cw = layout.col_word
+    if mode in ("none", "constraints"):
+        return words
+    if mode == "sed":
+        par = _np_overall_parity(words)
+        words[cw] = words[cw] | (par << np.uint32(SED_PARITY_BIT))
+        return words
+    words[cw] = words[cw] | _np_syndrome(words, layout)
+    if mode == "sec7":
+        return words
+    par = _np_overall_parity(words)
+    words[cw] = words[cw] | (par << np.uint32(OVERALL_PARITY_BIT))
+    return words
+
+
+def flip_bits(words, index: int, bits, layout: CodewordLayout):
+    """New uint32 planes with the global ``bits`` of element ``index``
+    flipped (the reference injector's bit numbering)."""
+    words = list(words)
+    for b in bits:
+        w, bit = divmod(int(b), 32)
+        plane = words[w].copy()
+        plane[index] ^= np.uint32(1 << bit)
+        words[w] = plane
+    return words

@@ -9,11 +9,14 @@ element changes the fold and every odd-weight fault flips its parity.
 
 from __future__ import annotations
 
-from abft_sparse_cg_tpu.ecc.fold import FOLD_SHIFTS
-
 from .codec import MASK32
 
 __all__ = ["FOLD_SHIFTS", "fold_words"]
+
+# Rotation-distance sets per word index (the JAX package's, ecc/fold.py:55):
+# each set has odd size (parity preservation) and the induced columns
+# {b + s mod 32 : s in set} are distinct across all (word, bit) pairs.
+FOLD_SHIFTS = ((0,), (0, 1, 2), (0, 1, 3), (0, 2, 3))
 
 
 def _rotl32(w, s: int):

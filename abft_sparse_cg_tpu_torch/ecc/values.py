@@ -8,16 +8,33 @@ would make the f32 trajectories drift from the JAX ones.  The float64
 path reassembles the exact bits.
 
 Inputs are widened (int64, values in ``[0, 2**32)``) planes, see
-``ecc.codec``.
+``ecc.codec``.  ``f64_to_planes`` / ``planes_to_f64_np`` are the host-side
+NumPy split and reassembly (copies of the JAX package's).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .codec import MASK32
 
-__all__ = ["planes_to_f32", "planes_to_f64", "planes_to_value"]
+__all__ = ["f64_to_planes", "planes_to_f64_np", "planes_to_f32",
+           "planes_to_f64", "planes_to_value"]
+
+
+def f64_to_planes(values: np.ndarray):
+    """Split float64 values into (lo, hi) uint32 planes."""
+    bits = np.ascontiguousarray(values, dtype=np.float64).view(np.uint64)
+    lo = (bits & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (bits >> np.uint64(32)).astype(np.uint32)
+    return lo, hi
+
+
+def planes_to_f64_np(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """Reassemble float64 values from uint32 planes."""
+    bits = lo.astype(np.uint64) | (hi.astype(np.uint64) << np.uint64(32))
+    return bits.view(np.float64)
 
 
 def planes_to_f32(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,15 @@
 """SpMV with ABFT check/correct, plain PyTorch — the port's oracle.
 
 Counterpart of ``abft_sparse_cg_tpu.ops.spmv`` for the DIA execution
-layout (planes ``(D, R)``, w[r] = sum_d vals[d, r] * x[r + off_d]), with
-the same detect-fast / repair-rarely structure (see that module's
-docstring):
+layout (planes ``(D, R)``, w[r] = sum_d vals[d, r] * x[r + off_d]) and the
+banded-ELL layout (planes ``(K, R)``, w[r] = sum over k < ell_len[r] of
+vals[k, r] * x[g[k, r]]), with the same detect-fast / repair-rarely
+structure (see that module's docstring):
 
   - ``fast(md, x) -> (w, trigger)``: w from the pre-derived value plane
     plus the cheap signals — per-element overall parity and per-8-row-
-    block XOR checksums of the word planes against their encode-time
-    values;
+    block XOR checksums of the word planes (D x 8 or K x 8 words per
+    block, padding slots included) against their encode-time values;
   - ``classify(md) -> (SpmvStats, MatrixDevice)``: the one-shot 7-mask
     locate / correct / double-bit classify, returning scrubbed planes
     with re-derived values, checksums and fold;
@@ -16,15 +17,21 @@ docstring):
     semantic oracle and the CLI's verification pass.
 
 Stats are Python ints: the classify path runs once per fault and its
-result decides host-side control flow anyway.  ELL, flat and split
-layouts are not ported yet (ROADMAP.md queue 1) and raise
-``NotImplementedError``.
+result decides host-side control flow anyway.  The flat and split
+layouts are not ported yet (ROADMAP.md queue 1 item 9): the port's
+``build_protected`` refuses the matrices that route there.
+
+Out-of-range ELL gather indices (a flipped col bit in modes none and
+constraints, where the ECC byte is not masked off) follow the jnp
+oracle's gather: an index below zero wraps once by R, then the index is
+clamped to [0, R).  The kernels do the same (ops.spmv_cuda).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,7 +45,10 @@ from ..ecc.codec import (
     widen,
 )
 from ..ecc.fold import fold_words
+from ..ecc.layout import ECC_COL_MASK
 from ..ecc.values import planes_to_value
+from ..formats.protected import not_ported
+from ..formats.reorder import inverse_permutation
 
 __all__ = [
     "ERRCODES",
@@ -49,6 +59,9 @@ __all__ = [
     "make_spmv",
     "make_constraints_check",
     "not_ported",
+    "take_clamped",
+    "ell_product",
+    "exec_gather_host",
 ]
 
 # Error codes (0 = clean); the numbering, precedence and strings are the
@@ -91,12 +104,6 @@ ERRCODES = {
 }
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch/CUDA package yet "
-        "(ROADMAP.md queue 1)")
-
-
 class SpmvStats(NamedTuple):
     """Per-SpMV ABFT outcome (-1 slots mean 'none')."""
 
@@ -126,15 +133,20 @@ class SpmvStats(NamedTuple):
 
 
 class MatrixDevice(NamedTuple):
-    """Device-resident DIA matrix: the fields the kernels and classify read.
-
-    Word-like planes hold uint32 bit patterns in int32 tensors."""
+    """Device-resident DIA or ELL matrix: the fields the kernels and
+    classify read.  Word-like planes hold uint32 bit patterns in int32
+    tensors; (D, R) below reads (K, R) for ELL."""
 
     words: tuple                   # W x (D, R) int32, codeword-word order
     cksum: torch.Tensor            # (W, R/8) int32 encode-time block XORs
     values: torch.Tensor           # (D, R) compute-dtype value plane
     fold: torch.Tensor = None      # (D, R) int32 rotated fold (ECC modes)
     fold_ck: torch.Tensor = None   # (1, R/8) int32 fold of ``cksum``
+    ell_len: torch.Tensor = None   # (R,) int32 valid slots per row
+    gidx: torch.Tensor = None      # ELL under a permutation: (K, R) int32
+    #                                exec-space gather indices, derived at
+    #                                upload and again after a repair
+    perm_pos: torch.Tensor = None  # (R,) int32 canonical -> exec row
 
 
 class SpmvImpl(NamedTuple):
@@ -146,14 +158,26 @@ class SpmvImpl(NamedTuple):
     fast_pw: object = None
 
 
+def exec_gather_host(mat) -> np.ndarray:
+    """Exec-space gather plane of a permuted ELL matrix: the stored index
+    (ECC byte masked in the ECC modes) clipped to [0, N) and mapped
+    through the permutation (ops/spmv.py:242)."""
+    pos = inverse_permutation(mat.perm)
+    g = mat.ell[mat.ell_gather_word]
+    if mat.mode in ECC_MODES and mat.ell_gather_word == "col":
+        g = g & np.uint32(ECC_COL_MASK)
+    return pos[np.clip(g.astype(np.int64), 0, mat.N - 1)].astype(np.int32)
+
+
 def make_matrix_device(mat, dtype: torch.dtype,
                        device: torch.device) -> MatrixDevice:
-    """Upload a ProtectedMatrix's DIA planes to ``device`` and derive the
-    value plane (truncating f32 conversion for float32), the fold and
-    its checksum baseline — all from the same words, like the reference
-    (ops/spmv.py:333-405, DIA fields)."""
-    if mat.exec_kind != "dia":
-        raise not_ported(f"the {mat.exec_kind!r} execution layout")
+    """Upload a ProtectedMatrix's DIA or ELL planes to ``device`` and
+    derive the value plane (truncating f32 conversion for float32), the
+    fold and its checksum baseline — all from the same words — and, for
+    a permuted ELL matrix, the gather plane and ``perm_pos``, like the
+    reference (ops/spmv.py:333-405)."""
+    if mat.exec_kind not in ("dia", "ell"):
+        raise not_ported(f"the {mat.exec_kind!r} execution layout", "9")
     names = mat.layout.word_names
     words = tuple(from_numpy_u32(mat.ell[n], device) for n in names)
     wide = [widen(w) for w in words]
@@ -164,8 +188,16 @@ def make_matrix_device(mat, dtype: torch.dtype,
     if mat.mode in ECC_MODES:
         fold = narrow(fold_words(wide))
         fold_ck = narrow(fold_words([widen(c) for c in cksum]))[None, :]
+    gidx = perm_pos = None
+    if mat.perm is not None and mat.exec_kind == "ell":
+        gidx = torch.from_numpy(exec_gather_host(mat)).to(device)
+        pp = np.zeros(mat.R, dtype=np.int32)
+        pp[: mat.N] = inverse_permutation(mat.perm)
+        perm_pos = torch.from_numpy(pp).to(device)
+    ell_len = torch.from_numpy(np.asarray(mat.ell_len, np.int32)).to(device)
     return MatrixDevice(words=words, cksum=cksum, values=values, fold=fold,
-                        fold_ck=fold_ck)
+                        fold_ck=fold_ck, ell_len=ell_len, gidx=gidx,
+                        perm_pos=perm_pos)
 
 
 # --------------------------------------------------------------------------
@@ -230,7 +262,7 @@ def _raise_err(code, flags, errcode, err_slot):
 
 def make_constraints_check(mat):
     """``check(md) -> SpmvStats`` running only the structural checks."""
-    cfg = _config(mat)
+    cfg = _config(mat, "constraints")
 
     def check(md: MatrixDevice) -> SpmvStats:
         errcode, err_slot = cfg.constraints(md, ERR_NONE, -1)
@@ -239,10 +271,15 @@ def make_constraints_check(mat):
     return check
 
 
-def _config(mat):
-    if mat.exec_kind != "dia":
-        raise not_ported(f"the {mat.exec_kind!r} execution layout")
-    return _DiaConfig(mat.fmt, mat.layout, mat.N, mat.dia_offsets)
+def _config(mat, mode):
+    if mat.exec_kind == "dia":
+        return _DiaConfig(mat.fmt, mat.layout, mat.N, mat.dia_offsets)
+    if mat.exec_kind == "ell":
+        # The reference masks the ECC byte out of the column only in the
+        # ECC modes; none/constraints gather with the raw column.
+        return _EllConfig(mat.fmt, mat.layout, mat.N,
+                          ecc_mode=mode in ECC_MODES)
+    raise not_ported(f"the {mat.exec_kind!r} execution layout", "9")
 
 
 def make_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
@@ -251,7 +288,7 @@ def make_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
     mode = mat.mode if mode is None else mode
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    cfg = _config(mat)
+    cfg = _config(mat, mode)
 
     def full(md: MatrixDevice, x):
         if mode == "none":
@@ -336,11 +373,14 @@ def make_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
         if md.fold is not None:
             fold2 = narrow(fold_words(checked))
             fold_ck2 = narrow(fold_words([widen(c) for c in cksum2]))[None, :]
-        md2 = MatrixDevice(
+        gidx2 = md.gidx
+        if gidx2 is not None:
+            gidx2 = cfg.gather_indices(md, checked).to(torch.int32)
+        md2 = md._replace(
             words=words2, cksum=cksum2,
             values=planes_to_value(checked[cfg.vlo_w], checked[cfg.vhi_w],
                                    dtype),
-            fold=fold2, fold_ck=fold_ck2)
+            fold=fold2, fold_ck=fold_ck2, gidx=gidx2)
         return stats, md2
 
     return SpmvImpl(full=full, fast=fast, classify=classify, fast_pw=fast_pw)
@@ -411,4 +451,105 @@ class _DiaConfig:
                                            errcode, err_slot)
             errcode, err_slot = _raise_err(ERR_COL_ORDER, badc & (cw < self.N),
                                            errcode, err_slot)
+        return errcode, err_slot
+
+
+# --------------------------------------------------------------------------
+# ELL: gather over transposed (K, R) planes
+# --------------------------------------------------------------------------
+
+def take_clamped(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``a[idx]`` with the jnp gather's out-of-range rule: a negative
+    index wraps once by len(a), then every index is clamped into range."""
+    n = a.shape[0]
+    idx = idx.to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
+    return a[idx]
+
+
+def ell_product(values: torch.Tensor, gidx: torch.Tensor,
+                ell_len: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w[r] = sum over k < ell_len[r] of values[k, r] * x[gidx[k, r]],
+    summed in slot order k = 0..K-1, one rounding per multiply and per
+    add (the kernels' order, so their w is bit-identical)."""
+    w = torch.zeros_like(x)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    for k in range(values.shape[0]):
+        xk = take_clamped(x, gidx[k])
+        w = w + torch.where(ell_len > k, values[k] * xk, zero)
+    return w
+
+
+class _EllConfig:
+    def __init__(self, fmt, layout, N, ecc_mode=True):
+        self.fmt = fmt
+        self.layout = layout
+        self.N = N
+        names = layout.word_names
+        self.gather_w = names.index("row" if fmt == "coo" else "col")
+        self.col_w = names.index("col")
+        self.vlo_w = names.index("value_lo")
+        self.vhi_w = names.index("value_hi")
+        self.ecc_gather_mask = ecc_mode and self.gather_w == self.col_w
+
+    def gather_indices(self, md, words=None):
+        """Exec-space gather indices (int32 semantics: a word with bit
+        31 set is negative).  ``words=None`` means the resident planes,
+        so the pre-derived ``md.gidx`` applies under a permutation;
+        otherwise (corrected words) the index is mapped through
+        ``perm_pos`` again (ops/spmv.py:829-843)."""
+        if words is None:
+            if md.gidx is not None:
+                return md.gidx
+            g = md.words[self.gather_w]
+        else:
+            g = words[self.gather_w]
+        if self.ecc_gather_mask:
+            g = g & int(ECC_COL_MASK)
+        g = narrow(g)
+        if md.perm_pos is not None:
+            g = take_clamped(md.perm_pos, g)
+        return g
+
+    def compute_w(self, md, words, x, dtype, values=None):
+        """``words``: widened planes (used when ``values`` is None: the
+        check-and-correct oracle's corrected words)."""
+        if values is not None:
+            return ell_product(values, self.gather_indices(md), md.ell_len,
+                               x)
+        vals = planes_to_value(words[self.vlo_w], words[self.vhi_w], dtype)
+        return ell_product(vals, self.gather_indices(md, words), md.ell_len,
+                           x)
+
+    def constraints(self, md, errcode, err_slot):
+        """The reference's bounds and ordering checks over the valid
+        slots (ops/spmv.py:855-877)."""
+        words = md.words
+        K, R = words[0].shape
+        kio = torch.arange(K, dtype=torch.int32,
+                           device=words[0].device)[:, None]
+        valid = kio < md.ell_len[None, :]
+        col = widen(words[self.col_w])
+        errcode, err_slot = _raise_err(ERR_COL_SIZE, valid & (col >= self.N),
+                                       errcode, err_slot)
+        pair_valid = (kio[:-1] + 1) < md.ell_len[None, :]
+
+        def pad(bad):  # (K-1, R) pair flags -> (K, R), last slot clean
+            return torch.cat([bad, torch.zeros_like(bad[:1])])
+
+        if self.fmt == "coo":
+            row = widen(words[self.gather_w])
+            errcode, err_slot = _raise_err(
+                ERR_ROW_SIZE, valid & (row >= self.N), errcode, err_slot)
+            bad = pad(pair_valid & (row[1:] <= row[:-1]))
+            errcode, err_slot = _raise_err(ERR_ROW_ORDER, bad, errcode,
+                                           err_slot)
+            grp = torch.arange(R, dtype=torch.int64,
+                               device=col.device)[None, :]
+            errcode, err_slot = _raise_err(
+                ERR_COL_ORDER, valid & (col != grp), errcode, err_slot)
+        else:
+            bad = pad(pair_valid & (col[1:] <= col[:-1]))
+            errcode, err_slot = _raise_err(ERR_COL_ORDER, bad, errcode,
+                                           err_slot)
         return errcode, err_slot

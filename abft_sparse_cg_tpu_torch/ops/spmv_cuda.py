@@ -1,11 +1,14 @@
-"""Kernel A (``dia_spmv_detect``) and the cuda target's SpmvImpl.
+"""Kernels A (``dia_spmv_detect``) and C (``ell_spmv_detect``) and the
+cuda target's SpmvImpl.
 
-Counterpart of ``abft_sparse_cg_tpu.ops.spmv_pallas`` for the DIA
-layout: ``dia_fast(md, x, spec) -> (w, trig, pw)`` computes the stencil
-product, the fused pw = x . w and the mode's live trigger in one pass
-over the planes (csrc/dia_spmv_detect.cu).  ``dia_fast_plain`` beside it
-is the same function in plain PyTorch: the CPU tests run it, and
-chip_smoke.py holds the kernel against it on the card.
+Counterpart of ``abft_sparse_cg_tpu.ops.spmv_pallas`` for the DIA and
+banded-ELL layouts: ``dia_fast(md, x, spec)`` and ``ell_fast(md, x,
+spec)`` return ``(w, trig, pw)`` — the product, the fused pw = x . w and
+the mode's live trigger, in one pass over the planes
+(csrc/dia_spmv_detect.cu, csrc/ell_spmv_detect.cu).  ``dia_fast_plain``
+and ``ell_fast_plain`` beside them are the same functions in plain
+PyTorch: the CPU tests run them, and chip_smoke.py holds each kernel
+against its plain version on the card.
 
 The wrapper launches the kernel for CUDA tensors and raises on anything
 it cannot take; it takes the plain version only for tensors on the CPU.
@@ -22,18 +25,21 @@ from typing import NamedTuple
 import torch
 
 from ..ecc.codec import ECC_MODES, parity32, widen
+from ..ecc.layout import ECC_COL_MASK
 from .spmv import (
     MatrixDevice,
     SpmvImpl,
     SpmvStats,
     _fold_blocks,
     dia_product,
+    ell_product,
     make_constraints_check,
     make_spmv,
     not_ported,
 )
 
 __all__ = ["DiaSpec", "dia_spec", "dia_fast", "dia_fast_plain",
+           "EllSpec", "ell_spec", "ell_fast", "ell_fast_plain",
            "make_cuda_spmv", "stream_words", "use_fold"]
 
 
@@ -75,9 +81,9 @@ class DiaSpec(NamedTuple):
     plane: object
 
 
-def dia_spec(mat, mode) -> DiaSpec:
-    if mat.exec_kind != "dia":
-        raise not_ported(f"the {mat.exec_kind!r} execution layout")
+def _signal_plane(mode, mat):
+    """(use_parity, use_cksum, plane): the one plane live detection
+    streams — None, "fold" or the word index (constraints: col)."""
     use_parity, use_cksum, sw = _mode_signals(mode, mat)
     if not (use_parity or use_cksum):
         plane = None
@@ -85,12 +91,55 @@ def dia_spec(mat, mode) -> DiaSpec:
         plane = "fold"
     else:
         if len(sw) != 1:
-            raise not_ported("a multi-word constraints scan (cg-coo)")
+            raise not_ported("a multi-word constraints scan (cg-coo)", "7")
         plane = sw[0]
-    return DiaSpec(tuple(mat.dia_offsets), use_parity, use_cksum, plane)
+    return use_parity, use_cksum, plane
 
 
-def _signal_planes(md: MatrixDevice, spec: DiaSpec):
+def dia_spec(mat, mode) -> DiaSpec:
+    if mat.exec_kind != "dia":
+        raise ValueError(f"dia_spec: a {mat.exec_kind!r} matrix")
+    return DiaSpec(tuple(mat.dia_offsets), *_signal_plane(mode, mat))
+
+
+class EllSpec(NamedTuple):
+    """Static description of one banded-ELL product with signals.
+
+    ``K``: slots per row; ``gather``: "gidx" (an RCM permutation is
+    active: the pre-derived exec-space plane) or the index of the word
+    plane holding the gather index; ``mask_ecc``: mask the ECC byte off
+    that word (the ECC modes, spmv_pallas.py:610-612); ``plane`` as in
+    DiaSpec."""
+
+    K: int
+    use_parity: bool
+    use_cksum: bool
+    plane: object
+    gather: object
+    mask_ecc: bool
+
+
+def ell_spec(mat, mode) -> EllSpec:
+    if mat.exec_kind != "ell":
+        raise ValueError(f"ell_spec: a {mat.exec_kind!r} matrix")
+    gather_w = mat.layout.word_names.index(mat.ell_gather_word)
+    has_gidx = mat.perm is not None
+    return EllSpec(mat.K, *_signal_plane(mode, mat),
+                   gather="gidx" if has_gidx else gather_w,
+                   mask_ecc=(not has_gidx and mat.ell_gather_word == "col"
+                             and mode in ECC_MODES))
+
+
+def fast_spec(mat, mode):
+    """The DiaSpec or EllSpec of ``mat``'s layout."""
+    if mat.exec_kind == "dia":
+        return dia_spec(mat, mode)
+    if mat.exec_kind == "ell":
+        return ell_spec(mat, mode)
+    raise not_ported(f"the {mat.exec_kind!r} execution layout", "9")
+
+
+def _signal_planes(md: MatrixDevice, spec):
     """(plane (D, R) int32, baseline (R/8,) int32) or (None, None)."""
     if spec.plane is None:
         return None, None
@@ -99,7 +148,7 @@ def _signal_planes(md: MatrixDevice, spec: DiaSpec):
     return md.words[spec.plane], md.cksum[spec.plane]
 
 
-def signals_plain(md: MatrixDevice, spec: DiaSpec) -> torch.Tensor:
+def signals_plain(md: MatrixDevice, spec) -> torch.Tensor:
     """The trigger of ``spec``'s signals, in plain PyTorch."""
     plane, base = _signal_planes(md, spec)
     trig = torch.zeros((), dtype=torch.bool, device=md.values.device)
@@ -116,30 +165,44 @@ def dia_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec):
     return w, signals_plain(md, spec), torch.sum(x * w)
 
 
-def _check_cuda_args(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec):
-    D = len(spec.offsets)
-    R = x.shape[0]
+def _check_tensor(what, name, t, dtype, shape, device):
+    if (t is None or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous() or t.device != device):
+        got = ("None" if t is None else
+               f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
+                         f"tensor of shape {tuple(shape)} on {device}, "
+                         f"got {got}")
+
+
+def _check_cuda_args(md: MatrixDevice, x: torch.Tensor, spec, what):
+    """Validate the kernel arguments of a DIA or ELL product; returns
+    (D or K, R, signal plane, baseline, gather plane or None)."""
     if x.device.type != "cuda":
-        raise ValueError(f"dia_fast: x on {x.device}, expected cpu or cuda")
-    for name, t, dt in (("x", x, torch.float32),
-                        ("values", md.values, torch.float32)):
-        if t.dtype != dt or t.device != x.device or not t.is_contiguous():
-            raise ValueError(
-                f"dia_fast: {name} must be a contiguous {dt} tensor on "
-                f"{x.device}, got {t.dtype} on {t.device}")
-    if x.dim() != 1 or tuple(md.values.shape) != (D, R) or R % 32:
-        raise ValueError(
-            f"dia_fast: values {tuple(md.values.shape)} / x "
-            f"{tuple(x.shape)} do not form a (D={D}, R) DIA product "
-            "with R % 32 == 0")
+        raise ValueError(f"{what}: x on {x.device}, expected cpu or cuda")
+    R = x.shape[0]
+    if x.dim() != 1 or R % 32:
+        raise ValueError(f"{what}: x must be 1-D with R % 32 == 0, got "
+                         f"{tuple(x.shape)}")
+    D = len(spec.offsets) if isinstance(spec, DiaSpec) else spec.K
+    dev = x.device
+    _check_tensor(what, "x", x, torch.float32, (R,), dev)
+    _check_tensor(what, "values", md.values, torch.float32, (D, R), dev)
+    gsrc = None
+    if isinstance(spec, EllSpec):
+        gsrc = md.gidx if spec.gather == "gidx" else md.words[spec.gather]
+        _check_tensor(what, "gather plane", gsrc, torch.int32, (D, R), dev)
+        _check_tensor(what, "ell_len", md.ell_len, torch.int32, (R,), dev)
     plane, base = _signal_planes(md, spec)
     if plane is not None:
-        if (plane.dtype != torch.int32 or tuple(plane.shape) != (D, R)
-                or not plane.is_contiguous() or plane.device != x.device
-                or base.dtype != torch.int32 or base.shape[0] != R // 8
-                or not base.is_contiguous() or base.device != x.device):
-            raise ValueError("dia_fast: signal plane/baseline malformed")
-    return D, R, plane, base
+        _check_tensor(what, "signal plane", plane, torch.int32, (D, R), dev)
+        _check_tensor(what, "baseline", base, torch.int32, (R // 8,), dev)
+    return D, R, plane, base, gsrc
+
+
+def gather_mask(spec: EllSpec) -> int:
+    """The AND-mask applied to the gather word before the clamp."""
+    return int(ECC_COL_MASK) if spec.mask_ecc else 0xFFFFFFFF
 
 
 def _offsets_arg(offsets):
@@ -159,8 +222,8 @@ def dia_fast(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec):
         return dia_fast_plain(md, x, spec)
     from .._build import check, library
 
-    D, R, plane, base = _check_cuda_args(md, x, spec)
-    lib = library()
+    D, R, plane, base, _ = _check_cuda_args(md, x, spec, "dia_fast")
+    lib = library("dia_spmv_detect")
     dev = x.device.index if x.device.index is not None else 0
     block = lib.abft_dia_spmv_block()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -184,17 +247,63 @@ def dia_fast(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec):
 dia_fast.launches = 0
 
 
+def ell_gather_plane(md: MatrixDevice, spec: EllSpec) -> torch.Tensor:
+    """The gather indices kernel C reads, before the clamp: the masked
+    col word or the gidx plane."""
+    g = md.gidx if spec.gather == "gidx" else md.words[spec.gather]
+    return g & int(ECC_COL_MASK) if spec.mask_ecc else g
+
+
+def ell_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: EllSpec):
+    """Plain version of kernel C: (w, trig, pw)."""
+    w = ell_product(md.values, ell_gather_plane(md, spec), md.ell_len, x)
+    return w, signals_plain(md, spec), torch.sum(x * w)
+
+
+def ell_fast(md: MatrixDevice, x: torch.Tensor, spec: EllSpec):
+    """Kernel C: ``(w, trig, pw)`` for CUDA tensors; the plain version
+    for CPU tensors.  ``trig`` is a 0-d bool tensor, ``pw`` a 0-d float
+    tensor (no host synchronisation)."""
+    if x.device.type == "cpu":
+        return ell_fast_plain(md, x, spec)
+    from .._build import check, library
+
+    K, R, plane, base, gsrc = _check_cuda_args(md, x, spec, "ell_fast")
+    lib = library("ell_spmv_detect")
+    dev = x.device.index if x.device.index is not None else 0
+    block = lib.abft_ell_spmv_block()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = max(1, min(-(-R // block), 4 * sms))
+    w = torch.empty_like(x)
+    pw_part = torch.empty(grid, dtype=torch.float32, device=x.device)
+    trig = torch.zeros(1, dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.abft_ell_spmv_detect(
+        md.values.data_ptr(), gsrc.data_ptr(), gather_mask(spec),
+        md.ell_len.data_ptr(), K, R, x.data_ptr(), w.data_ptr(),
+        pw_part.data_ptr(), grid, _ptr(plane), _ptr(base),
+        int(spec.use_parity), int(spec.use_cksum), trig.data_ptr(), dev,
+        stream)
+    check(rc, "ell_spmv_detect launch")
+    ell_fast.launches += 1
+    return w, trig[0] != 0, torch.sum(pw_part)
+
+
+ell_fast.launches = 0
+
+
 def make_cuda_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
     """The cuda target's SpmvImpl (counterpart of make_pallas_spmv,
-    spmv_pallas.py:153, DIA only): kernel A as ``fast``, the plain
+    spmv_pallas.py:153): kernel A (DIA) or C (ELL) as ``fast``, the plain
     ops.spmv paths for the rare ones.  Its consumer is ``spmv_once``
-    (``full``); the solve runs in kernel B, so there is no ``fast_pw``
-    for a per-iteration loop."""
+    (``full``); the solve runs in kernel B or D, so there is no
+    ``fast_pw`` for a per-iteration loop."""
     mode = mat.mode if mode is None else mode
-    spec = dia_spec(mat, mode)
+    spec = fast_spec(mat, mode)
+    kernel = dia_fast if isinstance(spec, DiaSpec) else ell_fast
 
     def fast(md, x):
-        w, trig, _ = dia_fast(md, x, spec)
+        w, trig, _ = kernel(md, x, spec)
         return w, trig
 
     return _wrap_mode(mat, dtype, mode, fast)

@@ -1,16 +1,19 @@
-"""Whole-solve fused CG: kernel B (``fused_cg_dia``) and its outer loop.
+"""Whole-solve fused CG: kernels B (``fused_cg_dia``) and D
+(``fused_cg_ell``) and their outer loop.
 
-Counterpart of ``abft_sparse_cg_tpu.solver.fused`` for the DIA layout,
-unpreconditioned, live detection (check interval 1), every mode.  The
-fast loop runs inside one persistent cooperative CUDA kernel
-(csrc/fused_cg_dia.cu) that exits on convergence, ``upto``, a trigger or
-a breakdown; the rare classify/repair stays the plain ops.spmv path in
-the outer loop, with the reference's livelock guard (fused.py:2120-2148).
+Counterpart of ``abft_sparse_cg_tpu.solver.fused`` for the DIA and
+banded-ELL layouts, unpreconditioned, live detection (check interval 1),
+every mode.  The fast loop runs inside one persistent cooperative CUDA
+kernel (csrc/fused_cg_dia.cu, csrc/fused_cg_ell.cu) that exits on
+convergence, ``upto``, a trigger or a breakdown; the rare
+classify/repair stays the plain ops.spmv path in the outer loop, with
+the reference's livelock guard (fused.py:2120-2148).
 
-``fused_cg_dia`` launches the kernel for CUDA tensors and runs
-``fused_cg_dia_plain`` — a Python loop with the same exit semantics —
-for CPU tensors.  Both update x, r and p in place; an iteration that
-triggers or breaks down changes none of them.
+``fused_cg_dia`` / ``fused_cg_ell`` launch their kernel for CUDA tensors
+and run ``fused_cg_dia_plain`` / ``fused_cg_ell_plain`` — a Python loop
+with the same exit semantics — for CPU tensors.  All update x, r and p
+in place; an iteration that triggers or breaks down changes none of
+them.
 """
 
 from __future__ import annotations
@@ -20,11 +23,14 @@ import torch
 from ..ops.spmv import ERR_BREAKDOWN, SpmvStats, make_spmv
 from ..ops.spmv_cuda import (
     DiaSpec,
+    EllSpec,
     _check_cuda_args,
     _offsets_arg,
     _ptr,
     dia_fast_plain,
-    dia_spec,
+    ell_fast_plain,
+    fast_spec,
+    gather_mask,
 )
 from .cg import (
     CGResult,
@@ -35,23 +41,30 @@ from .cg import (
 )
 
 __all__ = ["supports_fused", "make_fused_continue", "make_fused_solver",
-           "fused_cg_dia", "fused_cg_dia_plain"]
+           "fused_cg_dia", "fused_cg_dia_plain", "fused_cg_ell",
+           "fused_cg_ell_plain"]
+
+_MAX_K = 512  # csrc/dia_common.cuh ABFT_MAX_K
 
 
 def supports_fused(mat, dtype) -> bool:
-    """The envelope of kernel B: a DIA matrix, float32.  (Every solve of
-    the port is unpreconditioned with live detection.)"""
-    return (dtype == torch.float32 and mat.exec_kind == "dia"
-            and len(mat.dia_offsets) > 0 and mat.R % 32 == 0)
+    """The envelope of kernels B and D: a DIA matrix, or an ELL matrix of
+    at most 512 slots per row, float32.  (Every solve of the port is
+    unpreconditioned with live detection.)"""
+    if dtype != torch.float32 or mat.R % 32:
+        return False
+    if mat.exec_kind == "dia":
+        return len(mat.dia_offsets) > 0
+    return mat.exec_kind == "ell" and mat.K <= _MAX_K
 
 
-def fused_cg_dia_plain(md, spec: DiaSpec, x, r, p, rr, rz, itr: int,
-                       upto: int, conv: float, trace):
-    """Plain version of kernel B.  Returns (itr, rr, rz, trig, err)."""
+def _cg_loop_plain(fast_plain, md, spec, x, r, p, rr, rz, itr, upto, conv,
+                   trace):
+    """The fused kernels' loop in plain PyTorch around one product."""
     conv_t = torch.tensor(conv, dtype=rr.dtype, device=rr.device)
     trig = err = 0
     while itr < upto and bool(rr > conv_t):
-        w, t, pw = dia_fast_plain(md, p, spec)
+        w, t, pw = fast_plain(md, p, spec)
         alpha = rz / pw
         r1 = r - alpha * w
         rr1 = torch.sum(r1 * r1)
@@ -70,6 +83,50 @@ def fused_cg_dia_plain(md, spec: DiaSpec, x, r, p, rr, rz, itr: int,
     return itr, rr, rz, trig, err
 
 
+def fused_cg_dia_plain(md, spec: DiaSpec, x, r, p, rr, rz, itr: int,
+                       upto: int, conv: float, trace):
+    """Plain version of kernel B.  Returns (itr, rr, rz, trig, err)."""
+    return _cg_loop_plain(dia_fast_plain, md, spec, x, r, p, rr, rz, itr,
+                          upto, conv, trace)
+
+
+def fused_cg_ell_plain(md, spec: EllSpec, x, r, p, rr, rz, itr: int,
+                       upto: int, conv: float, trace):
+    """Plain version of kernel D.  Returns (itr, rr, rz, trig, err)."""
+    return _cg_loop_plain(ell_fast_plain, md, spec, x, r, p, rr, rz, itr,
+                          upto, conv, trace)
+
+
+def _launch_args(what, md, spec, x, r, p, rr, rz, itr, upto, trace):
+    """Validated tensors and the scratch one cooperative launch needs."""
+    D, R, plane, base, gsrc = _check_cuda_args(md, p, spec, what)
+    for name, t in (("x", x), ("r", r), ("p", p), ("trace", trace)):
+        if (t.dtype != torch.float32 or t.device != p.device
+                or not t.is_contiguous() or t.dim() != 1):
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"1-D float32 tensor on {p.device}")
+    if x.shape[0] != R or r.shape[0] != R:
+        raise ValueError(f"{what}: x, r, p must have R rows")
+    dev = p.device.index if p.device.index is not None else 0
+    grid = fused_grid(dev, "ell" if isinstance(spec, EllSpec) else "dia")
+    f32 = dict(dtype=torch.float32, device=p.device)
+    i32 = dict(dtype=torch.int32, device=p.device)
+    return dict(
+        D=D, R=R, plane=plane, base=base, gsrc=gsrc, dev=dev, grid=grid,
+        w=torch.empty(R, **f32),
+        part_pw=torch.empty(grid, **f32), part_rr=torch.empty(grid, **f32),
+        part_flag=torch.empty(grid, **i32),
+        iscal_in=torch.tensor([itr, upto], **i32),
+        fscal_in=torch.stack([rr.to(torch.float32), rz.to(torch.float32)]),
+        iscal_out=torch.empty(3, **i32), fscal_out=torch.empty(2, **f32),
+        stream=torch.cuda.current_stream(p.device).cuda_stream)
+
+
+def _launch_result(a):
+    itr_out, trig, err = (int(v) for v in a["iscal_out"].tolist())
+    return itr_out, a["fscal_out"][0], a["fscal_out"][1], trig, err
+
+
 def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
                  conv: float, trace):
     """Kernel B: run CG iterations ``itr .. upto`` in place on x, r, p.
@@ -82,72 +139,89 @@ def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
                                   conv, trace)
     from .._build import check, library
 
-    D, R, plane, base = _check_cuda_args(md, p, spec)
-    for name, t in (("x", x), ("r", r), ("p", p), ("trace", trace)):
-        if (t.dtype != torch.float32 or t.device != p.device
-                or not t.is_contiguous() or t.dim() != 1):
-            raise ValueError(f"fused_cg_dia: {name} must be a contiguous "
-                             f"1-D float32 tensor on {p.device}")
-    if x.shape[0] != R or r.shape[0] != R:
-        raise ValueError("fused_cg_dia: x, r, p must have R rows")
-    lib = library()
-    dev = p.device.index if p.device.index is not None else 0
-    grid = fused_grid(dev)
-    f32 = dict(dtype=torch.float32, device=p.device)
-    i32 = dict(dtype=torch.int32, device=p.device)
-    w = torch.empty(R, **f32)
-    part_pw = torch.empty(grid, **f32)
-    part_rr = torch.empty(grid, **f32)
-    part_flag = torch.empty(grid, **i32)
-    iscal_in = torch.tensor([itr, upto], **i32)
-    fscal_in = torch.stack([rr.to(torch.float32), rz.to(torch.float32)])
-    iscal_out = torch.empty(3, **i32)
-    fscal_out = torch.empty(2, **f32)
+    a = _launch_args("fused_cg_dia", md, spec, x, r, p, rr, rz, itr, upto,
+                     trace)
     offs, offs_ptr = _offsets_arg(spec.offsets)
-    stream = torch.cuda.current_stream(p.device).cuda_stream
-    rc = lib.abft_fused_cg_dia(
-        md.values.data_ptr(), offs_ptr, D, R, x.data_ptr(), r.data_ptr(),
-        p.data_ptr(), w.data_ptr(), _ptr(plane), _ptr(base),
-        int(spec.use_parity), int(spec.use_cksum), part_pw.data_ptr(),
-        part_rr.data_ptr(), part_flag.data_ptr(), grid, iscal_in.data_ptr(),
-        fscal_in.data_ptr(), iscal_out.data_ptr(), fscal_out.data_ptr(),
-        trace.data_ptr(), trace.shape[0], float(conv), dev, stream)
+    rc = library("fused_cg_dia").abft_fused_cg_dia(
+        md.values.data_ptr(), offs_ptr, a["D"], a["R"], x.data_ptr(),
+        r.data_ptr(), p.data_ptr(), a["w"].data_ptr(), _ptr(a["plane"]),
+        _ptr(a["base"]), int(spec.use_parity), int(spec.use_cksum),
+        a["part_pw"].data_ptr(), a["part_rr"].data_ptr(),
+        a["part_flag"].data_ptr(), a["grid"], a["iscal_in"].data_ptr(),
+        a["fscal_in"].data_ptr(), a["iscal_out"].data_ptr(),
+        a["fscal_out"].data_ptr(), trace.data_ptr(), trace.shape[0],
+        float(conv), a["dev"], a["stream"])
     del offs
     check(rc, "fused_cg_dia cooperative launch")
     fused_cg_dia.launches += 1
-    itr_out, trig, err = (int(v) for v in iscal_out.tolist())
-    return itr_out, fscal_out[0], fscal_out[1], trig, err
+    return _launch_result(a)
 
 
 fused_cg_dia.launches = 0
 
+
+def fused_cg_ell(md, spec: EllSpec, x, r, p, rr, rz, itr: int, upto: int,
+                 conv: float, trace):
+    """Kernel D: kernel B's contract over a banded-ELL matrix."""
+    if x.device.type == "cpu":
+        return fused_cg_ell_plain(md, spec, x, r, p, rr, rz, itr, upto,
+                                  conv, trace)
+    from .._build import check, library
+
+    a = _launch_args("fused_cg_ell", md, spec, x, r, p, rr, rz, itr, upto,
+                     trace)
+    rc = library("fused_cg_ell").abft_fused_cg_ell(
+        md.values.data_ptr(), a["gsrc"].data_ptr(), gather_mask(spec),
+        md.ell_len.data_ptr(), a["D"], a["R"], x.data_ptr(), r.data_ptr(),
+        p.data_ptr(), a["w"].data_ptr(), _ptr(a["plane"]), _ptr(a["base"]),
+        int(spec.use_parity), int(spec.use_cksum), a["part_pw"].data_ptr(),
+        a["part_rr"].data_ptr(), a["part_flag"].data_ptr(), a["grid"],
+        a["iscal_in"].data_ptr(), a["fscal_in"].data_ptr(),
+        a["iscal_out"].data_ptr(), a["fscal_out"].data_ptr(),
+        trace.data_ptr(), trace.shape[0], float(conv), a["dev"],
+        a["stream"])
+    check(rc, "fused_cg_ell cooperative launch")
+    fused_cg_ell.launches += 1
+    return _launch_result(a)
+
+
+fused_cg_ell.launches = 0
+
 _grids = {}
 
 
-def fused_grid(device_index: int) -> int:
-    """Co-resident grid of kernel B on a device (SMs x blocks per SM)."""
-    if device_index not in _grids:
+def fused_grid(device_index: int, layout: str) -> int:
+    """Co-resident grid of kernel B ("dia") or D ("ell") on a device
+    (SMs x blocks per SM)."""
+    key = (device_index, layout)
+    if key not in _grids:
         import ctypes
 
         from .._build import check, library
 
         out = ctypes.c_int(0)
-        check(library().abft_fused_grid(device_index,
-                                        ctypes.addressof(out)),
-              "fused_cg_dia occupancy query")
-        _grids[device_index] = out.value
-    return _grids[device_index]
+        if layout == "dia":
+            rc = library("fused_cg_dia").abft_fused_grid(
+                device_index, ctypes.addressof(out))
+        else:
+            rc = library("fused_cg_ell").abft_fused_ell_grid(
+                device_index, ctypes.addressof(out))
+        check(rc, f"fused_cg_{layout} occupancy query")
+        _grids[key] = out.value
+    return _grids[key]
 
 
 def make_fused_continue(mat, mode, conv_threshold):
     """``continue_(md, state, upto) -> (CGState, MatrixDevice)`` with
-    solver.cg's contract, the fast loop in kernel B (fused.py:1946)."""
-    spec = dia_spec(mat, mode)
+    solver.cg's contract, the fast loop in kernel B or D
+    (fused.py:1946)."""
+    spec = fast_spec(mat, mode)
+    kernel = fused_cg_dia if isinstance(spec, DiaSpec) else fused_cg_ell
     classify = make_spmv(mat, torch.float32, mode).classify
 
     def run_fast(md, s: CGState, upto: int):
         ktrace = torch.full_like(s.trace, float("nan"))
-        itr, rr, rz, trig, err = fused_cg_dia(
+        itr, rr, rz, trig, err = kernel(
             md, spec, s.x, s.r, s.p, s.rr, s.rz, s.itr, upto,
             conv_threshold, ktrace)
         # Merge the kernel's trace: it wrote slots [s.itr, itr) only.
@@ -186,7 +260,7 @@ def make_fused_continue(mat, mode, conv_threshold):
 
 
 def make_fused_solver(mat, mode, max_itrs: int, conv_threshold: float):
-    """``solve(md, b) -> CGResult`` on kernel B."""
+    """``solve(md, b) -> CGResult`` on kernel B or D."""
     cont = make_fused_continue(mat, mode, conv_threshold)
 
     def solve(md, b):

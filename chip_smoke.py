@@ -3,34 +3,59 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — ``cg-csr -b 10 -m <mode>`` (N = 819,200,
-the bundled tridiagonal stand-in, CSR96 codewords, DIA layout, float32,
-live detection) — through the CLI entry point, after holding each CUDA
-kernel against its plain PyTorch version on the card:
+Drives the port's two paths through the CLI entry point, after holding
+each CUDA kernel against its plain PyTorch version on the card:
+
+  - the DIA path, ``cg-csr -b 10 -m <mode>`` (N = 819,200, the bundled
+    tridiagonal stand-in, CSR96 codewords, float32, live detection):
+    kernels A (dia_spmv_detect) and B (fused_cg_dia);
+  - the banded-ELL path, ``cg-csr -f <dense-radius-3d.mtx> -b 10 -m
+    <mode>`` (N = 219,520, nnz 33.0M, K = 175, band 1627, the zoo family
+    of utils.matzoo): kernels C (ell_spmv_detect) and D (fused_cg_ell).
+
+Phases:
 
   1. device and card (name, power limit);
-  2. build the kernels from abft_sparse_cg_tpu_torch/csrc;
-  3. kernel A (dia_spmv_detect) vs its plain version, every mode, clean
-     and with injected 1- and 2-bit faults;
-  4. kernel B (fused_cg_dia) vs its plain loop: a clean and a faulted
-     secded solve;
-  5. the four run_tests classes on -t cuda at -b 10 --seed 11, through
-     abft_sparse_cg_tpu_torch.cli.main_csr (what bin/cg-csr-torch runs),
-     with every kernel's launch count reset before and read after;
+  2. build the four kernels from abft_sparse_cg_tpu_torch/csrc (one nvcc
+     per source, all started together);
+  3. kernel A vs its plain version, every mode, clean and with injected
+     1- and 2-bit faults;
+  4. kernel B vs its plain loop: a clean and a faulted secded solve;
+  5. the DIA main path: the four run_tests classes on -t cuda at -b 10
+     --seed 11, through abft_sparse_cg_tpu_torch.cli.main_csr (what
+     bin/cg-csr-torch runs), every launch count reset before and read
+     after;
   6. the float32 rr trajectory against the port's float64 plain solve
      (the scripts/tpu_smoke.py bound);
-  7. the launch counts;
-  8. times: interleaved batches, median and spread, build excluded;
-  9. a torch.profiler window over warm -b 10 none and secded solves:
-     device time per solve by kernel and the device's idle share.
+  7. the DIA launch counts;
+  8. DIA times: interleaved batches, median and spread, build excluded;
+     kernel A against its plain version, the bare ``A @ x`` of a
+     torch.sparse_csr_tensor (computes less: no checks) and its bound;
+  9. the ELL matrices, each mode built once: dense-radius-3d -b 10,
+     blockdiag-random -b 4, and stencil27-shuffled -b 4 forced to ELL
+     under its RCM permutation (the gidx plane);
+ 10. kernel C vs its plain version on the three ELL shapes, every mode,
+     clean and with injected 1- and 2-bit faults (and an index flip in
+     none/constraints): w bit-exact, pw within 1e-5;
+ 11. kernel D vs its plain loop: a clean and a faulted secded solve on
+     dense-radius-3d -b 10;
+ 12. the ELL main path: the four run_tests classes through main_csr with
+     -t cuda -f <file> -b 10 --seed 11, the .mtx file written by the
+     port's mmio into a temporary directory; launch counts reset before
+     and read after;
+ 13. the ELL float32 trajectory against the port's float64 plain solve;
+ 14. ELL times: solves, per-iteration slope and GB/s, kernel C and D
+     against their plain versions, ``A @ x`` and their bounds, and the
+     host build, upload and classify;
+ 15. torch.profiler windows over warm -b 10 DIA and ELL solves: device
+     time per solve by kernel and the device's idle share.
 
 Any failed check raises, so the script exits non-zero.  The last three
 lines are the card line from nvidia-smi, one JSON object describing the
 kernels, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
-and no module of the JAX package: matrix loading and fault injection
-come through the port's ``formats`` and ``inject``.  Without a CUDA
-device, or without the rest of the repository beside it, it exits
-non-zero and prints no result.
+and no module of the JAX package.  Without a CUDA device, or without the
+rest of the repository beside it, it exits non-zero and prints no
+result.
 """
 
 import contextlib
@@ -41,12 +66,17 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MATRIX = os.path.join(ROOT, "matrices", "shallow_water1", "shallow_water1.mtx")
 MODES = ("none", "constraints", "sed", "sec7", "sec8", "secded")
 ECC = ("sed", "sec7", "sec8", "secded")
+HBM_BPS = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
+F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
+CONV = 1e-3
 
 
 def require(cond, what):
@@ -63,23 +93,118 @@ def spread(vals):
             f"(min {min(vals):.4f}, max {max(vals):.4f}, n={len(vals)})")
 
 
-def profile_solves(a10, dev, card, solves=10):
-    """A torch.profiler window over ``solves`` warm -b 10 solves per
-    mode: device time per solve by kernel, the device's busy and idle
-    shares of the window (the profiler's own host overhead stretches
-    the window, so the idle share is an upper bound)."""
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    float32 operations over the card's peak rate."""
+    tb, to = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def host_ms(fn, reps):
+    """Host clock around ``reps`` calls ending in a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def event_ms(fn, reps):
+    """CUDA events around ``reps`` launches: device time per call."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def interleave(fns, reps, batches=7, timer=host_ms):
+    """Batches in turns (a, b, b, a, ...); per-call ms lists."""
+    names = list(fns)
+    for n in names:          # warm-up
+        fns[n]()
+    out = {n: [] for n in names}
+    for k in range(batches):
+        order = names if k % 2 == 0 else names[::-1]
+        for n in order:
+            out[n].append(timer(fns[n], reps))
+    return out
+
+
+def same_w(wk, wp):
+    """Bit-exact up to NaN payloads: equal NaN positions, equal values
+    (infinities included) elsewhere."""
+    import torch
+
+    nan = torch.isnan(wp)
+    return (torch.equal(nan, torch.isnan(wk))
+            and torch.equal(wk[~nan], wp[~nan]))
+
+
+def pw_rel(pk, pp):
+    pk, pp = float(pk), float(pp)
+    if pk == pp or (math.isnan(pk) and math.isnan(pp)):
+        return 0.0
+    return abs(pk - pp) / abs(pp)
+
+
+def csr_yardstick(md, spec):
+    """The same matrix as a torch.sparse_csr_tensor (float32, exec
+    order): the bare ``A @ x`` yardstick.  It computes less than the
+    kernels (no signals, no pw) and the port never calls it."""
+    import torch
+
+    values = md.values
+    D, R = values.shape
+    slot = torch.arange(D, device=values.device)[:, None]
+    if hasattr(spec, "offsets"):
+        offs = torch.tensor(spec.offsets, device=values.device)[:, None]
+        cols = torch.arange(R, device=values.device)[None, :] + offs
+        occupied = md.words[0] != 0
+        for w in md.words[1:]:
+            occupied = occupied | (w != 0)
+        valid = (cols >= 0) & (cols < R) & occupied
+    else:
+        from abft_sparse_cg_tpu_torch.ops.spmv_cuda import ell_gather_plane
+
+        cols = ell_gather_plane(md, spec).to(torch.int64)
+        valid = slot < md.ell_len[None, :].to(torch.int64)
+    valid_t = valid.T
+    counts = valid_t.sum(dim=1)
+    crow = torch.zeros(R + 1, dtype=torch.int64, device=values.device)
+    crow[1:] = torch.cumsum(counts, 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "beta" notices
+        a = torch.sparse_csr_tensor(crow, cols.T[valid_t],
+                                    values.T[valid_t], size=(R, R))
+    return a, int(crow[-1])
+
+
+def profile_solves(mats, dev, card, label, solves=10):
+    """A torch.profiler window over ``solves`` warm solves per mode:
+    device time per solve by kernel, the device's busy and idle shares
+    of the window (the profiler's own host overhead stretches the
+    window, so the idle share is an upper bound)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from abft_sparse_cg_tpu_torch.formats import build_protected
     from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device
     from abft_sparse_cg_tpu_torch.solver.fused import make_fused_solver
 
     for mode in ("none", "secded"):
-        m = build_protected("csr", a10, mode)
-        solve = make_fused_solver(m, mode, 1000, 1e-3)
+        m = mats[mode]
+        solve = make_fused_solver(m, mode, 1000, CONV)
         md = make_matrix_device(m, torch.float32, dev)
         b = torch.zeros(m.R, dtype=torch.float32, device=dev)
         b[: m.N] = torch.tensor(np.random.default_rng(11).random(m.N),
@@ -98,7 +223,7 @@ def profile_solves(a10, dev, card, solves=10):
         events = list(prof.events())
         gpu = sorted((e.time_range.start, e.time_range.end, e.name)
                      for e in events if e.device_type == DeviceType.CUDA)
-        print(f"-b 10 {mode} ({its} it), {solves} solves under the "
+        print(f"{label} {mode} ({its} it), {solves} solves under the "
               f"profiler: {wall:.4f} ms per solve (host clock) [{card}]")
         if not gpu:
             print("  no device events traced: device times not measured")
@@ -123,6 +248,74 @@ def profile_solves(a10, dev, card, solves=10):
               f"window [{card}]")
 
 
+def run_cli(main_csr, args):
+    """(exit code, stdout) of one in-process CLI run."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main_csr(list(args))
+    return code, buf.getvalue()
+
+
+def total_error(out):
+    for line in out.splitlines():
+        if line.startswith("total error"):
+            return float(line.split()[3])
+    return float("inf")
+
+
+def run_tests_classes(main_csr, base):
+    """The four run_tests classes through the CLI; raises on a miss."""
+    for mode in MODES:
+        code, out = run_cli(main_csr, [*base, "-m", mode])
+        te = total_error(out)
+        require(code == 0 and te < 1.0,
+                f"clean {mode}: exit {code}, total error {te}")
+        print(f"passed clean {mode}: exit 0, total error {te:f}")
+    code, out = run_cli(main_csr, [*base, "-m", "sed", "-x"])
+    require(code == 1 and "error detected at index" in out, "sed -x")
+    print("passed sed -x: 'error detected at index', exit 1")
+    for mode in ("sec7", "sec8", "secded"):
+        code, out = run_cli(main_csr, [*base, "-m", mode, "-x"])
+        require(code == 0, f"{mode} -x: exit {code}")
+        print(f"passed {mode} -x: exit 0 "
+              f"({[ln for ln in out.splitlines() if '[ECC]' in ln]})")
+    code, out = run_cli(main_csr, [*base, "-m", "secded", "-x", "2"])
+    require(code == 1 and "double-bit error detected" in out,
+            "secded -x 2")
+    print("passed secded -x 2: 'double-bit error detected', exit 1")
+
+
+def trajectory(m, b, label, oracle_mat=None):
+    """The f32 cuda trajectory against the port's f64 plain solve (on
+    ``oracle_mat``, the same matrix built in another mode, if given)."""
+    import numpy as np
+    import torch
+
+    from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
+    from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device, make_spmv
+    from abft_sparse_cg_tpu_torch.solver.cg import make_cg_solver
+
+    res = CudaBackend(m.mode).solve(m, b, 500, 1e-6, dtype="f32", reps=1)
+    f64, cpu = torch.float64, torch.device("cpu")
+    bexec = torch.zeros(m.R, dtype=f64)
+    bexec[: m.N] = torch.tensor(m.to_exec_order(b), dtype=f64)
+    om = m if oracle_mat is None else oracle_mat
+    ora = make_cg_solver(make_spmv(om, f64, om.mode), 500, 1e-6)(
+        make_matrix_device(om, f64, cpu), bexec)
+    require(not res.failed and ora.stats.errcode == 0,
+            "trajectory solves failed")
+    require(abs(res.iterations - ora.iterations) <= 1,
+            f"iterations {res.iterations} vs oracle {ora.iterations}")
+    nc = min(res.iterations, ora.iterations)
+    got, want = res.rr_trace[:nc], ora.rr_trace[:nc].numpy()
+    track = want >= want[0] * 1e-8
+    tdev = float(np.max(np.abs(got[track] - want[track]) / want[track]))
+    require(tdev <= 2e-2, f"trajectory deviation {tdev:.2e} > 2e-2")
+    print(f"{label}: f32 trajectory within {tdev:.2e} of the f64 oracle "
+          f"over {int(track.sum())}/{ora.iterations} iterations "
+          f"({res.iterations} vs {ora.iterations})")
+
+
 def main():
     import torch
 
@@ -133,20 +326,25 @@ def main():
     import numpy as np
 
     from abft_sparse_cg_tpu_torch import _build
-    from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
-    from abft_sparse_cg_tpu_torch.backends.torch_backend import TorchBackend
     from abft_sparse_cg_tpu_torch.cli import main_csr
     from abft_sparse_cg_tpu_torch.formats import build_protected, load_matrix
     from abft_sparse_cg_tpu_torch.inject import inject_bitflips
     from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device, make_spmv
     from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
-        dia_fast, dia_fast_plain, dia_spec)
+        dia_fast, dia_fast_plain, dia_spec, ell_fast, ell_fast_plain,
+        ell_spec)
     from abft_sparse_cg_tpu_torch.solver.cg import init_state
     from abft_sparse_cg_tpu_torch.solver.fused import (
-        fused_cg_dia, fused_cg_dia_plain, fused_grid, make_fused_solver)
+        fused_cg_dia, fused_cg_dia_plain, fused_cg_ell, fused_cg_ell_plain,
+        fused_grid, make_fused_solver)
 
     dev = torch.device("cuda", 0)
     f32 = torch.float32
+    t_start = time.perf_counter()
+
+    def reset_launches():
+        for fn in (dia_fast, fused_cg_dia, ell_fast, fused_cg_ell):
+            fn.launches = 0
 
     # ---- 1. device and card ---------------------------------------------
     phase("1. device")
@@ -162,9 +360,10 @@ def main():
 
     # ---- 2. build ---------------------------------------------------------
     phase("2. build")
-    _build.library()
+    _build.build()
     print(f"built and loaded csrc/*.cu in {_build.build_seconds():.2f} s "
-          f"({_build.BUILD_DIR}); kernel B grid {fused_grid(0)} blocks")
+          f"({_build.BUILD_DIR}); cooperative grids: kernel B "
+          f"{fused_grid(0, 'dia')} blocks, kernel D {fused_grid(0, 'ell')}")
 
     if not os.path.exists(MATRIX):
         subprocess.run([sys.executable,
@@ -199,9 +398,7 @@ def main():
                     f"{label}: non-finite entries differ")
             err = float((wk - wp)[fin].abs().max())
             rel = err / float(wp[fin].abs().max())
-            pk, pp = float(pk), float(pp)
-            prel = (0.0 if pk == pp or (math.isnan(pk) and math.isnan(pp))
-                    else abs(pk - pp) / abs(pp))
+            prel = pw_rel(pk, pp)
             require(rel <= 1e-6, f"{label}: w rel err {rel:.3e} > 1e-6")
             require(prel <= 1e-5, f"{label}: pw rel err {prel:.3e} > 1e-5")
             require(bool(tk) == bool(tp), f"{label}: trig {bool(tk)} vs "
@@ -239,98 +436,65 @@ def main():
     bd = torch.zeros(m.R, dtype=f32, device=dev)
     bd[: m.N] = torch.tensor(b, dtype=f32)
     md = make_matrix_device(m, f32, dev)
-    conv = 1e-3
 
-    def run_loop(fn, md_, upto=1000):
-        s = init_state(bd, upto)
+    def run_loop(fn, md_, spec_, bvec, upto=1000):
+        s = init_state(bvec, upto)
         x_, r_, p_ = s.x.clone(), s.r.clone(), s.p.clone()
         tr = torch.full_like(s.trace, float("nan"))
-        out = fn(md_, spec, x_, r_, p_, s.rr, s.rz, 0, upto, conv, tr)
+        out = fn(md_, spec_, x_, r_, p_, s.rr, s.rz, 0, upto, CONV, tr)
         torch.cuda.synchronize()
         return out, x_, tr
 
-    (ik, _, _, tk, ek), xk, trk = run_loop(fused_cg_dia, md)
-    (ip, _, _, tp, ep), xp, trp = run_loop(fused_cg_dia_plain, md)
-    require(ik == ip and tk == tp == 0 and ek == ep == 0,
-            f"clean solve: kernel {ik} it (trig {tk}, err {ek}), plain "
-            f"{ip} it (trig {tp}, err {ep})")
-    b_err = float((xk - xp).abs().max())
-    dev_tr = float(((trk[:ik] - trp[:ip]).abs() / trp[:ip].abs()).max())
-    print(f"clean: kernel {ik} iterations, plain {ip}; trace max rel dev "
-          f"{dev_tr:.2e}; x max|err| {b_err:.3e}; trig/err {tk}/{ek}")
-    require(dev_tr <= 1e-5, f"clean solve trace dev {dev_tr:.2e} > 1e-5")
+    def check_loops(kernel, plain, md_, spec_, bvec, label):
+        (ik, _, _, tk, ek), xk, trk = run_loop(kernel, md_, spec_, bvec)
+        (ip, _, _, tp, ep), xp, trp = run_loop(plain, md_, spec_, bvec)
+        require(ik == ip and tk == tp == 0 and ek == ep == 0,
+                f"{label}: kernel {ik} it (trig {tk}, err {ek}), plain "
+                f"{ip} it (trig {tp}, err {ep})")
+        err = float((xk - xp).abs().max())
+        dev_tr = float(((trk[:ik] - trp[:ip]).abs() / trp[:ip].abs()).max())
+        print(f"{label}: kernel {ik} iterations, plain {ip}; trace max rel "
+              f"dev {dev_tr:.2e}; x max|err| {err:.3e}; trig/err {tk}/{ek}")
+        require(dev_tr <= 1e-5, f"{label} trace dev {dev_tr:.2e} > 1e-5")
+        return ik, err
 
-    m1 = inject_bitflips(m, "ANY", 1, np.random.default_rng(12),
-                         echo=lambda s: None)
-    solve = make_fused_solver(m1, "secded", 1000, conv)
-    rk = solve(make_matrix_device(m1, f32, dev), bd)
-    rp = solve(make_matrix_device(m1, f32, torch.device("cpu")), bd.cpu())
-    require(rk.iterations == rp.iterations,
-            f"faulted solve: {rk.iterations} vs {rp.iterations} iterations")
-    dev_tr = float(((rk.rr_trace[: rk.iterations].cpu()
-                     - rp.rr_trace[: rp.iterations]).abs()
-                    / rp.rr_trace[: rp.iterations].abs()).max())
-    print(f"1-bit flip: kernel {rk.iterations} it, stats {tuple(rk.stats)}; "
-          f"plain {rp.iterations} it, stats {tuple(rp.stats)}; trace dev "
-          f"{dev_tr:.2e}")
-    require(tuple(rk.stats) == tuple(rp.stats), "faulted solve events")
-    require(rk.stats.corrected_count == 1 and rk.stats.errcode == 0,
-            "faulted solve: one correction, no error")
-    require(dev_tr <= 1e-5, f"faulted solve trace dev {dev_tr:.2e}")
+    def check_faulted(m1, mode, label):
+        solve = make_fused_solver(m1, mode, 1000, CONV)
+        bb = torch.zeros(m1.R, dtype=f32)
+        bb[: m1.N] = torch.tensor(m1.to_exec_order(
+            np.random.default_rng(11).random(m1.N)), dtype=f32)
+        rk = solve(make_matrix_device(m1, f32, dev), bb.to(dev))
+        rp = solve(make_matrix_device(m1, f32, torch.device("cpu")), bb)
+        require(rk.iterations == rp.iterations,
+                f"{label}: {rk.iterations} vs {rp.iterations} iterations")
+        dev_tr = float(((rk.rr_trace[: rk.iterations].cpu()
+                         - rp.rr_trace[: rp.iterations]).abs()
+                        / rp.rr_trace[: rp.iterations].abs()).max())
+        print(f"{label}: kernel {rk.iterations} it, stats "
+              f"{tuple(rk.stats)}; plain {rp.iterations} it, stats "
+              f"{tuple(rp.stats)}; trace dev {dev_tr:.2e}")
+        require(tuple(rk.stats) == tuple(rp.stats), f"{label} events")
+        require(rk.stats.corrected_count == 1 and rk.stats.errcode == 0,
+                f"{label}: one correction, no error")
+        require(dev_tr <= 1e-5, f"{label} trace dev {dev_tr:.2e}")
 
-    # ---- 5. main path: the four run_tests classes -------------------------
-    phase("5. main path: run_tests classes, cg-csr -t cuda -b 10 --seed 11")
-    dia_fast.launches = 0
-    fused_cg_dia.launches = 0
+    ik, b_err = check_loops(fused_cg_dia, fused_cg_dia_plain, md, spec, bd,
+                            "clean")
+    check_faulted(inject_bitflips(m, "ANY", 1, np.random.default_rng(12),
+                                  echo=lambda s: None), "secded",
+                  "1-bit flip")
 
-    def cli(*args):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            code = main_csr(["-b", "10", "--seed", "11", "-t", "cuda", *args])
-        return code, buf.getvalue()
-
-    def total_error(out):
-        for line in out.splitlines():
-            if line.startswith("total error"):
-                return float(line.split()[3])
-        return float("inf")
-
-    for mode in MODES:
-        code, out = cli("-m", mode)
-        te = total_error(out)
-        require(code == 0 and te < 1.0,
-                f"clean {mode}: exit {code}, total error {te}")
-        print(f"passed clean {mode}: exit 0, total error {te:f}")
-    code, out = cli("-m", "sed", "-x")
-    require(code == 1 and "error detected at index" in out, "sed -x")
-    print("passed sed -x: 'error detected at index', exit 1")
-    for mode in ("sec7", "sec8", "secded"):
-        code, out = cli("-m", mode, "-x")
-        require(code == 0, f"{mode} -x: exit {code}")
-        print(f"passed {mode} -x: exit 0 "
-              f"({[l for l in out.splitlines() if '[ECC]' in l]})")
-    code, out = cli("-m", "secded", "-x", "2")
-    require(code == 1 and "double-bit error detected" in out,
-            "secded -x 2")
-    print("passed secded -x 2: 'double-bit error detected', exit 1")
+    # ---- 5. DIA main path: the four run_tests classes ----------------------
+    phase("5. DIA main path: run_tests classes, cg-csr -t cuda -b 10 "
+          "--seed 11")
+    reset_launches()
+    run_tests_classes(main_csr, ["-b", "10", "--seed", "11", "-t", "cuda"])
     launches = {"dia_spmv_detect": dia_fast.launches,
                 "fused_cg_dia": fused_cg_dia.launches}
 
     # ---- 6. trajectory ----------------------------------------------------
     phase("6. float32 cuda trajectory vs float64 plain oracle, -b 10")
-    res = CudaBackend("secded").solve(m, b, 500, 1e-6, dtype="f32", reps=1)
-    ora = TorchBackend("secded").solve(m, b, 500, 1e-6, dtype="f64", reps=1)
-    require(not res.failed and not ora.failed, "trajectory solves failed")
-    require(abs(res.iterations - ora.iterations) <= 1,
-            f"iterations {res.iterations} vs oracle {ora.iterations}")
-    nc = min(res.iterations, ora.iterations)
-    got, want = res.rr_trace[:nc], ora.rr_trace[:nc]
-    track = want >= want[0] * 1e-8
-    tdev = float(np.max(np.abs(got[track] - want[track]) / want[track]))
-    require(tdev <= 2e-2, f"trajectory deviation {tdev:.2e} > 2e-2")
-    print(f"f32 trajectory within {tdev:.2e} of the f64 oracle over "
-          f"{int(track.sum())}/{ora.iterations} iterations "
-          f"({res.iterations} vs {ora.iterations})")
+    trajectory(m, b, "DIA -b 10 secded")
 
     # ---- 7. launch counts -------------------------------------------------
     phase("7. launch counts during phase 5")
@@ -339,43 +503,34 @@ def main():
         require(n > 0, f"{name} was not launched on the main path")
 
     # ---- 8. times ---------------------------------------------------------
-    phase(f"8. times on {card} (warm, build excluded)")
-    BATCHES = 7
-
-    def host_ms(fn, reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps
-
-    def interleave(fns, reps, batches=BATCHES):
-        """Batches in turns (a, b, b, a, ...); per-call ms lists."""
-        names = list(fns)
-        out = {n: [] for n in names}
-        for k in range(batches):
-            order = names if k % 2 == 0 else names[::-1]
-            for n in order:
-                out[n].append(host_ms(fns[n], reps))
-        return out
+    phase(f"8. DIA times on {card} (warm, build excluded)")
 
     def solver_fn(mm, mode, upto=1000):
-        solve = make_fused_solver(mm, mode, upto, conv)
+        solve = make_fused_solver(mm, mode, upto, CONV)
         mdd = make_matrix_device(mm, f32, dev)
         bb = torch.zeros(mm.R, dtype=f32, device=dev)
-        bb[: mm.N] = torch.tensor(
-            np.random.default_rng(11).random(mm.N), dtype=f32)
+        bb[: mm.N] = torch.tensor(mm.to_exec_order(
+            np.random.default_rng(11).random(mm.N)), dtype=f32)
         it = solve(mdd, bb).iterations
         return (lambda: solve(mdd, bb)), it
 
-    def iter_bytes(mode, R, D=3):
-        """Bytes one iteration must move: D value planes, D fold planes
-        (ECC modes), and 8 vector streams (p read, w write + read, r read
-        + write, x read + write, p write)."""
+    def dia_iter_bytes(mode, mm):
+        """Bytes one DIA iteration must move: D value planes, D fold
+        planes (ECC modes), and 8 vector streams (p read, w write + read,
+        r read + write, x read + write, p write)."""
+        D, R = len(mm.dia_offsets), mm.R
         return (4 * D + (4 * D if mode in ECC else 0) + 8 * 4) * R
 
-    def solve_table(label, mats_, batches, reps):
+    def ell_iter_bytes(mode, mm):
+        """Bytes one ELL iteration must move: the values and gather words
+        of the nnz valid slots, the K x R signal plane (detecting modes,
+        padding included), ell_len, the baseline, and the 8 vector
+        streams."""
+        K, R = mm.K, mm.R
+        sig = 4 * K * R + R // 2 if mode != "none" else 0
+        return 8 * mm.nnz + sig + 4 * R + 8 * 4 * R
+
+    def solve_table(label, mats_, batches, reps, iter_bytes):
         """Interleaved full and 2-iteration solves of none and secded:
         medians, spread, the per-iteration slope and its bandwidth."""
         fns, its = {}, {}
@@ -385,89 +540,284 @@ def main():
                                                            mode, 2)
         t = interleave(fns, reps, batches)
         med = {n: statistics.median(v) for n, v in t.items()}
-        R = mats_["none"].R
         for mode in ("none", "secded"):
             slope = ((med[mode] - med[mode + "@2"])
                      / (its[mode] - its[mode + "@2"]))
-            gbs = iter_bytes(mode, R) / (slope * 1e-3) / 1e9
+            nbytes = iter_bytes(mode, mats_[mode])
+            gbs = nbytes / (slope * 1e-3) / 1e9
             print(f"cuda-{mode:6s} solve {label}: {spread(t[mode])}, "
                   f"{its[mode]} it; 2-it solve {med[mode + '@2']:.4f} ms; "
                   f"slope {slope:.4f} ms/it = {gbs:.0f} GB/s "
-                  f"({gbs / 3350 * 100:.1f}% of 3.35 TB/s) [{card}]")
+                  f"({gbs / 3350 * 100:.1f}% of 3.35 TB/s; "
+                  f"{nbytes / 1e6:.1f} MB/it) [{card}]")
         print(f"secded overhead vs none {label}: "
               f"{(med['secded'] / med['none'] - 1) * 100:+.1f}% [{card}]")
         return med, its
 
-    med10, its10 = solve_table("-b 10", mats, BATCHES, 10)
+    solve_table("-b 10", mats, 7, 10, dia_iter_bytes)
 
-    # Layers around the kernels, -b 10 secded.
-    tl = {"host build": [], "upload": [], "classify": []}
-    m1 = inject_bitflips(mats["secded"], "ANY", 1, np.random.default_rng(12),
-                         echo=lambda s: None)
-    plain_classify = make_spmv(m1, f32, "secded").classify
-    for _ in range(3):
-        t0 = time.perf_counter()
-        build_protected("csr", a10, "secded")
-        tl["host build"].append((time.perf_counter() - t0) * 1e3)
-        tl["upload"].append(host_ms(
-            lambda: make_matrix_device(m1, f32, dev), 1))
-        mdf = make_matrix_device(m1, f32, dev)
-        tl["classify"].append(host_ms(lambda: plain_classify(mdf), 1))
-    for name, v in tl.items():
-        print(f"layer {name:10s} -b 10 secded: {spread(v)} [{card}]")
+    def layer_times(mm, a_, label, reps=3):
+        """Host build, upload and (plain) classify of a faulted copy."""
+        tl = {"host build": [], "upload": [], "classify": []}
+        m1 = inject_bitflips(mm, "ANY", 1, np.random.default_rng(12),
+                             echo=lambda s: None)
+        plain_classify = make_spmv(m1, f32, "secded").classify
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            build_protected("csr", a_, "secded")
+            tl["host build"].append((time.perf_counter() - t0) * 1e3)
+            tl["upload"].append(host_ms(
+                lambda: make_matrix_device(m1, f32, dev), 1))
+            mdf = make_matrix_device(m1, f32, dev)
+            tl["classify"].append(host_ms(lambda: plain_classify(mdf), 1))
+        for name, v in tl.items():
+            print(f"layer {name:10s} {label} secded: {spread(v)} [{card}]")
+
+    layer_times(mats["secded"], a10, "-b 10")
 
     a100 = load_matrix(MATRIX, 100)
     mats100 = {mode: build_protected("csr", a100, mode)
                for mode in ("none", "secded")}
-    solve_table(f"-b 100 (N={mats100['none'].N})", mats100, 3, 3)
+    solve_table(f"-b 100 (N={mats100['none'].N})", mats100, 3, 3,
+                dia_iter_bytes)
     del mats100, a100
 
-    R = mats["secded"].R
-    md = make_matrix_device(mats["secded"], f32, dev)
-    spec = dia_spec(mats["secded"], "secded")
-    xd = torch.zeros(R, dtype=f32, device=dev)
-    xd[: mats["secded"].N] = x.to(dev)
-    ta = interleave({"plain": lambda: dia_fast_plain(md, xd, spec),
-                     "kernel": lambda: dia_fast(md, xd, spec)}, 50)
-    ms_a, plain_a = (statistics.median(ta["kernel"]),
-                     statistics.median(ta["plain"]))
-    print(f"kernel A secded -b 10, per call: kernel {spread(ta['kernel'])}"
-          f"; plain {spread(ta['plain'])}; kernel "
-          f"{(3 * 4 + 3 * 4 + 2 * 4) * R / (ms_a * 1e-3) / 1e9:.1f} GB/s"
-          f" [{card}]")
+    def kernel_times(kernel, plain, md_, spec_, xd_, label, nbytes, flops):
+        """Per-call device time (CUDA events, interleaved) of a kernel,
+        its plain version and the bare A @ x, beside the bound."""
+        a_csr, nnz = csr_yardstick(md_, spec_)
+        xcol = xd_[:, None]
+        t = interleave({"plain": lambda: plain(md_, xd_, spec_),
+                        "kernel": lambda: kernel(md_, xd_, spec_),
+                        "A @ x": lambda: a_csr @ xcol}, 20,
+                       timer=event_ms)
+        med = {n: statistics.median(v) for n, v in t.items()}
+        bms, by = bound(nbytes, flops)
+        print(f"{label}, per call (CUDA events): kernel "
+              f"{spread(t['kernel'])}; plain {spread(t['plain'])}; A @ x "
+              f"(torch.sparse_csr_tensor, nnz {nnz}, no checks) "
+              f"{spread(t['A @ x'])}; bound {bms:.4f} ms ({by}: "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP) = "
+              f"{bms / med['kernel'] * 100:.1f}% of the bound [{card}]")
+        return med, bms, by
 
-    def loop_fn(fn):
+    m = mats["secded"]
+    R = m.R
+    md = make_matrix_device(m, f32, dev)
+    spec = dia_spec(m, "secded")
+    xd = torch.zeros(R, dtype=f32, device=dev)
+    xd[: m.N] = x.to(dev)
+    D = len(m.dia_offsets)
+    med_a, *bound_a = kernel_times(
+        dia_fast, dia_fast_plain, md, spec, xd, "kernel A secded -b 10",
+        4 * (2 * D * R + 2 * R + R // 8), 2 * D * R)
+
+    def loop_fn(fn, md_, spec_, bvec):
         def go():
-            s = init_state(bd, 1000)
-            fn(md, spec, s.x.clone(), s.r.clone(), s.p.clone(), s.rr, s.rz,
-               0, 1000, conv, torch.full_like(s.trace, float("nan")))
+            s = init_state(bvec, 1000)
+            fn(md_, spec_, s.x.clone(), s.r.clone(), s.p.clone(), s.rr,
+               s.rz, 0, 1000, CONV, torch.full_like(s.trace, float("nan")))
         return go
 
-    tb = interleave({"plain": loop_fn(fused_cg_dia_plain),
-                     "kernel": loop_fn(fused_cg_dia)}, 5)
+    tb = interleave({"plain": loop_fn(fused_cg_dia_plain, md, spec, bd),
+                     "kernel": loop_fn(fused_cg_dia, md, spec, bd)}, 5)
     ms_b, plain_b = (statistics.median(tb["kernel"]),
                      statistics.median(tb["plain"]))
+    bound_b = bound(ik * dia_iter_bytes("secded", m),
+                    ik * (2 * D * R + 10 * R))
     print(f"kernel B clean secded solve -b 10 ({ik} it): kernel "
-          f"{spread(tb['kernel'])}; plain loop {spread(tb['plain'])} "
-          f"[{card}]")
-
-    # ---- 9. profile (last: the profiler may disturb later timings) ---------
-    phase(f"9. torch.profiler over warm -b 10 solves on {card}")
-    profile_solves(a10, dev, card)
-
+          f"{spread(tb['kernel'])}; plain loop {spread(tb['plain'])}; "
+          f"bound {bound_b[0]:.4f} ms ({bound_b[1]}; the -b 10 working set "
+          f"of {dia_iter_bytes('secded', m) / 1e6:.1f} MB fits the 50 MB "
+          f"L2, so HBM need not be touched) [{card}]")
     kernels = [
         {"name": "dia_spmv_detect", "route": "cuda",
          "source": "abft_sparse_cg_tpu_torch/csrc/dia_spmv_detect.cu",
          "replaces": "abft_sparse_cg_tpu/ops/spmv_pallas.py:519",
          "launches": launches["dia_spmv_detect"],
-         "max_abs_err": max(a_errs),
-         "ms": ms_a, "plain_ms": plain_a},
+         "max_abs_err": max(a_errs), "ms": med_a["kernel"],
+         "plain_ms": med_a["plain"], "bound_ms": bound_a[0],
+         "bound_by": bound_a[1], "library_ms": med_a["A @ x"]},
         {"name": "fused_cg_dia", "route": "cuda",
          "source": "abft_sparse_cg_tpu_torch/csrc/fused_cg_dia.cu",
          "replaces": "abft_sparse_cg_tpu/solver/fused.py:1248",
          "launches": launches["fused_cg_dia"], "max_abs_err": b_err,
-         "ms": ms_b, "plain_ms": plain_b},
+         "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b[0],
+         "bound_by": bound_b[1], "library_ms": None},
     ]
+    del md
+    print(f"[DIA phases done at {time.perf_counter() - t_start:.0f} s]")
+
+    # ---- 9. the ELL matrices ----------------------------------------------
+    phase("9. ELL matrices, each mode built once")
+    from abft_sparse_cg_tpu_torch.utils.matgen import write_mm_triangle
+    from abft_sparse_cg_tpu_torch.utils.matzoo import (
+        dense_radius_3d, zoo_assembled)
+
+    shapes = {}
+    for name, blocks, force in (("dense-radius-3d", 10, None),
+                                ("blockdiag-random", 4, None),
+                                ("stencil27-shuffled", 4, "ell")):
+        t0 = time.perf_counter()
+        asm = zoo_assembled(name, blocks)
+        per = {}
+        for mode in MODES:
+            per[mode] = build_protected("csr", asm, mode, force_exec=force)
+            require(per[mode].exec_kind == "ell", f"{name} {mode}: ELL")
+        mm = per["secded"]
+        shapes[name] = (asm, per)
+        print(f"{name} -b {blocks}: N {mm.N}, nnz {mm.nnz}, K {mm.K}, R "
+              f"{mm.R}, band {mm.band}, permuted "
+              f"{mm.perm is not None}; 6 builds in "
+              f"{time.perf_counter() - t0:.1f} s")
+    a_ell, ell = shapes["dense-radius-3d"]
+    require(ell["secded"].K == 175 and ell["secded"].perm is None
+            and ell["secded"].band == 1627,
+            "dense-radius-3d -b 10: K 175, band 1627, no permutation")
+    require(shapes["stencil27-shuffled"][1]["secded"].perm is not None,
+            "stencil27-shuffled: RCM permutation active")
+
+    # ---- 10. kernel C vs plain --------------------------------------------
+    phase("10. kernel C (ell_spmv_detect) vs plain, three shapes, every "
+          "mode")
+    c_errs = []
+    for name, (_, per) in shapes.items():
+        for mode in MODES:
+            m = per[mode]
+            spec = ell_spec(m, mode)
+            xc = torch.zeros(m.R, dtype=f32, device=dev)
+            xc[: m.N] = torch.tensor(np.random.default_rng(3).random(m.N),
+                                     dtype=f32)
+            variants = [("clean", m)]
+            for flips, seed in ((1, 21), (2, 22)):
+                variants.append((f"{flips}-bit", inject_bitflips(
+                    m, "ANY", flips, np.random.default_rng(seed),
+                    echo=lambda s: None)))
+            if mode in ("none", "constraints"):
+                variants.append(("index", inject_bitflips(
+                    m, "INDEX", 1, np.random.default_rng(23),
+                    echo=lambda s: None)))
+            for label, mm in variants:
+                mdc = make_matrix_device(mm, f32, dev)
+                wk, tk, pk = ell_fast(mdc, xc, spec)
+                wp, tp, pp = ell_fast_plain(mdc, xc, spec)
+                torch.cuda.synchronize()
+                tag = f"{name} {mode} {label}"
+                require(same_w(wk, wp), f"{tag}: w not bit-exact")
+                fin = torch.isfinite(wp)
+                err = float((wk - wp)[fin].abs().max())
+                prel = pw_rel(pk, pp)
+                require(prel <= 1e-5, f"{tag}: pw rel err {prel:.2e}")
+                require(bool(tk) == bool(tp), f"{tag}: trig {bool(tk)} vs "
+                        f"plain {bool(tp)}")
+                # What the mode's signals must see: any change in the
+                # ECC modes with a checksum arm, odd-weight changes in
+                # the parity-only ones, col-word changes in constraints.
+                changed = [not np.array_equal(mm.ell[n], m.ell[n])
+                           for n in m.layout.word_names]
+                want = {"none": False, "constraints": changed[2],
+                        "sed": label != "2-bit" and any(changed),
+                        "sec8": label != "2-bit" and any(changed)
+                        }.get(mode, any(changed))
+                require(bool(tk) == want, f"{tag}: trigger {bool(tk)}, "
+                        f"expected {want}")
+                c_errs.append(err)
+                print(f"{tag:44s} w bit-exact (max|err| {err:.1e}), pw rel "
+                      f"{prel:.1e}, trig {bool(tk)}")
+                del mdc
+
+    # ---- 11. kernel D vs plain loop ---------------------------------------
+    phase("11. kernel D (fused_cg_ell) vs plain loop, dense-radius-3d -b 10 "
+          "secded")
+    m = ell["secded"]
+    spec = ell_spec(m, "secded")
+    b_ell = np.random.default_rng(11).random(m.N)
+    bde = torch.zeros(m.R, dtype=f32, device=dev)
+    bde[: m.N] = torch.tensor(b_ell, dtype=f32)
+    mde = make_matrix_device(m, f32, dev)
+    ik_d, d_err = check_loops(fused_cg_ell, fused_cg_ell_plain, mde, spec,
+                              bde, "clean")
+    check_faulted(inject_bitflips(m, "ANY", 1, np.random.default_rng(12),
+                                  echo=lambda s: None), "secded",
+                  "1-bit flip")
+
+    # ---- 12. ELL main path ------------------------------------------------
+    phase("12. ELL main path: run_tests classes, cg-csr -t cuda -f "
+          "dense-radius-3d.mtx -b 10 --seed 11")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dense-radius-3d.mtx")
+        write_mm_triangle(path, *dense_radius_3d())
+        reset_launches()
+        run_tests_classes(main_csr, ["-f", path, "-b", "10", "--seed", "11",
+                                     "-t", "cuda"])
+        ell_launches = {"ell_spmv_detect": ell_fast.launches,
+                        "fused_cg_ell": fused_cg_ell.launches}
+    for name, n in ell_launches.items():
+        print(f"{name}: {n} launches")
+        require(n > 0, f"{name} was not launched on the ELL path")
+
+    # ---- 13. ELL trajectory -----------------------------------------------
+    phase("13. float32 cuda trajectory vs float64 plain oracle, "
+          "dense-radius-3d -b 10")
+    # The oracle solves the mode-none build of the same matrix: the same
+    # values and structure, without the per-iteration signal scans that
+    # make a float64 CPU solve of 38M slots slow.
+    trajectory(ell["secded"], b_ell, "ELL -b 10 secded", ell["none"])
+
+    # ---- 14. ELL times ----------------------------------------------------
+    phase(f"14. ELL times on {card} (warm, build excluded)")
+    solve_table("dense-radius-3d -b 10", ell, 7, 10, ell_iter_bytes)
+    layer_times(ell["secded"], a_ell, "dense-radius-3d -b 10", reps=2)
+    m = ell["secded"]
+    R, K = m.R, m.K
+    xe = torch.zeros(R, dtype=f32, device=dev)
+    xe[: m.N] = x[: m.N].to(dev)
+    med_c = {}
+    for mode in ("none", "secded"):
+        mm = ell[mode]
+        mdc = make_matrix_device(mm, f32, dev)
+        sig = (4 * K * R + R // 2) if mode != "none" else 0
+        med, bms, by = kernel_times(
+            ell_fast, ell_fast_plain, mdc, ell_spec(mm, mode), xe,
+            f"kernel C {mode} dense-radius-3d -b 10",
+            8 * mm.nnz + sig + 4 * R + 8 * R, 2 * mm.nnz)
+        med_c[mode] = (med, bms, by)
+        del mdc
+    td = interleave({"plain": loop_fn(fused_cg_ell_plain, mde, spec, bde),
+                     "kernel": loop_fn(fused_cg_ell, mde, spec, bde)}, 3,
+                    batches=5)
+    ms_d, plain_d = (statistics.median(td["kernel"]),
+                     statistics.median(td["plain"]))
+    bound_d = bound(ik_d * ell_iter_bytes("secded", m),
+                    ik_d * (2 * m.nnz + 10 * R))
+    print(f"kernel D clean secded solve dense-radius-3d -b 10 ({ik_d} it): "
+          f"kernel {spread(td['kernel'])}; plain loop {spread(td['plain'])};"
+          f" bound {bound_d[0]:.4f} ms ({bound_d[1]}) = "
+          f"{bound_d[0] / ms_d * 100:.1f}% of the bound [{card}]")
+    med, bms, by = med_c["secded"]
+    kernels += [
+        {"name": "ell_spmv_detect", "route": "cuda",
+         "source": "abft_sparse_cg_tpu_torch/csrc/ell_spmv_detect.cu",
+         "replaces": "abft_sparse_cg_tpu/ops/spmv_pallas.py:846",
+         "launches": ell_launches["ell_spmv_detect"],
+         "max_abs_err": max(c_errs), "ms": med["kernel"],
+         "plain_ms": med["plain"], "bound_ms": bms, "bound_by": by,
+         "library_ms": med["A @ x"]},
+        {"name": "fused_cg_ell", "route": "cuda",
+         "source": "abft_sparse_cg_tpu_torch/csrc/fused_cg_ell.cu",
+         "replaces": "abft_sparse_cg_tpu/solver/fused.py:1248",
+         "launches": ell_launches["fused_cg_ell"], "max_abs_err": d_err,
+         "ms": ms_d, "plain_ms": plain_d, "bound_ms": bound_d[0],
+         "bound_by": bound_d[1], "library_ms": None},
+    ]
+    del mde
+
+    # ---- 15. profile (last: the profiler may disturb later timings) --------
+    phase(f"15. torch.profiler over warm -b 10 solves on {card}")
+    profile_solves(mats, dev, card, "DIA -b 10")
+    profile_solves(ell, dev, card, "ELL dense-radius-3d -b 10")
+    print(f"[all phases done at {time.perf_counter() - t_start:.0f} s]")
+
     print()
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """The port's CLI contract: run_tests' four classes on ``-t torch``, line
-for line identity with the JAX CLI's ``-t jnp`` in float64, the
-unported-flag errors, and the package's independence from JAX."""
+for line identity with the JAX CLI's ``-t jnp`` in float64 (on the DIA
+stand-in and on a banded-ELL matrix), the unported-flag and unported-
+layout errors, and the package's independence from JAX."""
 
 import ast
 import os
@@ -17,6 +18,7 @@ from abft_sparse_cg_tpu.backends import base as jbase
 from abft_sparse_cg_tpu.formats import assemble, build_protected
 from abft_sparse_cg_tpu.ops import spmv as jspmv
 from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal, write_mm_triangle
+from abft_sparse_cg_tpu.utils.matzoo import dense_radius_3d
 from abft_sparse_cg_tpu_torch import cli
 from abft_sparse_cg_tpu_torch.backends import base
 from abft_sparse_cg_tpu_torch.device import compute_dtype
@@ -144,7 +146,8 @@ def test_check_interval_auto_and_1_run_live(mtx, capsys):
 
 
 def test_non_dia_matrix_not_ported(tmp_path, capsys):
-    # Two dense rows make the layout leave DIA.
+    # Two dense rows route the matrix to the split (or flat) layout,
+    # which this package has not ported: one line, exit 1.
     n = 256
     rows, cols, vals, n = spd_tridiagonal(n)
     extra = [(r, c) for r in (20, 200) for c in range(0, n, 3)
@@ -155,9 +158,34 @@ def test_non_dia_matrix_not_ported(tmp_path, capsys):
     path = str(tmp_path / "bordered.mtx")
     write_mm_triangle(path, rows, cols, vals, n)
     m = build_protected("csr", assemble(cols, rows, vals, n, 1), "none")
-    assert m.exec_kind != "dia"
+    assert m.exec_kind in ("split", "flat")
     code, out, _ = run(cli.main_csr, ["-f", path, "-t", "torch"], capsys)
     assert code == 1 and "not ported" in out
+    assert out.strip().count("\n") == 0 and "queue 1 item 9" in out
+
+
+@pytest.fixture(scope="module")
+def ell_mtx(tmp_path_factory):
+    """dense-radius-3d at side 10: N = 1000, K = 175, the ELL layout."""
+    path = str(tmp_path_factory.mktemp("mtx") / "dense_radius.mtx")
+    write_mm_triangle(path, *dense_radius_3d(side=10))
+    return path
+
+
+@pytest.mark.parametrize("flags", [
+    ["-m", "none"], ["-m", "sed", "-x"], ["-m", "sec8", "-x"],
+    ["-m", "secded", "-x", "2"], ["-m", "secded", "-x"],
+    ["-m", "constraints", "-x", "INDEX"]], ids=lambda f: "_".join(f))
+def test_ell_f64_stdout_identical_to_jnp(ell_mtx, flags, capsys):
+    """The banded-ELL path on -t torch in float64: stdout equal to -t jnp
+    line for line, clean and in the run_tests -x classes."""
+    argv = ["-f", ell_mtx, "-b", "2", "--seed", "1", "--dtype", "f64",
+            *flags]
+    jcode, jout, _ = run(jcli.main_csr, argv + ["-t", "jnp"], capsys)
+    tcode, tout, _ = run(cli.main_csr, argv + ["-t", "torch"], capsys)
+    assert tcode == jcode
+    assert contract_lines(tout) == contract_lines(jout)
+    assert "iteration" in tout or jcode == 1
 
 
 def test_dtype_policy():
@@ -192,14 +220,16 @@ def test_stats_to_messages_equal_jax(fmt):
 
 
 def test_package_never_imports_jax():
-    """Every module of the port, and chip_smoke.py, import without jax."""
+    """Every module of the port, and chip_smoke.py, import without jax
+    and without any module of the JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import abft_sparse_cg_tpu_torch as p\n"
         "for mod in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(mod.name)\n"
         "import chip_smoke\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] == 'jax')\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'abft_sparse_cg_tpu'))\n"
         "assert not bad, bad\n"
         "mods = [k for k in sys.modules if k.startswith(p.__name__)]\n"
         "print('ok', len(mods))\n"
@@ -212,8 +242,9 @@ def test_package_never_imports_jax():
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py names no module of jax or of the JAX package: it
-    reaches the shared host layer through the port's own modules."""
+    """chip_smoke.py names no module of jax or of the JAX package: its
+    host layer is the port's own copy (what it pulls in through those
+    imports is checked by test_package_never_imports_jax)."""
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         tree = ast.parse(f.read())
     names = []

@@ -1,14 +1,15 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
-file imports no JAX, so it also runs where JAX is not installed:
+file imports nothing of JAX or of the JAX package, so it also runs where
+JAX is not installed:
 
     PYTHONPATH=. python -m pytest --noconftest -p no:cacheprovider \\
         -m cuda tests/test_torch_cuda.py
 
-Tolerances: w to 1e-6 relative (the kernel uses explicitly rounded
-multiplies and adds in the plain version's order, so it is usually
-exact), pw and the rr trace to 1e-5 relative (per-block partials summed
+Tolerances: w to 1e-6 relative for kernel A and bit-exact for kernel C
+(both use explicitly rounded multiplies and adds in the plain version's
+order), pw and the rr trace to 1e-5 relative (per-block partials summed
 in another order than torch.sum).
 """
 
@@ -16,19 +17,27 @@ import numpy as np
 import pytest
 import torch
 
-from abft_sparse_cg_tpu.formats import assemble, build_protected
-from abft_sparse_cg_tpu.inject import inject_bitflips
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg_tpu_torch.formats import assemble, build_protected
+from abft_sparse_cg_tpu_torch.inject import inject_bitflips
 from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device
 from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
     dia_fast,
     dia_fast_plain,
     dia_spec,
+    ell_fast,
+    ell_fast_plain,
+    ell_spec,
 )
 from abft_sparse_cg_tpu_torch.solver.fused import (
     fused_cg_dia,
+    fused_cg_ell,
     make_fused_solver,
 )
+from abft_sparse_cg_tpu_torch.utils.matgen import (
+    shuffle_labels,
+    spd_tridiagonal,
+)
+from abft_sparse_cg_tpu_torch.utils.matzoo import dense_radius_3d
 
 MODES = ["none", "constraints", "sed", "sec7", "sec8", "secded"]
 CPU = torch.device("cpu")
@@ -108,6 +117,75 @@ def test_kernel_b_matches_plain(dev, mode, flips, seed):
     np.testing.assert_allclose(rk.rr_trace[:it].cpu().numpy(),
                                rp.rr_trace[:it].numpy(), rtol=1e-5)
     # Deterministic reductions: a second run is bit-identical.
+    rk2 = solve(make_matrix_device(m, torch.float32, dev), b.to(dev))
+    assert torch.equal(rk2.rr_trace[:it], rk.rr_trace[:it])
+    assert torch.equal(rk2.x, rk.x)
+
+
+def ell_matrix(mode, shape="dense-radius"):
+    if shape == "dense-radius":
+        rows, cols, vals, n = dense_radius_3d(side=16)
+        return build_protected("csr", assemble(cols, rows, vals, n, 2), mode)
+    rows, cols, vals, n = shuffle_labels(*spd_tridiagonal(8192), seed=11)
+    return build_protected("csr", assemble(cols, rows, vals, n, 1), mode,
+                           force_exec="ell")
+
+
+@pytest.mark.parametrize("shape", ["dense-radius", "permuted"])
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_c_matches_plain(dev, mode, shape):
+    m = ell_matrix(mode, shape)
+    spec = ell_spec(m, mode)
+    x = torch.tensor(np.random.default_rng(5).random(m.R),
+                     dtype=torch.float32, device=dev)
+    variants = [m, faulted(m, 1, 31), faulted(m, 2, 32),
+                faulted(m, 1, 33, "INDEX")]
+    for mm in variants:
+        md = make_matrix_device(mm, torch.float32, dev)
+        before = ell_fast.launches
+        wk, tk, pk = ell_fast(md, x, spec)
+        assert ell_fast.launches == before + 1
+        wp, tp, pp = ell_fast_plain(md, x, spec)
+        torch.testing.assert_close(wk, wp, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(pk, pp, rtol=1e-5, atol=0,
+                                   equal_nan=True)
+        assert bool(tk) == bool(tp)
+
+
+def test_kernel_c_rejects_bad_arguments(dev):
+    m = ell_matrix("secded")
+    md = make_matrix_device(m, torch.float32, dev)
+    spec = ell_spec(m, "secded")
+    x = torch.rand(m.R, device=dev)
+    with pytest.raises(ValueError):
+        ell_fast(md, x.double(), spec)
+    with pytest.raises(ValueError):
+        ell_fast(md, x[: m.R - 32], spec)
+    with pytest.raises(ValueError):
+        ell_fast(md._replace(ell_len=md.ell_len.long()), x, spec)
+
+
+@pytest.mark.parametrize("mode,flips,seed,shape", [
+    ("none", 0, 0, "dense-radius"), ("constraints", 0, 0, "dense-radius"),
+    ("secded", 0, 0, "dense-radius"), ("secded", 1, 6, "dense-radius"),
+    ("sec7", 1, 6, "permuted"), ("sed", 1, 6, "dense-radius"),
+    ("secded", 2, 3, "dense-radius"), ("secded", 0, 0, "permuted")])
+def test_kernel_d_matches_plain(dev, mode, flips, seed, shape):
+    m = ell_matrix(mode, shape)
+    if flips:
+        m = faulted(m, flips, seed)
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    solve = make_fused_solver(m, mode, 300, 1e-8)
+    before = fused_cg_ell.launches
+    rk = solve(make_matrix_device(m, torch.float32, dev), b.to(dev))
+    assert fused_cg_ell.launches > before
+    rp = solve(make_matrix_device(m, torch.float32, CPU), b)
+    assert rk.iterations == rp.iterations
+    assert tuple(rk.stats) == tuple(rp.stats)
+    it = rk.iterations
+    np.testing.assert_allclose(rk.rr_trace[:it].cpu().numpy(),
+                               rp.rr_trace[:it].numpy(), rtol=1e-5)
     rk2 = solve(make_matrix_device(m, torch.float32, dev), b.to(dev))
     assert torch.equal(rk2.rr_trace[:it], rk.rr_trace[:it])
     assert torch.equal(rk2.x, rk.x)

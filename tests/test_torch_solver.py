@@ -1,9 +1,11 @@
 """The port's solvers against the JAX package.
 
-``solver.fused`` (kernel B's plain loop on CPU tensors, float32) against
-the Pallas megakernel run in interpret mode, and ``solver.cg`` (float64)
-against the jnp solver, on the 1024-row tridiagonal of
-tests/test_fused.py with seeded right-hand sides and injections.
+``solver.fused`` (kernels B's and D's plain loops on CPU tensors,
+float32) against the Pallas megakernel run in interpret mode, and
+``solver.cg`` (float64) against the jnp solver, on the 1024-row
+tridiagonal of tests/test_fused.py (DIA, and label-shuffled and forced
+to ELL) and the dense-radius-3d zoo family at side 10 (ELL, K = 175),
+with seeded right-hand sides and injections.
 Iterations and ABFT events must be equal.  The float32 trace agrees to
 rtol 1e-4: its reductions (pw, rr) are summed in another order than the
 TPU kernel's lane-vector accumulation.  The float64 trace agrees to
@@ -23,7 +25,8 @@ from abft_sparse_cg_tpu.ops.spmv import make_spmv as jmake_spmv
 from abft_sparse_cg_tpu.solver import cg as jcg
 from abft_sparse_cg_tpu.solver.fused import make_fused_continue as jcontinue
 from abft_sparse_cg_tpu.solver.fused import make_fused_solver as jfused
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg_tpu.utils.matgen import shuffle_labels, spd_tridiagonal
+from abft_sparse_cg_tpu.utils.matzoo import dense_radius_3d
 from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
 from abft_sparse_cg_tpu_torch.convert import cg_state_from_numpy
 from abft_sparse_cg_tpu_torch.ops.spmv import (
@@ -204,3 +207,81 @@ def test_phantom_guard_matches(trigged, st1, consumed, stuck):
     if stuck == 1 and trigged and not consumed and st1 == SpmvStats():
         assert tout.errcode == ERR_PHANTOM
 
+
+
+# --------------------------------------------------------------------------
+# The banded-ELL layout: kernel D's plain loop and the f64 CG loop
+# --------------------------------------------------------------------------
+
+def ell_matrix(mode, shape="dense-radius"):
+    """dense-radius-3d at side 10 (R = 1024, K = 175) or the shuffled
+    tridiagonal forced to ELL under its RCM permutation (the gidx
+    plane), both inside the Pallas megakernel's envelope."""
+    if shape == "dense-radius":
+        rows, cols, vals, n = dense_radius_3d(side=10)
+        m = build_protected("csr", assemble(cols, rows, vals, n, 1), mode)
+    else:
+        rows, cols, vals, n = shuffle_labels(*spd_tridiagonal(1024), seed=11)
+        m = build_protected("csr", assemble(cols, rows, vals, n, 1), mode,
+                            force_exec="ell")
+    assert m.exec_kind == "ell" and m.R % 1024 == 0
+    return m
+
+
+ELL_FUSED_CASES = FUSED_CASES + [
+    ("permuted-clean", "secded", 0, 0, 0, 0),
+    ("permuted-corrected", "sec8", 1, 6, 0, 1),
+]
+
+
+@pytest.mark.parametrize("case,mode,flips,seed,err,cor", ELL_FUSED_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in ELL_FUSED_CASES])
+def test_fused_ell_matches_pallas_megakernel(case, mode, flips, seed, err,
+                                             cor):
+    """Kernel D's plain loop vs the ELL branch of the Pallas megakernel in
+    interpret mode: the same iterations and ABFT events, the trace to
+    rtol 1e-4 (reduction order)."""
+    m = ell_matrix(mode, "permuted" if case.startswith("permuted")
+                   else "dense-radius")
+    if flips:
+        m = inject(m, flips, seed)
+    jr, tr = run_both_fused(m, mode)
+    assert_same_solve(jr, tr)
+    assert tr.stats.errcode == err and tr.stats.corrected_count == cor
+    if err == 0:
+        np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x),
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode,flips,seed", CG_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in CG_CASES])
+def test_cg_f64_ell_matches_jnp(mode, flips, seed):
+    """The per-iteration loop of the torch target on the ELL layout,
+    float64, against the jnp solver."""
+    m = ell_matrix(mode)
+    if flips:
+        m = inject(m, flips, seed)
+    b = bvec(m).astype(np.float64)
+    jr = jax.jit(jcg.make_cg_solver(jmake_spmv(m, jnp.float64, mode),
+                                    MAX_ITRS, CONV))(
+        jmake_md(m, jnp.float64), jnp.asarray(b))
+    tr = cg.make_cg_solver(make_spmv(m, torch.float64, mode), MAX_ITRS,
+                           CONV)(make_matrix_device(m, torch.float64, CPU),
+                                 torch.tensor(b))
+    assert_same_solve(jr, tr, rtol=1e-12)
+    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), rtol=1e-12,
+                               atol=1e-14)
+
+
+def test_cuda_backend_routes_ell_to_fused_on_cpu_tensors():
+    """The cuda target on a permuted ELL matrix, run on a CPU device:
+    kernel D's plain loop, the correction message with the canonical
+    index, and the answer in canonical order."""
+    m = inject(ell_matrix("secded", "permuted"), 1, 6)
+    assert supports_fused(m, torch.float32) and m.perm is not None
+    b = np.random.default_rng(1).random(m.N)
+    res = CudaBackend("secded", device="cpu").solve(m, b, MAX_ITRS, CONV)
+    assert res.corrected_count == 1 and not res.failed
+    assert res.messages[0].startswith("[ECC] corrected")
+    w, code, _ = CudaBackend("secded", device="cpu").spmv_once(m, res.x)
+    assert code == 0 and np.abs(w - b).max() < 1e-3

@@ -1,12 +1,15 @@
-"""The port's DIA SpMV (ops.spmv, ops.spmv_cuda) against the JAX package.
+"""The port's DIA and ELL SpMV (ops.spmv, ops.spmv_cuda) against the JAX
+package.
 
-Inputs: the 1024-row SPD tridiagonal of tests/test_fused.py, a seeded
-x, and seeded 1-/2-bit injections.  Kernel A's plain version is held
-against the Pallas DIA kernel run in interpret mode; classify and the
+Inputs: the 1024-row SPD tridiagonal of tests/test_fused.py (DIA, and
+label-shuffled and forced to ELL under its RCM permutation), the
+dense-radius-3d zoo family at side 10 (ELL, K = 175), a seeded x, and
+seeded 1-/2-bit injections.  Kernels A's and C's plain versions are
+held against the Pallas kernels run in interpret mode; classify and the
 float64 ``full`` oracle against the jnp implementation.  Tolerances:
-w rtol 1e-6 and pw rtol 1e-5 in float32 (the stencil sums in the same
-diagonal order, but pw is reduced in another order); the float64 oracle
-1e-12.
+w rtol 1e-6 and pw rtol 1e-5 in float32 (the products sum in the same
+order as the TPU kernels' up to float32 rounding of the slot sum, and pw
+is reduced in another order); the float64 oracle 1e-12.
 """
 
 import jax
@@ -20,14 +23,27 @@ from abft_sparse_cg_tpu.inject import inject_bitflips
 from abft_sparse_cg_tpu.ops.spmv import make_matrix_device as jmake_md
 from abft_sparse_cg_tpu.ops.spmv import make_spmv as jmake_spmv
 from abft_sparse_cg_tpu.ops.spmv_pallas import make_pallas_spmv
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal
+from abft_sparse_cg_tpu.utils.matgen import shuffle_labels, spd_tridiagonal
+from abft_sparse_cg_tpu.utils.matzoo import (
+    arrowhead,
+    blockdiag_random,
+    dense_radius_3d,
+)
 from abft_sparse_cg_tpu_torch.convert import matrix_device_from_numpy
 from abft_sparse_cg_tpu_torch.ecc.codec import to_numpy_u32
-from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device, make_spmv
+from abft_sparse_cg_tpu_torch.ops.spmv import (
+    ell_product,
+    make_matrix_device,
+    make_spmv,
+)
 from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
     dia_fast,
     dia_fast_plain,
     dia_spec,
+    ell_fast,
+    ell_fast_plain,
+    ell_gather_plane,
+    ell_spec,
     make_cuda_spmv,
 )
 
@@ -198,11 +214,221 @@ def test_cuda_impl_full_matches_pallas_full(mode):
 
 
 def test_non_dia_layouts_not_ported():
-    rows, cols, vals, n = spd_tridiagonal(1024)
-    m = build_protected("csr", assemble(cols, rows, vals, n, 1), "secded",
-                        force_exec="ell")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_matrix_device(m, torch.float32, CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_spmv(m, torch.float32, "secded")
+    """The layouts still to port (ROADMAP.md queue 1 item 9): a bordered
+    matrix the JAX build splits, and a K = 729 one it lays out flat."""
+    for kind, (rows, cols, vals, n) in (
+            ("split", arrowhead(n=2048)),
+            ("flat", dense_radius_3d(side=10, rx=4, ry=4, rz=4))):
+        m = build_protected("csr", assemble(cols, rows, vals, n, 1),
+                            "secded")
+        assert m.exec_kind == kind
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_matrix_device(m, torch.float32, CPU)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_spmv(m, torch.float32, "secded")
 
+
+
+# --------------------------------------------------------------------------
+# The banded-ELL layout: kernel C's plain version, classify, the oracle
+# --------------------------------------------------------------------------
+
+def ell_matrix(shape, mode):
+    """dense-radius-3d at side 10 (N = 1000, K = 175, band 223) or the
+    shuffled tridiagonal forced to ELL under its RCM permutation."""
+    if shape == "dense-radius":
+        rows, cols, vals, n = dense_radius_3d(side=10)
+        m = build_protected("csr", assemble(cols, rows, vals, n, 1), mode)
+    else:
+        rows, cols, vals, n = shuffle_labels(*spd_tridiagonal(1024), seed=11)
+        m = build_protected("csr", assemble(cols, rows, vals, n, 1), mode,
+                            force_exec="ell")
+        assert (m.perm is not None) == (mode != "constraints")
+    assert m.exec_kind == "ell" and m.R <= 4096
+    return m
+
+
+def ell_cases(shape, mode):
+    m = ell_matrix(shape, mode)
+    out = [("clean", m)]
+    for flips, seed in ((1, 31), (2, 32), (1, 33), (1, 35)):
+        out.append((f"{flips}bit-s{seed}", inject_bitflips(
+            m, "ANY", flips, np.random.default_rng(seed),
+            echo=lambda s: None)))
+    out.append(("index", inject_bitflips(
+        m, "INDEX", 1, np.random.default_rng(34), echo=lambda s: None)))
+    return out
+
+
+def moved_rows(m0, m1):
+    """Rows whose gather word differs between two builds."""
+    g0, g1 = m0.ell[m0.ell_gather_word], m1.ell[m1.ell_gather_word]
+    return np.unique(np.nonzero(g0 != g1)[1])
+
+
+ELL_SHAPES = ["dense-radius", "permuted"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", ELL_SHAPES)
+def test_ell_matrix_device_bit_exact(shape, mode):
+    for _, m in ell_cases(shape, mode)[:3]:
+        for jdt, tdt in ((jnp.float32, torch.float32),
+                         (jnp.float64, torch.float64)):
+            jmd, tmd = jmake_md(m, jdt), make_matrix_device(m, tdt, CPU)
+            assert_md_equal(jmd, tmd)
+            np.testing.assert_array_equal(np.asarray(jmd.ell_len),
+                                          tmd.ell_len.numpy())
+            for f in ("gidx", "perm_pos"):
+                a, b = getattr(jmd, f), getattr(tmd, f)
+                assert (a is None) == (b is None), f
+                if a is not None:
+                    np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", ELL_SHAPES)
+def test_ell_fast_plain_matches_pallas_kernel(shape, mode):
+    """Kernel C's plain version vs spmv_pallas._make_ellb_fast run in
+    interpret mode: the same trigger, w within 1e-6 of each row's
+    absolute sum sum_k |v x| (the two sum up to 175 slots in another
+    float32 order, and the rows of dense-radius-3d cancel to ~1/4 of
+    that sum) and pw within 1e-5, clean and under injected faults.  A fault that moves a gather index outside the TPU kernel's
+    row window is clamped to that window there and globally here (the
+    jnp oracle's rule, ROADMAP.md queue 3): rows whose index moved are
+    held against the jnp ``fast`` instead."""
+    all_cases = ell_cases(shape, mode)
+    m0 = all_cases[0][1]
+    kernel = jax.jit(make_pallas_spmv(m0, jnp.float32, mode,
+                                      interpret=True).fast_pw)
+    jfast = jax.jit(jmake_spmv(m0, jnp.float32, mode).fast_pw)
+    spec = ell_spec(m0, mode)
+    for label, m in all_cases:
+        x = xvec(m)
+        jmd = jmake_md(m, jnp.float32)
+        jw, jtrig, jpw = (np.asarray(v) for v in kernel(jmd, jnp.asarray(x)))
+        ow, _, opw = (np.asarray(v) for v in jfast(jmd, jnp.asarray(x)))
+        tw, ttrig, tpw = ell_fast(make_matrix_device(m, torch.float32, CPU),
+                                  torch.tensor(x), spec)
+        tw = tw.numpy()
+        md64 = make_matrix_device(m, torch.float64, CPU)
+        absw = ell_product(md64.values.abs(), ell_gather_plane(md64, spec),
+                           md64.ell_len, torch.tensor(x, dtype=torch.float64)
+                           ).numpy()
+        moved = moved_rows(m0, m)
+        want = jw.copy()
+        want[moved] = ow[moved]
+        fin = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(tw), fin, err_msg=label)
+        assert np.all(np.abs(tw - want)[fin] <= 1e-6 * absw[fin]), label
+        np.testing.assert_allclose(float(tpw), float(opw if len(moved)
+                                                     else jpw), rtol=1e-5,
+                                   err_msg=label)
+        assert bool(ttrig) == bool(jtrig), (mode, label)
+        if label == "clean" or mode == "none":
+            assert not bool(ttrig), (mode, label)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", ELL_SHAPES)
+def test_ell_full_f64_matches_jnp(shape, mode):
+    all_cases = ell_cases(shape, mode)
+    jfull = jax.jit(jmake_spmv(all_cases[0][1], jnp.float64, mode).full)
+    for label, m in all_cases:
+        x = xvec(m, np.float64)
+        jw, jst = jfull(jmake_md(m, jnp.float64), jnp.asarray(x))
+        tw, tst = make_spmv(m, torch.float64, mode).full(
+            make_matrix_device(m, torch.float64, CPU), torch.tensor(x))
+        np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-12,
+                                   atol=1e-12, err_msg=label)
+        assert tuple(tst) == tuple(int(v) for v in jst), (mode, label)
+
+
+@pytest.mark.parametrize("mode", ["constraints"] + ECC)
+@pytest.mark.parametrize("shape", ELL_SHAPES)
+def test_ell_classify_bit_exact(shape, mode):
+    """Stats and scrubbed planes (values, checksums, fold, and the gidx
+    plane re-derived through perm_pos) vs the jnp classify."""
+    all_cases = ell_cases(shape, mode)
+    jclassify = jax.jit(jmake_spmv(all_cases[0][1], jnp.float32,
+                                   mode).classify)
+    for label, m in all_cases:
+        jmd = jmake_md(m, jnp.float32)
+        jst, jmd2 = jclassify(jmd)
+        tmd = matrix_device_from_numpy(jfields(jmd), CPU)
+        tst, tmd2 = make_spmv(m, torch.float32, mode).classify(tmd)
+        assert tuple(tst) == tuple(int(v) for v in jst), (mode, label)
+        assert_md_equal(jmd2, tmd2)
+        if jmd2.gidx is not None:
+            np.testing.assert_array_equal(np.asarray(jmd2.gidx),
+                                          tmd2.gidx.numpy())
+
+
+@pytest.fixture(scope="module")
+def clamp_matrix():
+    rows, cols, vals, n = blockdiag_random(n=600)
+    m = build_protected("csr", assemble(cols, rows, vals, n, 1), "none")
+    assert m.exec_kind == "ell"
+    return m
+
+
+@pytest.mark.parametrize("bit", range(32))
+def test_ell_out_of_range_index_clamps_like_jnp(clamp_matrix, bit):
+    """Mode none gathers with the raw col word: flip each of its 32 bits
+    in one element (bit 31 makes the int32 index negative) and hold the
+    port's products against the jnp oracle's clamped gather: float64 to
+    1e-12, and kernel C's plain version in float32 to 1e-6 of each row's
+    absolute sum (summation order)."""
+    m = clamp_matrix
+    words = m.words_list()
+    idx = m.nnz // 2
+    cw = m.layout.col_word
+    words[cw] = words[cw].copy()
+    words[cw][idx] ^= np.uint32(1 << bit)
+    mf = m.with_planes(dict(zip(m.layout.word_names, words)))
+    x = xvec(mf, np.float64)
+    jw, _ = jax.jit(jmake_spmv(mf, jnp.float64, "none").full)(
+        jmake_md(mf, jnp.float64), jnp.asarray(x))
+    tw, _ = make_spmv(mf, torch.float64, "none").full(
+        make_matrix_device(mf, torch.float64, CPU), torch.tensor(x))
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-12,
+                               atol=1e-12)
+    x32 = x.astype(np.float32)
+    jw32, _ = jax.jit(jmake_spmv(mf, jnp.float32, "none").full)(
+        jmake_md(mf, jnp.float32), jnp.asarray(x32))
+    spec = ell_spec(mf, "none")
+    kw, _, _ = ell_fast(make_matrix_device(mf, torch.float32, CPU),
+                        torch.tensor(x32), spec)
+    md64 = make_matrix_device(mf, torch.float64, CPU)
+    absw = ell_product(md64.values.abs(), ell_gather_plane(md64, spec),
+                       md64.ell_len, torch.tensor(x)).numpy()
+    assert np.all(np.abs(kw.numpy() - np.asarray(jw32)) <= 1e-6 * absw)
+
+
+def test_ell_fast_takes_plain_version_only_on_cpu():
+    m = ell_matrix("dense-radius", "secded")
+    md = make_matrix_device(m, torch.float32, CPU)
+    spec = ell_spec(m, "secded")
+    x = torch.tensor(xvec(m))
+    before = ell_fast.launches
+    out = ell_fast(md, x, spec)
+    ref = ell_fast_plain(md, x, spec)
+    assert ell_fast.launches == before
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        ell_fast(md, x.to("meta"), spec)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_impl_full_matches_plain_on_cpu_ell(mode):
+    """The cuda SpmvImpl's full on ELL (kernel C's plain version in
+    none/constraints, the check-and-correct oracle in the ECC modes)
+    agrees with the plain impl."""
+    for label, m in ell_cases("permuted", mode):
+        md = make_matrix_device(m, torch.float32, CPU)
+        x = torch.tensor(xvec(m))
+        w1, s1 = make_cuda_spmv(m, torch.float32, mode).full(md, x)
+        w2, s2 = make_spmv(m, torch.float32, mode).full(md, x)
+        torch.testing.assert_close(w1, w2, rtol=0, atol=0)
+        assert s1 == s2, (mode, label)
