@@ -1,19 +1,21 @@
 """Command-line interface of the port — the counterpart of cli.py:93-482.
 
 Same flags, defaults, stdout lines and exit codes as the JAX CLI (the
-parser below is a copy of its ``parse_arguments``, with ``torch`` as
-the default target), so ``run_tests`` drives ``bin/cg-csr-torch``
-unchanged: the config echo, the injection banner, ``[ECC]`` lines,
-``iteration ... rr =`` lines, ``ran for``, ``time taken``, ``total
-error``.  Targets: ``torch`` (the default: plain PyTorch, CPU, float64
-by default) and ``cuda`` (the kernels, float32).  ``main`` returns the
-exit code.
+parser below is a copy of its ``parse_arguments``, with ``cuda`` as
+the default target where the JAX CLI has ``jnp``), so ``run_tests``
+drives ``bin/cg-csr-torch`` unchanged: the config echo, the injection
+banner, ``[ECC]`` lines, ``iteration ... rr =`` lines, ``ran for``,
+``time taken``, ``total error``.  Targets: ``cuda`` (the default: the
+kernels on the card, float32) and ``torch`` (plain PyTorch on the CPU,
+float64 by default — asked for explicitly, as the tests do).  Without a
+card ``cuda-<mode>`` is not registered, so a run without ``-t`` prints
+"No implementation found for cuda-<mode>" and exits 1; it never falls
+back to the CPU.  ``main`` returns the exit code.
 
 Flags of features this package has not ported yet print a one-line
 error and exit 1: --devices, --solver pipelined, -p/--precond jacobi,
 --refine, --checkpoint/--checkpoint-every/--resume, --check-interval
-K > 1, --profile and --format coo; so do matrices that route to the
-flat or split execution layouts.
+K > 1, --profile and --format coo.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ _USAGE_OPTIONS = """Options:
   -i  --iterations      I     Maximum number of iterations
   -l  --list                  List available implementations
   -m  --mode            MODE  ABFT mode
-  -t  --target          TARG  Implementation target
+  -t  --target          TARG  Implementation target (default: cuda,
+                              the kernels on the card; torch: plain
+                              PyTorch on the CPU)
   -x  --inject-bitflip        Inject a random bit-flip into A
       --format          F     Storage format: csr | coo
       --seed            S     Seed b-vector and injector RNGs
@@ -98,7 +102,7 @@ def parse_arguments(argv, fmt):
         "bitflip_kind": "ANY",
         "num_blocks": 25,
         "matrix_file": os.path.normpath(DEFAULT_MATRIX),
-        "target": "torch",
+        "target": "cuda",
         "mode": "none",
         "fmt": fmt,
         "seed": None,
@@ -330,8 +334,8 @@ def _main(params):
         return 1
     try:
         mat = build_protected(params["fmt"], assembled, params["mode"])
-    except (ValueError, NotImplementedError) as e:
-        # Flat and split layouts: one line, exit 1.
+    except ValueError as e:
+        # A matrix the build cannot take: one line, exit 1.
         print(str(e))
         return 1
 

@@ -1,7 +1,8 @@
-// Shared device code of the four kernels (dia_spmv_detect.cu,
-// fused_cg_dia.cu, ell_spmv_detect.cu, fused_cg_ell.cu): the DIA stencil
-// and banded-ELL row products, the live ABFT signals and fixed-order
-// block and grid reductions.
+// Shared device code of the five kernels (dia_spmv_detect.cu,
+// fused_cg_dia.cu, ell_spmv_detect.cu, fused_cg_ell.cu,
+// flat_spmv_detect.cu): the DIA stencil and banded-ELL row products, the
+// live ABFT signals, fixed-order block and grid reductions, and the
+// split tail pass of the fused kernels.
 //
 // Arithmetic order.  The row products sum the diagonals (d = 0..D-1) or
 // the slots (k = 0..ell_len[r]-1) in order with explicitly rounded
@@ -183,6 +184,35 @@ __device__ __forceinline__ float ell_row_signals(
   return w;
 }
 
+// Signals of one slot j of a flat (E,) plane (E % 8 == 0), for kernel E
+// and the split tail of kernels B and D; nonzero if they fired.  Every
+// lane of a warp must call it, on 32 consecutive j starting at a multiple
+// of 32; j may run past E (up to E rounded up to 32), where the word
+// reads as zero and no block is compared.  The checksum covers each exact
+// 8-slot block, as ops.spmv._fold_blocks does on a 1-D plane.
+__device__ __forceinline__ int flat_signals(const DiaSignals& s, int E,
+                                            int j) {
+  const uint32_t v = j < E ? __ldg(s.plane + j) : 0u;
+  int bad = s.use_parity ? (__popc(v) & 1) : 0;
+  if (s.use_cksum) {
+    uint32_t acc = v;
+    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 1);
+    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 2);
+    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 4);
+    if ((j & 7) == 0 && j < E && acc != __ldg(s.base + (j >> 3))) bad = 1;
+  }
+  return bad;
+}
+
+// Sum of a warp's 32 lane values in a fixed XOR butterfly (offsets 16,
+// 8, 4, 2, 1); every lane gets the total.  ops.spmv.flat_product repeats
+// this order.
+__device__ __forceinline__ float warp_butterfly(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(ABFT_FULL_MASK, v, o));
+  return v;
+}
+
 // Block-wide sum in a fixed order; every thread gets the total.  ``buf``
 // holds at least 33 floats of shared memory; blockDim.x % 32 == 0.
 __device__ __forceinline__ float block_sum(float v, float* buf) {
@@ -210,6 +240,116 @@ __device__ __forceinline__ int block_any(int v, int* buf) {
   const int any = buf[0];
   __syncthreads();
   return any;
+}
+
+// ---- The split tail of the fused kernels B and D --------------------------
+//
+// A bordered split (formats/split.py::try_split) with a dense plan
+// (ops/spmv.py::dense_tail_plan): T <= 64 outlier rows o_t, each with a
+// span window [start_t, start_t + S).  td[t] holds the dense row o_t over
+// its window, tb[t] the transpose images (entries whose gather source is
+// o_t, by output row).  Per iteration the tail adds to the main product w
+//   dense rows        w[o_t]                  += td[t] . p[start_t + 0..S)
+//   mirrored AXPYs    w[start_t + j]          += p[o_t] * tb[t][j]
+// and streams its (E,) signal plane for live detection — the counterpart
+// of the TPU kernel's tail (solver/fused.py:977-1014, tail_trigger
+// :737-763).  Order: every element w[i] adds, for t = 0..T-1 in turn, the
+// dense row's sum (i == o_t) and then the AXPY term (i in window t), as
+// the TPU kernel's loop over t does; the T dot products are summed in
+// fixed chunks, so w is deterministic.  The tail checksum compares exact
+// 8-slot blocks, finer than the TPU kernel's whole-plane fold.
+#define ABFT_MAX_T 64
+#define ABFT_TAIL_CHUNK 2048
+
+struct TailPlan {
+  int T;                   // outlier rows; 0: no tail
+  int S;                   // span width
+  int nch;                 // chunks per dot product: ceil(S / CHUNK)
+  int E;                   // tail signal-plane slots (multiple of 8)
+  int rows[ABFT_MAX_T];    // o_t (exec rows)
+  int starts[ABFT_MAX_T];  // start_t
+  const float* td;         // (T, S)
+  const float* tb;         // (T, S)
+  float* part;             // (T * nch) chunk partials of the dot products
+  DiaSignals sig;          // (E,) tail fold or col word; null: none
+};
+
+// Phase 1 (every block, beside its main rows): the chunk partials of the
+// T dot products.  Chunk c = t * nch + q covers window slots [q * CHUNK,
+// (q + 1) * CHUNK) of outlier t and is summed by one block in a fixed
+// order (thread-strided, then block_sum).
+__device__ __forceinline__ void tail_dense_partials(const TailPlan& t,
+                                                    const float* p,
+                                                    float* fbuf) {
+  const int nparts = t.T * t.nch;
+  for (int c = blockIdx.x; c < nparts; c += gridDim.x) {
+    const int k = c / t.nch;
+    const int j0 = (c - k * t.nch) * ABFT_TAIL_CHUNK;
+    const int j1 = min(j0 + ABFT_TAIL_CHUNK, t.S);
+    const float* td = t.td + (size_t)k * t.S;
+    const float* pwin = p + t.starts[k];
+    float v = 0.0f;
+    for (int j = j0 + (int)threadIdx.x; j < j1; j += blockDim.x)
+      v = __fadd_rn(v, __fmul_rn(__ldg(td + j), __ldcg(pwin + j)));
+    v = block_sum(v, fbuf);
+    if (threadIdx.x == 0) t.part[c] = v;
+  }
+}
+
+// Phase 2 (after a grid sync): element i of the product, main part ``w``
+// in, tail terms added in the order described above.
+__device__ __forceinline__ float tail_row(const TailPlan& t, const float* p,
+                                          int i, float w) {
+  for (int k = 0; k < t.T; ++k) {
+    if (i == t.rows[k]) {
+      float wa = 0.0f;
+      for (int q = 0; q < t.nch; ++q)
+        wa = __fadd_rn(wa, __ldcg(t.part + k * t.nch + q));
+      w = __fadd_rn(w, wa);
+    }
+    const int off = i - t.starts[k];
+    if (off >= 0 && off < t.S)
+      w = __fadd_rn(w, __fmul_rn(__ldcg(p + t.rows[k]),
+                                 __ldg(t.tb + (size_t)k * t.S + off)));
+  }
+  return w;
+}
+
+// The tail's signals over its (E,) plane, grid-strided; nonzero if they
+// fired.  ``tid``/``stride`` are the grid's thread index and size.
+__device__ __forceinline__ int tail_signals(const TailPlan& t, int tid,
+                                            int stride) {
+  int bad = 0;
+  if (t.sig.plane == nullptr) return 0;
+  const int E32 = (t.E + 31) & ~31;
+  for (int j = tid; j < E32; j += stride) bad |= flat_signals(t.sig, t.E, j);
+  return bad;
+}
+
+// Host side: fill a TailPlan from the C interface's arguments; returns
+// false on arguments the kernels cannot take.
+inline bool make_tail_plan(TailPlan* t, const float* td, const float* tb,
+                           const int* rows, const int* starts, int T, int S,
+                           float* part, const uint32_t* plane,
+                           const uint32_t* base, int use_parity,
+                           int use_cksum, int E) {
+  t->T = T;
+  t->S = S;
+  t->E = E;
+  t->nch = T ? (S + ABFT_TAIL_CHUNK - 1) / ABFT_TAIL_CHUNK : 0;
+  t->td = td;
+  t->tb = tb;
+  t->part = part;
+  t->sig = DiaSignals{plane, base, use_parity, use_cksum};
+  if (T == 0) return true;
+  if (T < 0 || T > ABFT_MAX_T || S < 1 || E < 8 || E % 8 != 0 ||
+      td == nullptr || tb == nullptr || part == nullptr)
+    return false;
+  for (int k = 0; k < T; ++k) {
+    t->rows[k] = rows[k];
+    t->starts[k] = starts[k];
+  }
+  return true;
 }
 
 // Fixed-order sum of a whole grid's per-block partials, computed by

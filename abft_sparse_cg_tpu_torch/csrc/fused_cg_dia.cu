@@ -16,6 +16,13 @@
 //      exits without the update;
 //   6. x += alpha p, r = r1, p = r1 + (rr1 / rz) p, trace[itr] = rr1,
 //      itr += 1; grid sync (the next stencil reads neighbour rows of p).
+// A bordered split with a dense plan runs the instance with the split
+// tail (kTail; dia_common.cuh TailPlan): step 1 also computes the chunk
+// partials of the tail's dense rows and the tail's signals; after the
+// sync and the trigger test, every thread adds the tail terms to its rows
+// of w and the pw partials are taken over the complete product, with one
+// more grid sync before pw is reduced (solver/fused.py:977-1014).  The
+// tail-free instance is the code without it.
 // x, r and p are updated IN PLACE.  That is safe because an iteration
 // that triggers or breaks down writes none of them: the caller sees
 // exactly the state before that iteration.  The trace is written only
@@ -77,8 +84,9 @@ struct FusedArgs {
   float conv;
 };
 
+template <bool kTail>
 __global__ void __launch_bounds__(kBlock)
-fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs) {
+fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs, TailPlan t) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float fbuf[33];
   __shared__ int ibuf[1];
@@ -98,8 +106,13 @@ fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs) {
     for (int i = tid; i < R; i += stride) {
       const float wr = dia_row<true>(a.vals, offs, R, a.p, i);
       a.w[i] = wr;
-      pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
+      if constexpr (!kTail)
+        pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
       if (a.sig.plane != nullptr) bad |= dia_row_signals(a.sig, offs.n, R, i);
+    }
+    if constexpr (kTail) {
+      tail_dense_partials(t, a.p, fbuf);
+      bad |= tail_signals(t, tid, stride);
     }
     const float bpw = block_sum(pw_l, fbuf);
     const int bbad = block_any(bad, ibuf);
@@ -109,10 +122,29 @@ fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs) {
     }
     grid.sync();
     // 2-3. reduce; a trigger exits before any update
-    const float pw = grid_total(a.part_pw, fbuf);
-    if (grid_any(a.part_flag, ibuf)) {
-      trig = 1;
-      break;
+    float pw;
+    if constexpr (kTail) {
+      if (grid_any(a.part_flag, ibuf)) {
+        trig = 1;
+        break;
+      }
+      // the tail terms, then pw over the complete product
+      pw_l = 0.0f;
+      for (int i = tid; i < R; i += stride) {
+        const float wr = tail_row(t, a.p, i, __ldcg(a.w + i));
+        a.w[i] = wr;
+        pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
+      }
+      const float bpw2 = block_sum(pw_l, fbuf);
+      if (threadIdx.x == 0) a.part_pw[blockIdx.x] = bpw2;
+      grid.sync();
+      pw = grid_total(a.part_pw, fbuf);
+    } else {
+      pw = grid_total(a.part_pw, fbuf);
+      if (grid_any(a.part_flag, ibuf)) {
+        trig = 1;
+        break;
+      }
     }
     // 4. r1 = r - alpha w into the w buffer, rr1 partials
     const float alpha = __fdiv_rn(rz, pw);
@@ -158,9 +190,11 @@ fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs) {
 
 }  // namespace
 
-// Largest co-resident grid for the cooperative launch on ``device``:
-// SMs x resident blocks per SM.  Returns a cudaError_t.
-extern "C" int abft_fused_grid(int device, int* grid) {
+// Largest co-resident grid for the cooperative launch on ``device`` of
+// the tail-free instance (``tail`` 0) or the split-tail one: SMs x
+// resident blocks per SM.  The tail instance needs more registers, so
+// each instance gets its own grid.  Returns a cudaError_t.
+extern "C" int abft_fused_grid(int device, int tail, int* grid) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int coop = 0, sms = 0, per_sm = 0;
@@ -170,7 +204,10 @@ extern "C" int abft_fused_grid(int device, int* grid) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_cg_dia_kernel, kBlock, 0);
+      &per_sm,
+      tail ? (const void*)fused_cg_dia_kernel<true>
+           : (const void*)fused_cg_dia_kernel<false>,
+      kBlock, 0);
   if (err != cudaSuccess) return (int)err;
   *grid = sms * per_sm;
   return *grid > 0 ? (int)cudaSuccess : (int)cudaErrorLaunchOutOfResources;
@@ -182,11 +219,17 @@ extern "C" int abft_fused_cg_dia(
     int use_parity, int use_cksum, float* part_pw, float* part_rr,
     int* part_flag, int grid, const int* iscal_in, const float* fscal_in,
     int* iscal_out, float* fscal_out, float* trace, int trace_len,
-    float conv, int device, void* stream) {
+    float conv, const float* td, const float* tb, const int* trows,
+    const int* tstarts, int T, int S, float* tpart, const uint32_t* tplane,
+    const uint32_t* tbase, int E, int device, void* stream) {
   if (D < 1 || D > ABFT_MAX_D || R % 32 != 0 || grid < 1)
     return (int)cudaErrorInvalidValue;
+  TailPlan t;
+  if (!make_tail_plan(&t, td, tb, trows, tstarts, T, S, tpart, tplane,
+                      tbase, use_parity, use_cksum, E))
+    return (int)cudaErrorInvalidValue;
   int max_grid = 0;
-  int rc = abft_fused_grid(device, &max_grid);
+  int rc = abft_fused_grid(device, T > 0, &max_grid);
   if (rc != (int)cudaSuccess) return rc;
   if (grid > max_grid) return (int)cudaErrorCooperativeLaunchTooLarge;
   DiaOffsets offs;
@@ -210,10 +253,11 @@ extern "C" int abft_fused_cg_dia(
   a.trace = trace;
   a.trace_len = trace_len;
   a.conv = conv;
-  void* args[] = {&a, &offs};
+  void* args[] = {&a, &offs, &t};
+  const void* fn = T ? (const void*)fused_cg_dia_kernel<true>
+                     : (const void*)fused_cg_dia_kernel<false>;
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)fused_cg_dia_kernel, dim3(grid), dim3(kBlock), args, 0,
-      (cudaStream_t)stream);
+      fn, dim3(grid), dim3(kBlock), args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,8 @@
 //      err = 7 (ERR_BREAKDOWN) before any update;
 //   4. x += alpha p, r = r1, p = r1 + (rr1 / rz) p, trace[itr] = rr1;
 //      grid sync (the next product gathers p at arbitrary rows).
+// A bordered split whose main part is banded ELL runs the instances with
+// kernel B's split tail (kTail; dia_common.cuh TailPlan, fused_cg_dia.cu).
 //
 // What bounds it on the H100: bytes per iteration — the plane streams (K
 // values + K gather words + K signal words per row in the detecting
@@ -85,9 +87,9 @@ struct FusedArgs {
 
 // kSignals: the detecting modes (a signal plane is streamed); mode none
 // runs the instance without the signal code.
-template <bool kSignals>
+template <bool kSignals, bool kTail>
 __global__ void __launch_bounds__(kBlock)
-fused_cg_ell_kernel(FusedArgs a, EllPlanes m) {
+fused_cg_ell_kernel(FusedArgs a, EllPlanes m, TailPlan t) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float fbuf[33];
   __shared__ int ibuf[1];
@@ -112,7 +114,12 @@ fused_cg_ell_kernel(FusedArgs a, EllPlanes m) {
                    : ell_row<true>(m.vals, m.gsrc, m.gmask, m.ell_len, m.K,
                                    R, a.p, i);
       a.w[i] = wr;
-      pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
+      if constexpr (!kTail)
+        pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
+    }
+    if constexpr (kTail) {
+      tail_dense_partials(t, a.p, fbuf);
+      bad |= tail_signals(t, tid, stride);
     }
     const float bpw = block_sum(pw_l, fbuf);
     const int bbad = block_any(bad, ibuf);
@@ -122,10 +129,29 @@ fused_cg_ell_kernel(FusedArgs a, EllPlanes m) {
     }
     grid.sync();
     // 2. reduce; a trigger exits before any update
-    const float pw = grid_total(a.part_pw, fbuf);
-    if (grid_any(a.part_flag, ibuf)) {
-      trig = 1;
-      break;
+    float pw;
+    if constexpr (kTail) {
+      if (grid_any(a.part_flag, ibuf)) {
+        trig = 1;
+        break;
+      }
+      // the tail terms, then pw over the complete product
+      pw_l = 0.0f;
+      for (int i = tid; i < R; i += stride) {
+        const float wr = tail_row(t, a.p, i, __ldcg(a.w + i));
+        a.w[i] = wr;
+        pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
+      }
+      const float bpw2 = block_sum(pw_l, fbuf);
+      if (threadIdx.x == 0) a.part_pw[blockIdx.x] = bpw2;
+      grid.sync();
+      pw = grid_total(a.part_pw, fbuf);
+    } else {
+      pw = grid_total(a.part_pw, fbuf);
+      if (grid_any(a.part_flag, ibuf)) {
+        trig = 1;
+        break;
+      }
     }
     // 3. r1 = r - alpha w into the w buffer, rr1 partials
     const float alpha = __fdiv_rn(rz, pw);
@@ -171,9 +197,9 @@ fused_cg_ell_kernel(FusedArgs a, EllPlanes m) {
 }  // namespace
 
 // Largest co-resident grid for the cooperative launch on ``device``:
-// SMs x resident blocks per SM, for both instances.  Returns a
-// cudaError_t.
-extern "C" int abft_fused_ell_grid(int device, int* grid) {
+// SMs x resident blocks per SM, for both signal instances of the tail-free
+// kernel (``tail`` 0) or of the split-tail one.  Returns a cudaError_t.
+extern "C" int abft_fused_ell_grid(int device, int tail, int* grid) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int coop = 0, sms = 0, per_sm = 0;
@@ -182,14 +208,19 @@ extern "C" int abft_fused_ell_grid(int device, int* grid) {
   if (!coop) return (int)cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  int per_sm_none = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, fused_cg_ell_kernel<true>, kBlock, 0);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm_none, fused_cg_ell_kernel<false>, kBlock, 0);
-  if (err != cudaSuccess) return (int)err;
-  *grid = sms * min(per_sm, per_sm_none);
+  const void* fns[] = {
+      tail ? (const void*)fused_cg_ell_kernel<true, true>
+           : (const void*)fused_cg_ell_kernel<true, false>,
+      tail ? (const void*)fused_cg_ell_kernel<false, true>
+           : (const void*)fused_cg_ell_kernel<false, false>};
+  per_sm = 1 << 30;
+  for (const void* fn : fns) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kBlock, 0);
+    if (err != cudaSuccess) return (int)err;
+    per_sm = min(per_sm, n);
+  }
+  *grid = sms * per_sm;
   return *grid > 0 ? (int)cudaSuccess : (int)cudaErrorLaunchOutOfResources;
 }
 
@@ -199,12 +230,18 @@ extern "C" int abft_fused_cg_ell(
     float* w, const uint32_t* plane, const uint32_t* base, int use_parity,
     int use_cksum, float* part_pw, float* part_rr, int* part_flag,
     int grid, const int* iscal_in, const float* fscal_in, int* iscal_out,
-    float* fscal_out, float* trace, int trace_len, float conv, int device,
-    void* stream) {
+    float* fscal_out, float* trace, int trace_len, float conv,
+    const float* td, const float* tb, const int* trows, const int* tstarts,
+    int T, int S, float* tpart, const uint32_t* tplane,
+    const uint32_t* tbase, int E, int device, void* stream) {
   if (K < 1 || K > ABFT_MAX_K || R % 32 != 0 || grid < 1)
     return (int)cudaErrorInvalidValue;
+  TailPlan t;
+  if (!make_tail_plan(&t, td, tb, trows, tstarts, T, S, tpart, tplane,
+                      tbase, use_parity, use_cksum, E))
+    return (int)cudaErrorInvalidValue;
   int max_grid = 0;
-  int rc = abft_fused_ell_grid(device, &max_grid);
+  int rc = abft_fused_ell_grid(device, T > 0, &max_grid);
   if (rc != (int)cudaSuccess) return rc;
   if (grid > max_grid) return (int)cudaErrorCooperativeLaunchTooLarge;
   EllPlanes m{vals, gsrc, ell_len, gmask, K};
@@ -225,10 +262,13 @@ extern "C" int abft_fused_cg_ell(
   a.trace = trace;
   a.trace_len = trace_len;
   a.conv = conv;
-  void* args[] = {&a, &m};
-  const void* fn = plane != nullptr
-                       ? (const void*)fused_cg_ell_kernel<true>
-                       : (const void*)fused_cg_ell_kernel<false>;
+  void* args[] = {&a, &m, &t};
+  const void* fn =
+      plane != nullptr
+          ? (T ? (const void*)fused_cg_ell_kernel<true, true>
+               : (const void*)fused_cg_ell_kernel<true, false>)
+          : (T ? (const void*)fused_cg_ell_kernel<false, true>
+               : (const void*)fused_cg_ell_kernel<false, false>);
   cudaError_t err = cudaLaunchCooperativeKernel(
       fn, dim3(grid), dim3(kBlock), args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;

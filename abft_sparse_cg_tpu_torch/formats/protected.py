@@ -1,7 +1,7 @@
-"""Protected matrix containers: flat canonical planes + DIA/ELL exec layouts.
+"""Protected matrix containers: flat canonical planes + exec layouts.
 
-The port's copy of ``abft_sparse_cg_tpu.formats.protected`` for the two
-execution layouts it runs (see that module's docstring for the design):
+The port's copy of ``abft_sparse_cg_tpu.formats.protected`` (see that
+module's docstring for the design):
 
   - ``csr`` / ``coo`` codewords (CSR96 / COO128) encoded into canonical
     flat planes — the ground truth that ECC protects and fault injection
@@ -10,16 +10,21 @@ execution layouts it runs (see that module's docstring for the design):
     matrix has few distinct diagonals that fill reasonably;
   - **ELL** ``(K, R)`` planes grouped by output index, transposed (slots
     on the leading axis, rows contiguous), optionally under an RCM
-    exec-space permutation (``perm``).
+    exec-space permutation (``perm``);
+  - **FLAT** 1-D planes in exec-sorted order (output index, then gather
+    index), padded to a multiple of 8 with zero codewords, for matrices
+    whose ELL padding would explode or that no ELL kernel carries;
+  - the **split** layouts (formats.split): a banded main part plus a
+    flat tail.
 
-``build_protected`` routes exactly as the JAX build does wherever that
-build ends in ``dia`` or ``ell``, and produces byte-identical planes,
-slot maps and checksums there (tests/test_torch_formats.py).  Where the
-JAX build goes on to the bordered split, the band split, the Benes-route
-flat rebuild or the flat layout, this one raises ``NotImplementedError``
-(ROADMAP.md queue 1 item 9).  One consequence: a matrix whose band lies
-in (1920, 16256] and whose band split the JAX build declines stays ELL
-there and is refused here (ROADMAP.md queue 3).
+``build_protected`` routes exactly as the JAX build does and produces
+byte-identical planes, slot maps and checksums (tests/test_torch_
+formats.py).  Where the JAX build asks whether its Benes-route plan for
+a flat matrix attaches, this one evaluates the same envelope arithmetic
+(ops.spmv_unstructured) and records the answer in ``unstr_attached``;
+the port's flat kernel needs no routing plan.  Not copied: ``row_align``
+(mesh-aligned padding, for the multi-device tiers) and ``diagonal()``
+(the Jacobi preconditioner); neither is ported yet.
 """
 
 from __future__ import annotations
@@ -46,10 +51,9 @@ _SUBLANE = 128  # rows pad to a multiple of 128 (the JAX layout's lane
 _DIA_MAX_D = 128
 _DIA_MAX_EXPAND = 4.0
 
-# Routing thresholds of the JAX build (formats/protected.py:292-313),
-# kept so the port routes the same matrices to DIA and ELL.
+# Routing thresholds of the JAX build (formats/protected.py:292-313).
 _BAND_KERNEL_MAX = 16256     # widest band an RCM reordering is adopted for
-_BAND_SPLIT_TRIGGER = 1920   # past it the JAX build tries the band split
+_BAND_SPLIT_TRIGGER = 1920   # past it the build tries the band split
 _ELL_MAX_EXPAND = 8.0        # K*R past this multiple of nnz -> flat/split
 _PALLAS_MAX_SLOTS = 512      # K past it -> flat (no ELL kernel tier)
 
@@ -73,15 +77,17 @@ class ProtectedMatrix:
     planes: Dict[str, np.ndarray]   # canonical flat planes, word order
     row_ptr: np.ndarray             # (N+1,) int64 — CSR only (None for coo)
     # Execution layout (derived; rebuilt after injection):
-    exec_kind: str                  # "ell" | "dia"
-    ell: Dict[str, np.ndarray]      # word name -> (K, R) or (D, R) uint32
+    exec_kind: str                  # "ell" | "dia" | "flat"
+    ell: Dict[str, np.ndarray]      # word name -> (K, R), (D, R) or (E,)
+    #                                 uint32; flat also "__flat_group__"
     ell_len: np.ndarray             # (R,) int32 valid slots per output row
     ell_slot: np.ndarray            # (nnz,) int64 canonical idx -> flat slot
     ell_gather_word: str            # which word holds the gather index
     # Build-time (clean-matrix) XOR checksums of the exec planes at 8-row
-    # block granularity: (num_words, R/8) uint32.  Captured at encode
-    # time — fault injection must NOT refresh them (they play the role of
-    # stored ECC metadata for the live trigger).
+    # (flat: 8-slot) block granularity: (num_words, R/8) or (W, E/8)
+    # uint32.  Captured at encode time — fault injection must NOT
+    # refresh them (they play the role of stored ECC metadata for the
+    # live trigger).
     ell_cksum: np.ndarray = None
     # Same idea over the canonical FLAT planes, 8-element blocks:
     # (W, ceil(nnz/8)); built in the ECC modes, as the JAX build does.
@@ -94,10 +100,19 @@ class ProtectedMatrix:
     # any reordering.
     perm: np.ndarray = None
     band: int = 0
+    # Bordered-split tails only: ops.spmv.dense_tail_plan — (outlier exec
+    # rows, span starts, span width S), from the CLEAN build.
+    dense_plan: tuple = None
+    # Flat matrices: whether the JAX build's Benes-route plan attaches
+    # (its ``unstr_plan is not None``), which decides routing there.
+    unstr_attached: bool = False
 
     @property
     def K(self) -> int:
-        """ELL slots per row / number of diagonals (DIA)."""
+        """ELL slots per row / number of diagonals (DIA) / max group
+        length (flat)."""
+        if self.exec_kind == "flat":
+            return int(self.ell_len.max()) if len(self.ell_len) else 0
         return self.ell[self.ell_gather_word].shape[0]
 
     @property
@@ -134,7 +149,21 @@ class ProtectedMatrix:
         """
         shape = self.ell[self.layout.word_names[0]].shape
         ell = _scatter_exec(planes, self.layout, self.ell_slot, shape)
+        for name, aux in self.ell.items():  # non-word aux planes persist
+            if name not in ell:
+                ell[name] = aux
         return replace(self, planes=planes, ell=ell)
+
+    def with_scrubbed_planes(self, planes: Dict[str, np.ndarray]
+                             ) -> "ProtectedMatrix":
+        """Like ``with_planes``, but the new planes are *repaired* data:
+        the stored checksums are refreshed."""
+        out = self.with_planes(planes)
+        ell_cksum = compute_exec_checksums(out.ell, out.layout.word_names)
+        flat_cksum = out.flat_cksum
+        if flat_cksum is not None:
+            flat_cksum = flat_checksums(planes, out.layout, out.nnz)
+        return replace(out, ell_cksum=ell_cksum, flat_cksum=flat_cksum)
 
 
 def _encode_planes(fmt, assembled: AssembledMatrix, mode: str):
@@ -177,12 +206,13 @@ def flat_checksums(planes: Dict[str, np.ndarray], layout,
 
 def compute_exec_checksums(ell: Dict[str, np.ndarray],
                            word_names) -> np.ndarray:
-    """XOR checksums of the (D or K, R) exec planes per 8-row block ->
-    (W, R/8) uint32.  Padding slots are zero codewords and fold in like
-    any other word."""
+    """XOR checksums of the exec planes per 8-row block -> (W, R/8)
+    uint32; a flat (E,) plane folds per 8-slot block -> (W, E/8).
+    Padding slots are zero codewords and fold in like any other word."""
     out = []
     for n in word_names:
-        folded = np.bitwise_xor.reduce(ell[n], axis=0)
+        p = ell[n]
+        folded = p if p.ndim == 1 else np.bitwise_xor.reduce(p, axis=0)
         out.append(np.bitwise_xor.reduce(folded.reshape(-1, CKSUM_BLOCK),
                                          axis=1))
     return np.stack(out).astype(np.uint32)
@@ -215,23 +245,23 @@ def _group_structure(group, gidx, N, nnz, presorted):
 
 
 def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
-                    force_exec: str = None, reorder: str = "auto"):
+                    force_exec: str = None, reorder: str = "auto",
+                    split: str = "auto", force_perm: np.ndarray = None,
+                    _attach_unstr: bool = True, _part: bool = False):
     """Encode + lay out a protected matrix (JAX build, protected.py:331).
 
-    ``force_exec``: None = auto-select; "ell"/"dia" forces one (tests,
-    layout comparisons).  ``reorder``: "auto" = apply an RCM exec-space
-    permutation when the natural order is not banded and the permuted
-    one is; "rcm" = always attempt; None/"none" = never.  Constraints
-    mode never reorders (its checks assert the reference's natural-order
-    invariants verbatim).
-
-    Raises ``NotImplementedError`` where the JAX build would return a
-    split or flat layout.
+    ``force_exec``: None = auto-select; "ell"/"dia"/"flat" forces one.
+    ``reorder``: "auto" = apply an RCM exec-space permutation when the
+    natural order is not banded and the permuted one is; "rcm" = always
+    attempt; None/"none" = never.  Constraints mode never reorders.
+    ``split``: "auto" = return a formats.split.CompositeMatrix where the
+    JAX build does; "none" = never.  ``force_perm`` imposes an exec-space
+    permutation (a split's part builds); ``_part`` marks such a build,
+    ``_attach_unstr=False`` a candidate whose attach step waits for its
+    adoption.
     """
     if fmt not in FORMATS:
         raise ValueError(f"unknown format: {fmt!r}")
-    if force_exec == "flat":
-        raise not_ported("the 'flat' execution layout", "9")
     layout, planes = _encode_planes(fmt, assembled, mode)
 
     rows = assembled.rows.astype(np.int64)
@@ -274,12 +304,12 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
             ok = np.unique(inv * R + group).size == nnz
         return ok, uoffs, inv
 
-    perm = None
+    perm = force_perm if mode != "constraints" else None
     group, gidx = exec_indices(perm)
     dia_ok, uoffs, inv = dia_check(group, gidx)
     band = int(np.abs(gidx - group).max()) if nnz else 0
 
-    if (not dia_ok and mode != "constraints" and nnz > 0
+    if (perm is None and not dia_ok and mode != "constraints" and nnz > 0
             and reorder in ("auto", "rcm")):
         from .reorder import rcm_permutation
 
@@ -294,7 +324,7 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
             dia_ok, uoffs, inv = pdia_ok, puoffs, pinv
             band = pband
 
-    if force_exec == "ell":
+    if force_exec in ("ell", "flat"):
         dia_ok = False
     elif force_exec == "dia" and not dia_ok:
         raise ValueError("matrix is not representable as DIA")
@@ -312,25 +342,73 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
         ell_slot = inv * R + group
         ell = _scatter_exec(planes, layout, ell_slot, (len(uoffs), R))
         dia_offsets = tuple(int(o) for o in uoffs)
+    elif force_exec != "ell" and nnz and (
+            force_exec == "flat" or K * R0 > _ELL_MAX_EXPAND * nnz
+            # Effectively dense rows (K past the slot tier's envelope)
+            # with no band-split escape.
+            or (force_exec is None and K > _PALLAS_MAX_SLOTS
+                and band <= _BAND_SPLIT_TRIGGER)):
+        if split == "auto" and force_exec is None and force_perm is None:
+            from .split import try_split
+
+            comp = try_split(fmt, assembled, mode, layout, planes, row_ptr,
+                             reorder)
+            if comp is not None:
+                return comp
+        # FLAT: 1-D planes in exec-sorted canonical order, padded to a
+        # multiple of 8 with zero codewords; the slot map is the sort
+        # order itself.
+        exec_kind = "flat"
+        nnz_pad = -(-nnz // CKSUM_BLOCK) * CKSUM_BLOCK
+        order = np.lexsort((gidx, group))
+        ell_slot = np.empty(nnz, dtype=np.int64)
+        ell_slot[order] = np.arange(nnz, dtype=np.int64)
+        ell = {}
+        for name in layout.word_names:
+            flat = np.zeros(nnz_pad, dtype=np.uint32)
+            flat[ell_slot] = planes[name]
+            ell[name] = flat
+        # Output index per exec slot (the segment ids of the reduce).
+        grp_exec = np.zeros(nnz_pad, dtype=np.int32)
+        grp_exec[ell_slot] = group.astype(np.int32)
+        grp_exec[nnz:] = R - 1 if R else 0   # padding joins the last row
+        ell["__flat_group__"] = grp_exec
+        dia_offsets = ()
     else:
-        # The JAX build's exits from ELL, in its order: the flat layout
-        # (or the bordered split in front of it) for padding blow-up and
-        # effectively dense rows; the band split and the Benes-route
-        # rebuild past the split trigger; the flat rebuild for matrices
-        # no ELL kernel tier carries.
-        if force_exec != "ell" and nnz and (
-                K * R0 > _ELL_MAX_EXPAND * nnz
-                or (force_exec is None and K > _PALLAS_MAX_SLOTS
-                    and band <= _BAND_SPLIT_TRIGGER)):
-            raise not_ported("the 'flat' or 'split' execution layout "
-                             "this matrix routes to", "9")
-        if force_exec is None and nnz and band > _BAND_SPLIT_TRIGGER:
-            raise not_ported(f"a band of {band} (> {_BAND_SPLIT_TRIGGER}: "
-                             "band split, Benes route or wide-band ELL)",
-                             "9")
-        if force_exec is None and (K > _PALLAS_MAX_SLOTS or K < 2):
-            raise not_ported(f"an ELL matrix with K = {K} (the JAX build "
-                             "rebuilds it flat)", "9")
+        if (split == "auto" and force_exec is None and force_perm is None
+                and nnz and band > _BAND_SPLIT_TRIGGER):
+            # Past the banded kernels' window cap: peel the out-of-band
+            # entries into a flat tail (formats.split.try_band_split).
+            from .split import try_band_split
+
+            comp = try_band_split(fmt, assembled, mode, layout, planes,
+                                  row_ptr, reorder)
+            if comp is not None:
+                return comp
+        if (force_exec is None and force_perm is None and not _part
+                and 2 <= K <= _PALLAS_MAX_SLOTS
+                and band <= _BAND_KERNEL_MAX and nnz):
+            # A wide-band whole-matrix candidate: the JAX build rebuilds
+            # it flat when its cost model favours the Benes route AND
+            # that route's plan attaches; otherwise it stays ELL.
+            from .split import benes_beats_rolled
+
+            if benes_beats_rolled(nnz, N, band):
+                cand = build_protected(fmt, assembled, mode,
+                                       force_exec="flat", reorder=reorder,
+                                       split="none")
+                if cand.unstr_attached:
+                    return cand
+        if force_exec is None and force_perm is None and not _part and (
+                K > _PALLAS_MAX_SLOTS
+                or band > _BAND_KERNEL_MAX
+                or K < 2):
+            # No ELL kernel tier of the JAX package carries this shape
+            # (slots past its cap, band past its widest window, or
+            # K = 1): it is rebuilt flat.
+            return build_protected(fmt, assembled, mode,
+                                   force_exec="flat", reorder=reorder,
+                                   split="none", force_perm=force_perm)
         exec_kind = "ell"
         # Transposed ELL: slot k of row r at flat slot k * R + r.
         ell_slot = within * R + group
@@ -342,7 +420,7 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
     if mode in codec.ECC_MODES:
         flat_cksum = flat_checksums(planes, layout, nnz)
 
-    return ProtectedMatrix(
+    mat = ProtectedMatrix(
         fmt=fmt,
         mode=mode,
         N=N,
@@ -363,3 +441,8 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
         perm=perm,
         band=band,
     )
+    if exec_kind == "flat" and _attach_unstr:
+        from ..ops.spmv_unstructured import attach_plan
+
+        mat = attach_plan(mat)
+    return mat

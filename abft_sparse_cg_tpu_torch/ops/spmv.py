@@ -1,30 +1,39 @@
 """SpMV with ABFT check/correct, plain PyTorch — the port's oracle.
 
-Counterpart of ``abft_sparse_cg_tpu.ops.spmv`` for the DIA execution
-layout (planes ``(D, R)``, w[r] = sum_d vals[d, r] * x[r + off_d]) and the
-banded-ELL layout (planes ``(K, R)``, w[r] = sum over k < ell_len[r] of
-vals[k, r] * x[g[k, r]]), with the same detect-fast / repair-rarely
-structure (see that module's docstring):
+Counterpart of ``abft_sparse_cg_tpu.ops.spmv`` for every execution
+layout, with the same detect-fast / repair-rarely structure (see that
+module's docstring):
+
+  - DIA, planes ``(D, R)``: w[r] = sum_d vals[d, r] * x[r + off_d];
+  - banded ELL, planes ``(K, R)``: w[r] = sum over k < ell_len[r] of
+    vals[k, r] * x[g[k, r]];
+  - FLAT, 1-D exec-sorted planes ``(E,)``: w[r] = sum over the slots of
+    row r of vals[j] * x[g[j]], the row's slots found through a row
+    pointer derived once at upload from the clean ``__flat_group__``;
+    a bordered-split tail with a ``dense_plan`` computes the same w from
+    span-densified ``dense_td``/``dense_tb`` arrays instead;
+  - split composites: ``combine_impls`` of the two parts, part-b exec
+    slots offset past part a's.
 
   - ``fast(md, x) -> (w, trigger)``: w from the pre-derived value plane
     plus the cheap signals — per-element overall parity and per-8-row-
-    block XOR checksums of the word planes (D x 8 or K x 8 words per
-    block, padding slots included) against their encode-time values;
+    block (flat: 8-slot block) XOR checksums of the word planes against
+    their encode-time values;
   - ``classify(md) -> (SpmvStats, MatrixDevice)``: the one-shot 7-mask
     locate / correct / double-bit classify, returning scrubbed planes
-    with re-derived values, checksums and fold;
+    with every derived plane (values, checksums, fold, gather plane,
+    dense tail arrays) re-derived from the scrubbed words;
   - ``full(md, x) -> (w, SpmvStats)``: check-and-correct on read, the
     semantic oracle and the CLI's verification pass.
 
 Stats are Python ints: the classify path runs once per fault and its
-result decides host-side control flow anyway.  The flat and split
-layouts are not ported yet (ROADMAP.md queue 1 item 9): the port's
-``build_protected`` refuses the matrices that route there.
+result decides host-side control flow anyway.
 
-Out-of-range ELL gather indices (a flipped col bit in modes none and
+Out-of-range gather indices (a flipped col bit in modes none and
 constraints, where the ECC byte is not masked off) follow the jnp
-oracle's gather: an index below zero wraps once by R, then the index is
-clamped to [0, R).  The kernels do the same (ops.spmv_cuda).
+oracle's gather on the ELL and flat layouts alike: an index below zero
+wraps once by R, then the index is clamped to [0, R).  The kernels do
+the same (ops.spmv_cuda).
 """
 
 from __future__ import annotations
@@ -61,7 +70,10 @@ __all__ = [
     "not_ported",
     "take_clamped",
     "ell_product",
+    "flat_product",
     "exec_gather_host",
+    "combine_impls",
+    "dense_tail_plan",
 ]
 
 # Error codes (0 = clean); the numbering, precedence and strings are the
@@ -133,9 +145,11 @@ class SpmvStats(NamedTuple):
 
 
 class MatrixDevice(NamedTuple):
-    """Device-resident DIA or ELL matrix: the fields the kernels and
-    classify read.  Word-like planes hold uint32 bit patterns in int32
-    tensors; (D, R) below reads (K, R) for ELL."""
+    """Device-resident DIA, ELL or flat matrix: the fields the kernels
+    and classify read.  Word-like planes hold uint32 bit patterns in
+    int32 tensors; (D, R) below reads (K, R) for ELL and (E,) for flat,
+    and R/8 reads E/8 for flat.  A split matrix uploads as a (main,
+    tail) pair of these."""
 
     words: tuple                   # W x (D, R) int32, codeword-word order
     cksum: torch.Tensor            # (W, R/8) int32 encode-time block XORs
@@ -143,10 +157,18 @@ class MatrixDevice(NamedTuple):
     fold: torch.Tensor = None      # (D, R) int32 rotated fold (ECC modes)
     fold_ck: torch.Tensor = None   # (1, R/8) int32 fold of ``cksum``
     ell_len: torch.Tensor = None   # (R,) int32 valid slots per row
-    gidx: torch.Tensor = None      # ELL under a permutation: (K, R) int32
+    gidx: torch.Tensor = None      # ELL/flat under a permutation: int32
     #                                exec-space gather indices, derived at
     #                                upload and again after a repair
     perm_pos: torch.Tensor = None  # (R,) int32 canonical -> exec row
+    flat_group: torch.Tensor = None  # flat: (E,) int32 output row per slot
+    row_ptr: torch.Tensor = None   # flat: (R+1,) int32 first slot of each
+    #                                row, from the clean flat_group (the
+    #                                port's addition: kernel E's rows)
+    dense_td: torch.Tensor = None  # dense-plan tails: (T, S) span-
+    #                                densified outlier rows
+    dense_tb: torch.Tensor = None  # (T, S) span-densified transpose
+    #                                images (ops/spmv.py:177-186)
 
 
 class SpmvImpl(NamedTuple):
@@ -169,15 +191,17 @@ def exec_gather_host(mat) -> np.ndarray:
     return pos[np.clip(g.astype(np.int64), 0, mat.N - 1)].astype(np.int32)
 
 
-def make_matrix_device(mat, dtype: torch.dtype,
-                       device: torch.device) -> MatrixDevice:
-    """Upload a ProtectedMatrix's DIA or ELL planes to ``device`` and
-    derive the value plane (truncating f32 conversion for float32), the
-    fold and its checksum baseline — all from the same words — and, for
-    a permuted ELL matrix, the gather plane and ``perm_pos``, like the
-    reference (ops/spmv.py:333-405)."""
-    if mat.exec_kind not in ("dia", "ell"):
-        raise not_ported(f"the {mat.exec_kind!r} execution layout", "9")
+def make_matrix_device(mat, dtype: torch.dtype, device: torch.device):
+    """Upload a ProtectedMatrix's exec planes to ``device`` and derive
+    the value plane (truncating f32 conversion for float32), the fold
+    and its checksum baseline — all from the same words — and, under a
+    permutation, the gather plane and ``perm_pos``; for a flat matrix
+    also ``flat_group``, the row pointer and a dense-plan tail's
+    ``dense_td``/``dense_tb``, like the reference (ops/spmv.py:333-405).
+    A split matrix uploads as a (main, tail) pair."""
+    if mat.exec_kind == "split":
+        return (make_matrix_device(mat.main, dtype, device),
+                make_matrix_device(mat.tail, dtype, device))
     names = mat.layout.word_names
     words = tuple(from_numpy_u32(mat.ell[n], device) for n in names)
     wide = [widen(w) for w in words]
@@ -189,15 +213,27 @@ def make_matrix_device(mat, dtype: torch.dtype,
         fold = narrow(fold_words(wide))
         fold_ck = narrow(fold_words([widen(c) for c in cksum]))[None, :]
     gidx = perm_pos = None
-    if mat.perm is not None and mat.exec_kind == "ell":
+    if mat.perm is not None and mat.exec_kind in ("ell", "flat"):
         gidx = torch.from_numpy(exec_gather_host(mat)).to(device)
         pp = np.zeros(mat.R, dtype=np.int32)
         pp[: mat.N] = inverse_permutation(mat.perm)
         perm_pos = torch.from_numpy(pp).to(device)
     ell_len = torch.from_numpy(np.asarray(mat.ell_len, np.int32)).to(device)
-    return MatrixDevice(words=words, cksum=cksum, values=values, fold=fold,
-                        fold_ck=fold_ck, ell_len=ell_len, gidx=gidx,
-                        perm_pos=perm_pos)
+    md = MatrixDevice(words=words, cksum=cksum, values=values, fold=fold,
+                      fold_ck=fold_ck, ell_len=ell_len, gidx=gidx,
+                      perm_pos=perm_pos)
+    if mat.exec_kind != "flat":
+        return md
+    grp = np.asarray(mat.ell["__flat_group__"], np.int32)
+    row_ptr = np.searchsorted(grp[: mat.nnz], np.arange(mat.R + 1),
+                              side="left").astype(np.int32)
+    md = md._replace(flat_group=torch.from_numpy(grp).to(device),
+                     row_ptr=torch.from_numpy(row_ptr).to(device))
+    if mat.dense_plan is not None:
+        cfg = _config(mat, mat.mode)
+        td, tb = cfg.dense_arrays(wide, values, md.flat_group, perm_pos)
+        md = md._replace(dense_td=td, dense_tb=tb)
+    return md
 
 
 # --------------------------------------------------------------------------
@@ -213,8 +249,10 @@ def _xor_rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def _fold_blocks(plane: torch.Tensor) -> torch.Tensor:
-    """(D, R) plane -> (R/8,) XOR of each exact 8-row block."""
-    return _xor_rows(_xor_rows(plane).reshape(-1, 8).T)
+    """(D, R) plane -> (R/8,) XOR of each exact 8-row block; a flat
+    (E,) plane -> (E/8,) XOR of each 8-slot block."""
+    folded = plane if plane.dim() == 1 else _xor_rows(plane)
+    return _xor_rows(folded.reshape(-1, 8).T)
 
 
 def _device_checksums(words) -> torch.Tensor:
@@ -274,12 +312,58 @@ def make_constraints_check(mat):
 def _config(mat, mode):
     if mat.exec_kind == "dia":
         return _DiaConfig(mat.fmt, mat.layout, mat.N, mat.dia_offsets)
+    # The reference masks the ECC byte out of the column only in the ECC
+    # modes; none/constraints gather with the raw column.
     if mat.exec_kind == "ell":
-        # The reference masks the ECC byte out of the column only in the
-        # ECC modes; none/constraints gather with the raw column.
         return _EllConfig(mat.fmt, mat.layout, mat.N,
                           ecc_mode=mode in ECC_MODES)
-    raise not_ported(f"the {mat.exec_kind!r} execution layout", "9")
+    if mat.exec_kind == "flat":
+        return _FlatConfig(mat.fmt, mat.layout, mat.N, mat.nnz, mat.R,
+                           ecc_mode=mode in ECC_MODES,
+                           dense_plan=mat.dense_plan)
+    raise ValueError(f"no config for a {mat.exec_kind!r} matrix")
+
+
+def combine_impls(impl_a: SpmvImpl, impl_b: SpmvImpl,
+                  slot_offset: int) -> SpmvImpl:
+    """Compose two part implementations into one (ops/spmv.py:495):
+    w = w_a + w_b, triggers OR, stats merged with part-b exec slots
+    offset past part a's exec size so the host routes them back; the
+    device matrix is the (part a, part b) pair."""
+
+    def shift(st: SpmvStats) -> SpmvStats:
+        return st._replace(
+            err_slot=(st.err_slot + slot_offset if st.err_slot >= 0
+                      else st.err_slot),
+            first_cor_slot=(st.first_cor_slot + slot_offset
+                            if st.first_cor_slot >= 0
+                            else st.first_cor_slot))
+
+    full = fast = fast_pw = classify = None
+    if impl_a.full is not None and impl_b.full is not None:
+        def full(md, x):
+            wa, sa = impl_a.full(md[0], x)
+            wb, sb = impl_b.full(md[1], x)
+            return wa + wb, sa.merge_first(shift(sb))
+
+    if impl_a.fast is not None and impl_b.fast is not None:
+        def fast(md, x):
+            wa, ta = impl_a.fast(md[0], x)
+            wb, tb = impl_b.fast(md[1], x)
+            return wa + wb, ta | tb
+    if impl_a.fast_pw is not None and impl_b.fast_pw is not None:
+        def fast_pw(md, x):
+            wa, ta, pa = impl_a.fast_pw(md[0], x)
+            wb, tb, pb = impl_b.fast_pw(md[1], x)
+            return wa + wb, ta | tb, pa + pb
+    if impl_a.classify is not None and impl_b.classify is not None:
+        def classify(md):
+            sa, mda = impl_a.classify(md[0])
+            sb, mdb = impl_b.classify(md[1])
+            return sa.merge_first(shift(sb)), (mda, mdb)
+
+    return SpmvImpl(full=full, fast=fast, classify=classify,
+                    fast_pw=fast_pw)
 
 
 def make_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
@@ -288,6 +372,10 @@ def make_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
     mode = mat.mode if mode is None else mode
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
+    if mat.exec_kind == "split":
+        return combine_impls(make_spmv(mat.main, dtype, mode),
+                             make_spmv(mat.tail, dtype, mode),
+                             mat.main.exec_size)
     cfg = _config(mat, mode)
 
     def full(md: MatrixDevice, x):
@@ -376,11 +464,17 @@ def make_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
         gidx2 = md.gidx
         if gidx2 is not None:
             gidx2 = cfg.gather_indices(md, checked).to(torch.int32)
+        values2 = planes_to_value(checked[cfg.vlo_w], checked[cfg.vhi_w],
+                                  dtype)
+        td2, tb2 = md.dense_td, md.dense_tb
+        if td2 is not None:
+            # A corrupted index plane mis-routes its entry until the
+            # repair lands: re-derive from the scrubbed words.
+            td2, tb2 = cfg.dense_arrays(checked, values2, md.flat_group,
+                                        md.perm_pos)
         md2 = md._replace(
-            words=words2, cksum=cksum2,
-            values=planes_to_value(checked[cfg.vlo_w], checked[cfg.vhi_w],
-                                   dtype),
-            fold=fold2, fold_ck=fold_ck2, gidx=gidx2)
+            words=words2, cksum=cksum2, values=values2, fold=fold2,
+            fold_ck=fold_ck2, gidx=gidx2, dense_td=td2, dense_tb=tb2)
         return stats, md2
 
     return SpmvImpl(full=full, fast=fast, classify=classify, fast_pw=fast_pw)
@@ -552,4 +646,211 @@ class _EllConfig:
             bad = pad(pair_valid & (col[1:] <= col[:-1]))
             errcode, err_slot = _raise_err(ERR_COL_ORDER, bad, errcode,
                                            err_slot)
+        return errcode, err_slot
+
+
+# --------------------------------------------------------------------------
+# FLAT: 1-D exec-sorted planes (unstructured matrices, split tails)
+# --------------------------------------------------------------------------
+
+_DENSE_MAX_T = 64       # outlier count cap
+_DENSE_MAX_PLANES = 4   # td bytes cap, in value-plane (R*4) equivalents
+
+
+def dense_tail_plan(mat, outliers_canonical):
+    """Build-time (CLEAN structure) plan of a bordered tail's span-window
+    product (ops/spmv.py:260): ``(rows, starts, S)`` — the outliers'
+    exec rows, each outlier's 128-aligned span start and one shared
+    padded width S — or None when it does not apply.  NumPy only."""
+    if mat.exec_kind != "flat" or len(outliers_canonical) > _DENSE_MAX_T:
+        return None
+    if mat.perm is not None:
+        pos = inverse_permutation(mat.perm)
+        rows = pos[np.asarray(outliers_canonical)]
+    else:
+        pos = None
+        rows = np.asarray(outliers_canonical)
+    rows = rows.astype(np.int32)
+    T = len(rows)
+    dst = np.asarray(mat.ell["__flat_group__"])[: mat.nnz]
+    g = np.asarray(mat.ell[mat.ell_gather_word])[: mat.nnz]
+    if mat.ell_gather_word == "col" and mat.mode in ECC_MODES:
+        g = g & np.uint32(ECC_COL_MASK)
+    src = g.astype(np.int64)
+    if pos is not None:
+        src = pos[np.clip(src, 0, mat.N - 1)]
+    tbl = np.full(mat.R, -1, np.int32)
+    tbl[rows] = np.arange(T, dtype=np.int32)
+    tdst = tbl[np.clip(dst, 0, mat.R - 1)]
+    a_mask = tdst >= 0
+    starts = np.zeros(T, np.int64)
+    spans = np.ones(T, np.int64)
+    for t in range(T):
+        s = src[a_mask & (tdst == t)]
+        if len(s):
+            starts[t] = (s.min() // 128) * 128
+            spans[t] = s.max() - starts[t] + 1
+    S = int(-(-spans.max() // 128) * 128)
+    if mat.R % 128 or S > mat.R or T * S > _DENSE_MAX_PLANES * mat.R:
+        return None
+    starts = np.minimum(starts, mat.R - S)  # stays 128-aligned (R is)
+    # Every tail entry must land inside one window: row entries by their
+    # gather source, transpose images by their output row (the loader's
+    # symmetrization guarantees it; a non-symmetric assembly falls back).
+    tsrc = tbl[np.clip(src, 0, mat.R - 1)]
+
+    def in_win(t, idx):
+        return (idx >= starts[t]) & (idx < starts[t] + S)
+
+    covered = np.where(
+        a_mask, in_win(np.maximum(tdst, 0), src),
+        (tsrc >= 0) & in_win(np.maximum(tsrc, 0), dst))
+    if not covered.all():
+        return None
+    return (tuple(int(r) for r in rows),
+            tuple(int(s) for s in starts), S)
+
+
+def flat_product(values: torch.Tensor, gidx: torch.Tensor,
+                 row_ptr: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w[r] = sum over j in [row_ptr[r], row_ptr[r+1]) of values[j] *
+    x[gidx[j]] (the jnp gather's clamp), summed in kernel E's order: lane
+    l of 32 sums the row's slots l, l + 32, l + 64, ... in turn, then
+    the 32 lane sums combine in an XOR butterfly (offsets 16, 8, 4, 2,
+    1).  One rounding per multiply and per add, so kernel E's w is
+    bit-identical to this on the same inputs."""
+    R = x.shape[0]
+    dev = x.device
+    ptr = row_ptr.to(torch.int64)
+    nnz = int(ptr[-1])
+    rows = torch.repeat_interleave(torch.arange(R, device=dev),
+                                   ptr[1:] - ptr[:-1])
+    pos = torch.arange(nnz, device=dev) - ptr[:-1][rows]
+    prod = values[:nnz] * take_clamped(x, gidx[:nnz])
+    key = rows * 32 + (pos & 31)
+    rnd = pos >> 5
+    order = torch.argsort(rnd, stable=True)
+    acc = torch.zeros(R * 32, dtype=x.dtype, device=dev)
+    start = 0
+    # Round k adds slot 32k + l of every row to lane l: keys are unique
+    # within a round, so each lane sums its slots in order.
+    for n in torch.bincount(rnd).tolist() if nnz else ():
+        sel = order[start:start + n]
+        k = key[sel]
+        acc[k] = acc[k] + prod[sel]
+        start += n
+    lanes = acc.view(R, 32)
+    lane = torch.arange(32, device=dev)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, lane ^ o]
+    return lanes[:, 0].contiguous()
+
+
+class _FlatConfig(_EllConfig):
+    """The flat layout (ops/spmv.py:887-1032); ``gather_indices`` is the
+    ELL one on 1-D planes."""
+
+    def __init__(self, fmt, layout, N, nnz, R, ecc_mode=True,
+                 dense_plan=None):
+        super().__init__(fmt, layout, N, ecc_mode)
+        self.nnz = nnz
+        self.R = R
+        self.dense_plan = dense_plan
+
+    def _valid(self, words):
+        E = words[0].shape[0]
+        return torch.arange(E, device=words[0].device) < self.nnz
+
+    def dense_arrays(self, words, values, flat_group, perm_pos):
+        """(dense_td, dense_tb) of a bordered tail from widened words
+        (ops/spmv.py:921): each tail entry is densified into its
+        outlier's span window — a dense-row entry by its gather source,
+        a transpose image by its output row; entries outside every
+        window drop (detection covers them).  Re-derived after a
+        scrub."""
+        rows, starts, S = self.dense_plan
+        T = len(rows)
+        dev = values.device
+        O = torch.tensor(rows, dtype=torch.int64, device=dev)
+        st = torch.tensor(starts, dtype=torch.int64, device=dev)
+        tbl = torch.full((self.R,), -1, dtype=torch.int64, device=dev)
+        tbl[O] = torch.arange(T, device=dev)
+        g = words[self.gather_w]
+        if self.ecc_gather_mask:
+            g = g & int(ECC_COL_MASK)
+        g = narrow(g).to(torch.int64).clamp(0, self.R - 1)
+        if perm_pos is not None:
+            g = perm_pos.to(torch.int64)[g]
+        valid = self._valid(words)
+        dst = flat_group.to(torch.int64).clamp(0, self.R - 1)
+        tdst = torch.where(valid, tbl[dst], -1)
+        tsrc = torch.where(valid, tbl[g], -1)
+        zero = torch.zeros((), dtype=values.dtype, device=dev)
+
+        def densify(t_of, win_idx):
+            off = win_idx - st[t_of.clamp(0, T - 1)]
+            inb = (t_of >= 0) & (off >= 0) & (off < S)
+            pos = torch.where(inb, t_of * S + off, T * S)
+            out = torch.zeros(T * S + 1, dtype=values.dtype, device=dev)
+            out.index_add_(0, pos, torch.where(inb, values, zero))
+            return out[: T * S].reshape(T, S)
+
+        td = densify(tdst, g)                                  # dense rows
+        tb = densify(torch.where(tdst >= 0, -1, tsrc), dst)    # images
+        return td, tb
+
+    def compute_w(self, md, words, x, dtype, values=None):
+        """``words``: widened planes (used when ``values`` is None)."""
+        if values is not None:
+            if md.dense_td is not None:
+                return self._compute_w_dense(md, x)
+            return flat_product(values, self.gather_indices(md), md.row_ptr,
+                                x)
+        vals = planes_to_value(words[self.vlo_w], words[self.vhi_w], dtype)
+        return flat_product(vals, self.gather_indices(md, words), md.row_ptr,
+                            x)
+
+    def _compute_w_dense(self, md, x):
+        """A bordered tail's product from its span windows
+        (ops/spmv.py:985): dense rows as (T, S) matvecs over x windows,
+        transpose images as T windowed AXPYs."""
+        rows, starts, S = self.dense_plan
+        O = torch.tensor(rows, dtype=torch.int64, device=x.device)
+        xs = torch.stack([x[s:s + S] for s in starts])
+        wa = torch.sum(md.dense_td * xs, dim=1)
+        xO = x[O]
+        w = torch.zeros_like(x)
+        for t, s in enumerate(starts):
+            w[s:s + S] = w[s:s + S] + xO[t] * md.dense_tb[t]
+        return w.index_add(0, O, wa)
+
+    def constraints(self, md, errcode, err_slot):
+        """The reference's bounds and ordering checks over the valid
+        slots, within each row (ops/spmv.py:1006-1032)."""
+        words = md.words
+        valid = self._valid(words)
+        col = widen(words[self.col_w])
+        grp = md.flat_group
+        errcode, err_slot = _raise_err(ERR_COL_SIZE, valid & (col >= self.N),
+                                       errcode, err_slot)
+        # Pair violations flag the FIRST element of the pair.
+        same = (grp[1:] == grp[:-1]) & valid[1:]
+
+        def pad(bad):
+            return torch.cat([bad, torch.zeros_like(bad[:1])])
+
+        if self.fmt == "coo":
+            row = widen(words[self.gather_w])
+            errcode, err_slot = _raise_err(
+                ERR_ROW_SIZE, valid & (row >= self.N), errcode, err_slot)
+            errcode, err_slot = _raise_err(
+                ERR_ROW_ORDER, pad(same & (row[1:] <= row[:-1])), errcode,
+                err_slot)
+            errcode, err_slot = _raise_err(
+                ERR_COL_ORDER, valid & (col != grp.to(torch.int64)),
+                errcode, err_slot)
+        else:
+            errcode, err_slot = _raise_err(
+                ERR_COL_ORDER, pad(same & (col[1:] <= col[:-1])), errcode,
+                err_slot)
         return errcode, err_slot

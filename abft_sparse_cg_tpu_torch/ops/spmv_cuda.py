@@ -1,12 +1,13 @@
-"""Kernels A (``dia_spmv_detect``) and C (``ell_spmv_detect``) and the
-cuda target's SpmvImpl.
+"""Kernels A (``dia_spmv_detect``), C (``ell_spmv_detect``) and E
+(``flat_spmv_detect``) and the cuda target's SpmvImpl.
 
-Counterpart of ``abft_sparse_cg_tpu.ops.spmv_pallas`` for the DIA and
-banded-ELL layouts: ``dia_fast(md, x, spec)`` and ``ell_fast(md, x,
-spec)`` return ``(w, trig, pw)`` — the product, the fused pw = x . w and
-the mode's live trigger, in one pass over the planes
-(csrc/dia_spmv_detect.cu, csrc/ell_spmv_detect.cu).  ``dia_fast_plain``
-and ``ell_fast_plain`` beside them are the same functions in plain
+Counterpart of ``abft_sparse_cg_tpu.ops.spmv_pallas`` (DIA, banded ELL)
+and ``ops.spmv_unstructured`` (flat): ``dia_fast(md, x, spec)``,
+``ell_fast(md, x, spec)`` and ``flat_fast(md, x, spec)`` return ``(w,
+trig, pw)`` — the product, the fused pw = x . w and the mode's live
+trigger, in one launch (csrc/dia_spmv_detect.cu, csrc/ell_spmv_detect.cu,
+csrc/flat_spmv_detect.cu).  ``dia_fast_plain``, ``ell_fast_plain`` and
+``flat_fast_plain`` beside them are the same functions in plain
 PyTorch: the CPU tests run them, and chip_smoke.py holds each kernel
 against its plain version on the card.
 
@@ -14,7 +15,13 @@ The wrapper launches the kernel for CUDA tensors and raises on anything
 it cannot take; it takes the plain version only for tensors on the CPU.
 The rare paths (classify, the ECC ``full`` oracle) stay the plain
 ops.spmv implementation, as the reference keeps them in jnp
-(spmv_pallas.py:53-55).
+(spmv_pallas.py:53-55).  A split matrix is ``combine_impls`` of its
+parts' impls, each with live detection (spmv_pallas.py:170-179).
+
+Signal schedule of kernel E, a decided divergence: the TPU tier keeps
+the flat signals as loop-invariant jnp folds that XLA hoists out of the
+solve (spmv_unstructured.py:512-534); kernel E computes them on every
+call, as kernels A and C do (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ from .spmv import (
     SpmvImpl,
     SpmvStats,
     _fold_blocks,
+    combine_impls,
     dia_product,
     ell_product,
+    flat_product,
     make_constraints_check,
     make_spmv,
     not_ported,
@@ -40,6 +49,7 @@ from .spmv import (
 
 __all__ = ["DiaSpec", "dia_spec", "dia_fast", "dia_fast_plain",
            "EllSpec", "ell_spec", "ell_fast", "ell_fast_plain",
+           "FlatSpec", "flat_spec", "flat_fast", "flat_fast_plain",
            "make_cuda_spmv", "stream_words", "use_fold"]
 
 
@@ -119,24 +129,51 @@ class EllSpec(NamedTuple):
     mask_ecc: bool
 
 
+def _gather_source(mat, mode) -> dict:
+    """Where an ELL or flat product reads its gather indices: the gidx
+    plane under a permutation, else the gather word, ECC byte masked in
+    the ECC modes (spmv_pallas.py:610-612)."""
+    has_gidx = mat.perm is not None
+    return dict(
+        gather=("gidx" if has_gidx
+                else mat.layout.word_names.index(mat.ell_gather_word)),
+        mask_ecc=(not has_gidx and mat.ell_gather_word == "col"
+                  and mode in ECC_MODES))
+
+
 def ell_spec(mat, mode) -> EllSpec:
     if mat.exec_kind != "ell":
         raise ValueError(f"ell_spec: a {mat.exec_kind!r} matrix")
-    gather_w = mat.layout.word_names.index(mat.ell_gather_word)
-    has_gidx = mat.perm is not None
     return EllSpec(mat.K, *_signal_plane(mode, mat),
-                   gather="gidx" if has_gidx else gather_w,
-                   mask_ecc=(not has_gidx and mat.ell_gather_word == "col"
-                             and mode in ECC_MODES))
+                   **_gather_source(mat, mode))
+
+
+class FlatSpec(NamedTuple):
+    """Static description of one flat product with signals: ``gather``,
+    ``mask_ecc`` and ``plane`` as in EllSpec, over (E,) planes."""
+
+    use_parity: bool
+    use_cksum: bool
+    plane: object
+    gather: object
+    mask_ecc: bool
+
+
+def flat_spec(mat, mode) -> FlatSpec:
+    if mat.exec_kind != "flat":
+        raise ValueError(f"flat_spec: a {mat.exec_kind!r} matrix")
+    return FlatSpec(*_signal_plane(mode, mat), **_gather_source(mat, mode))
 
 
 def fast_spec(mat, mode):
-    """The DiaSpec or EllSpec of ``mat``'s layout."""
+    """The DiaSpec, EllSpec or FlatSpec of ``mat``'s layout."""
     if mat.exec_kind == "dia":
         return dia_spec(mat, mode)
     if mat.exec_kind == "ell":
         return ell_spec(mat, mode)
-    raise not_ported(f"the {mat.exec_kind!r} execution layout", "9")
+    if mat.exec_kind == "flat":
+        return flat_spec(mat, mode)
+    raise ValueError(f"fast_spec: a {mat.exec_kind!r} matrix")
 
 
 def _signal_planes(md: MatrixDevice, spec):
@@ -175,18 +212,25 @@ def _check_tensor(what, name, t, dtype, shape, device):
                          f"got {got}")
 
 
-def _check_cuda_args(md: MatrixDevice, x: torch.Tensor, spec, what):
-    """Validate the kernel arguments of a DIA or ELL product; returns
-    (D or K, R, signal plane, baseline, gather plane or None)."""
+def _check_x(x: torch.Tensor, what) -> int:
+    """Validate a product's x (a contiguous float32 CUDA vector of R rows,
+    R % 32 == 0); returns R."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: x on {x.device}, expected cpu or cuda")
     R = x.shape[0]
     if x.dim() != 1 or R % 32:
         raise ValueError(f"{what}: x must be 1-D with R % 32 == 0, got "
                          f"{tuple(x.shape)}")
+    _check_tensor(what, "x", x, torch.float32, (R,), x.device)
+    return R
+
+
+def _check_cuda_args(md: MatrixDevice, x: torch.Tensor, spec, what):
+    """Validate the kernel arguments of a DIA or ELL product; returns
+    (D or K, R, signal plane, baseline, gather plane or None)."""
+    R = _check_x(x, what)
     D = len(spec.offsets) if isinstance(spec, DiaSpec) else spec.K
     dev = x.device
-    _check_tensor(what, "x", x, torch.float32, (R,), dev)
     _check_tensor(what, "values", md.values, torch.float32, (D, R), dev)
     gsrc = None
     if isinstance(spec, EllSpec):
@@ -247,9 +291,9 @@ def dia_fast(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec):
 dia_fast.launches = 0
 
 
-def ell_gather_plane(md: MatrixDevice, spec: EllSpec) -> torch.Tensor:
-    """The gather indices kernel C reads, before the clamp: the masked
-    col word or the gidx plane."""
+def ell_gather_plane(md: MatrixDevice, spec) -> torch.Tensor:
+    """The gather indices kernel C (EllSpec) or E (FlatSpec) reads, before
+    the clamp: the masked col word or the gidx plane."""
     g = md.gidx if spec.gather == "gidx" else md.words[spec.gather]
     return g & int(ECC_COL_MASK) if spec.mask_ecc else g
 
@@ -292,26 +336,98 @@ def ell_fast(md: MatrixDevice, x: torch.Tensor, spec: EllSpec):
 ell_fast.launches = 0
 
 
+def flat_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: FlatSpec):
+    """Plain version of kernel E: (w, trig, pw); w in kernel E's
+    summation order (ops.spmv.flat_product)."""
+    w = flat_product(md.values, ell_gather_plane(md, spec), md.row_ptr, x)
+    return w, signals_plain(md, spec), torch.sum(x * w)
+
+
+def _check_flat_args(md: MatrixDevice, x: torch.Tensor, spec: FlatSpec,
+                     what):
+    """Validate kernel E's arguments; returns (E, R, signal plane,
+    baseline, gather plane)."""
+    R = _check_x(x, what)
+    dev = x.device
+    E = md.values.shape[0] if md.values is not None else -1
+    if E < 8 or E % 8:
+        raise ValueError(f"{what}: flat planes must hold a multiple of 8 "
+                         f"slots, got {E}")
+    _check_tensor(what, "values", md.values, torch.float32, (E,), dev)
+    gsrc = md.gidx if spec.gather == "gidx" else md.words[spec.gather]
+    _check_tensor(what, "gather plane", gsrc, torch.int32, (E,), dev)
+    _check_tensor(what, "row_ptr", md.row_ptr, torch.int32, (R + 1,), dev)
+    plane, base = _signal_planes(md, spec)
+    if plane is not None:
+        _check_tensor(what, "signal plane", plane, torch.int32, (E,), dev)
+        _check_tensor(what, "baseline", base, torch.int32, (E // 8,), dev)
+    return E, R, plane, base, gsrc
+
+
+def flat_fast(md: MatrixDevice, x: torch.Tensor, spec: FlatSpec):
+    """Kernel E: ``(w, trig, pw)`` for CUDA tensors; the plain version
+    for CPU tensors.  ``trig`` is a 0-d bool tensor, ``pw`` a 0-d float
+    tensor (no host synchronisation)."""
+    if x.device.type == "cpu":
+        return flat_fast_plain(md, x, spec)
+    from .._build import check, library
+
+    E, R, plane, base, gsrc = _check_flat_args(md, x, spec, "flat_fast")
+    lib = library("flat_spmv_detect")
+    dev = x.device.index if x.device.index is not None else 0
+    block = lib.abft_flat_spmv_block()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    # One warp per row: enough blocks to give every row its warp, capped
+    # at 8 resident 256-thread blocks per SM.
+    grid = max(1, min(-(-R * 32 // block), 8 * sms))
+    w = torch.empty_like(x)
+    pw_part = torch.empty(grid, dtype=torch.float32, device=x.device)
+    trig = torch.zeros(1, dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.abft_flat_spmv_detect(
+        md.values.data_ptr(), gsrc.data_ptr(), gather_mask(spec),
+        md.row_ptr.data_ptr(), R, E, x.data_ptr(), w.data_ptr(),
+        pw_part.data_ptr(), grid, _ptr(plane), _ptr(base),
+        int(spec.use_parity), int(spec.use_cksum), trig.data_ptr(), dev,
+        stream)
+    check(rc, "flat_spmv_detect launch")
+    flat_fast.launches += 1
+    return w, trig[0] != 0, torch.sum(pw_part)
+
+
+flat_fast.launches = 0
+
+_KERNELS = {DiaSpec: dia_fast, EllSpec: ell_fast, FlatSpec: flat_fast}
+
+
 def make_cuda_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
     """The cuda target's SpmvImpl (counterpart of make_pallas_spmv,
-    spmv_pallas.py:153): kernel A (DIA) or C (ELL) as ``fast``, the plain
-    ops.spmv paths for the rare ones.  Its consumer is ``spmv_once``
-    (``full``); the solve runs in kernel B or D, so there is no
-    ``fast_pw`` for a per-iteration loop."""
+    spmv_pallas.py:153-199): kernel A (DIA), C (ELL) or E (flat) as
+    ``fast``/``fast_pw``, the plain ops.spmv paths for the rare ones; a
+    split is ``combine_impls`` of its parts' impls (A or C for the main,
+    E for the tail).  Its consumers are ``spmv_once`` (``full``) and the
+    per-iteration tier of the solve (solver.cg)."""
     mode = mat.mode if mode is None else mode
+    if mat.exec_kind == "split":
+        return combine_impls(make_cuda_spmv(mat.main, dtype, mode),
+                             make_cuda_spmv(mat.tail, dtype, mode),
+                             mat.main.exec_size)
     spec = fast_spec(mat, mode)
-    kernel = dia_fast if isinstance(spec, DiaSpec) else ell_fast
+    kernel = _KERNELS[type(spec)]
+
+    def fast_pw(md, x):
+        return kernel(md, x, spec)
 
     def fast(md, x):
         w, trig, _ = kernel(md, x, spec)
         return w, trig
 
-    return _wrap_mode(mat, dtype, mode, fast)
+    return _wrap_mode(mat, dtype, mode, fast, fast_pw)
 
 
-def _wrap_mode(mat, dtype, mode, fast):
-    """SpmvImpl around a kernel's ``fast`` (spmv_pallas.py:238): the
-    plain classify for the rare path, a mode-specific full()."""
+def _wrap_mode(mat, dtype, mode, fast, fast_pw):
+    """SpmvImpl around a kernel's ``fast``/``fast_pw`` (spmv_pallas.py:
+    238): the plain classify for the rare path, a mode-specific full()."""
     plain = make_spmv(mat, dtype, mode)
     if mode == "constraints":
         check = make_constraints_check(mat)
@@ -320,11 +436,13 @@ def _wrap_mode(mat, dtype, mode, fast):
             w, _ = fast(md, x)
             return w, check(md)
 
-        return SpmvImpl(full=full_cons, fast=fast, classify=plain.classify)
+        return SpmvImpl(full=full_cons, fast=fast, classify=plain.classify,
+                        fast_pw=fast_pw)
     if mode == "none":
         def full_none(md, x):
             w, _ = fast(md, x)
             return w, SpmvStats.clean()
 
-        return SpmvImpl(full=full_none, fast=fast)
-    return SpmvImpl(full=plain.full, fast=fast, classify=plain.classify)
+        return SpmvImpl(full=full_none, fast_pw=fast_pw)
+    return SpmvImpl(full=plain.full, fast=fast, classify=plain.classify,
+                    fast_pw=fast_pw)

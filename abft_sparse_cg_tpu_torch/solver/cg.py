@@ -148,9 +148,19 @@ def _fast_pw_of(im: SpmvImpl):
     return f
 
 
+def _cksum_leaves(md):
+    """Stored-checksum baselines of a device matrix; a split's (main,
+    tail) pair recurses over its parts (cg.py:219)."""
+    if hasattr(md, "cksum"):
+        return [md.cksum]
+    return [c for part in md for c in _cksum_leaves(part)]
+
+
 def _baseline_changed(md_before, md_after) -> bool:
     """Did a repair change the stored-checksum baseline (cg.py:233)?"""
-    return bool(torch.any(md_before.cksum != md_after.cksum))
+    la, lb = _cksum_leaves(md_before), _cksum_leaves(md_after)
+    assert len(la) == len(lb), (len(la), len(lb))
+    return any(bool(torch.any(a != b)) for a, b in zip(la, lb))
 
 
 def _phantom_guard(trigged: bool, st1: SpmvStats, consumed: bool,

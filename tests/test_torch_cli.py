@@ -1,7 +1,8 @@
 """The port's CLI contract: run_tests' four classes on ``-t torch``, line
 for line identity with the JAX CLI's ``-t jnp`` in float64 (on the DIA
-stand-in and on a banded-ELL matrix), the unported-flag and unported-
-layout errors, and the package's independence from JAX."""
+stand-in, a banded-ELL matrix, and flat, band-split and bordered-split
+matrices), the default ``cuda`` target, the unported-flag errors, and
+the package's independence from JAX."""
 
 import ast
 import os
@@ -18,7 +19,12 @@ from abft_sparse_cg_tpu.backends import base as jbase
 from abft_sparse_cg_tpu.formats import assemble, build_protected
 from abft_sparse_cg_tpu.ops import spmv as jspmv
 from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal, write_mm_triangle
-from abft_sparse_cg_tpu.utils.matzoo import dense_radius_3d
+from abft_sparse_cg_tpu.utils.matzoo import (
+    arrowhead,
+    band_plus_random,
+    dense_radius_3d,
+    stencil27_shuffled,
+)
 from abft_sparse_cg_tpu_torch import cli
 from abft_sparse_cg_tpu_torch.backends import base
 from abft_sparse_cg_tpu_torch.device import compute_dtype
@@ -26,6 +32,9 @@ from abft_sparse_cg_tpu_torch.ops import spmv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODES = ["none", "constraints", "sed", "sec7", "sec8", "secded"]
+# Small eager CPU tensors: one intra-op thread per process, so that
+# parallel test workers do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
@@ -67,9 +76,16 @@ def test_class1_clean(mtx, mode, capsys):
     assert "ran for" in out and "time taken" in out
 
 
-def test_default_target_is_torch(mtx, capsys):
-    code, out, _ = run(cli.main_csr, ["-f", mtx, "-b", "2"], capsys)
-    assert code == 0 and "implementation        = torch-none" in out
+def test_default_target_is_cuda(mtx, capsys):
+    """Without -t the CLI runs the kernels on the card; without a card
+    cuda-<mode> is not registered and the run stops, exit 1, instead of
+    carrying on on the CPU."""
+    code, out, err = run(cli.main_csr, ["-f", mtx, "-b", "2"], capsys)
+    if torch.cuda.is_available():
+        assert code == 0 and "implementation        = cuda-none" in out
+    else:
+        assert code == 1
+        assert "No implementation found for cuda-none" in err
 
 
 def test_class2_sed_detects(mtx, capsys):
@@ -146,8 +162,9 @@ def test_check_interval_auto_and_1_run_live(mtx, capsys):
 
 
 def test_non_dia_matrix_not_ported(tmp_path, capsys):
-    # Two dense rows route the matrix to the split (or flat) layout,
-    # which this package has not ported: one line, exit 1.
+    """Two dense rows route the matrix to the split layout, which this
+    package refused before the split layouts were ported: it now runs,
+    with -t torch's float64 stdout equal to -t jnp's line for line."""
     n = 256
     rows, cols, vals, n = spd_tridiagonal(n)
     extra = [(r, c) for r in (20, 200) for c in range(0, n, 3)
@@ -159,9 +176,50 @@ def test_non_dia_matrix_not_ported(tmp_path, capsys):
     write_mm_triangle(path, rows, cols, vals, n)
     m = build_protected("csr", assemble(cols, rows, vals, n, 1), "none")
     assert m.exec_kind in ("split", "flat")
-    code, out, _ = run(cli.main_csr, ["-f", path, "-t", "torch"], capsys)
-    assert code == 1 and "not ported" in out
-    assert out.strip().count("\n") == 0 and "queue 1 item 9" in out
+    argv = ["-f", path, "--seed", "2", "--dtype", "f64"]
+    jcode, jout, _ = run(jcli.main_csr, argv + ["-t", "jnp"], capsys)
+    code, out, _ = run(cli.main_csr, argv + ["-t", "torch"], capsys)
+    assert code == jcode == 0 and "not ported" not in out
+    assert contract_lines(out) == contract_lines(jout)
+
+
+@pytest.fixture(scope="module")
+def layout_mtx(tmp_path_factory):
+    """.mtx files of a flat (stencil27-shuffled, side 30: flat under its
+    RCM permutation), a band-split (band+random-1pct, n = 16384) and a
+    bordered-split (arrowhead, n = 2048) matrix."""
+    d = tmp_path_factory.mktemp("layouts")
+    out = {}
+    for name, tri in (("band-split", band_plus_random(n=16384)),
+                      ("bordered-split", arrowhead(n=2048))):
+        out[name] = str(d / f"{name}.mtx")
+        write_mm_triangle(out[name], *tri)
+    out["flat"] = str(d / "stencil27.mtx")
+    write_mm_triangle(out["flat"], *stencil27_shuffled(side=30))
+    return out
+
+
+LAYOUT_RUNS = [(lay, flags) for lay in ("flat", "band-split",
+                                        "bordered-split")
+               for flags in (["-m", "none"], ["-m", "secded", "-x"],
+                             ["-m", "sed", "-x"], ["-m", "secded", "-x", "2"],
+                             ["-m", "constraints", "-x", "INDEX"])]
+
+
+@pytest.mark.parametrize("layout,flags", LAYOUT_RUNS,
+                         ids=[f"{lay}-{'_'.join(f)}" for lay, f in
+                              LAYOUT_RUNS])
+def test_layouts_f64_stdout_identical_to_jnp(layout_mtx, layout, flags,
+                                             capsys):
+    """The flat and split layouts on -t torch in float64: stdout equal to
+    -t jnp line for line, clean and in the run_tests -x classes."""
+    argv = ["-f", layout_mtx[layout], "-b", "1", "--seed", "3", "--dtype",
+            "f64", *flags]
+    jcode, jout, _ = run(jcli.main_csr, argv + ["-t", "jnp"], capsys)
+    tcode, tout, _ = run(cli.main_csr, argv + ["-t", "torch"], capsys)
+    assert tcode == jcode
+    assert contract_lines(tout) == contract_lines(jout)
+    assert "iteration" in tout or jcode == 1
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,10 @@ from abft_sparse_cg_tpu_torch.ecc import codec
 from abft_sparse_cg_tpu_torch.ecc.fold import fold_words
 from abft_sparse_cg_tpu_torch.ecc.values import planes_to_value
 
+# Small eager CPU tensors: one intra-op thread per process, so that
+# parallel test workers do not oversubscribe the cores.
+torch.set_num_threads(1)
+
 
 def t64(a):
     """uint32 NumPy plane -> widened int64 tensor."""

@@ -4,10 +4,10 @@
 (formats, ecc.layout, the NumPy codec, inject, the CLI parser, the
 matrix generators) instead of importing the JAX package.  These tests
 hold the copy equal to the original: ``build_protected`` byte for byte
-in every mode on the DIA stand-in and the three ELL shapes, the same
-refusals where the JAX build leaves DIA and ELL, the same parsed
-arguments, injected bits and generated matrices.  Sizes stay small
-(N <= ~20k).
+in every mode on the DIA stand-in, the three ELL shapes and the flat and
+split routes of the zoo (wide-band ELL included), the Benes-plan attach
+predicate that routing depends on, the same parsed arguments, injected
+bits and generated matrices.  Sizes stay small (N <= ~27k).
 """
 
 import os
@@ -85,35 +85,152 @@ def test_build_protected_byte_identical(shape, mode):
     assert_same_build(jm, tm)
 
 
+def assert_same_routing(jm, tm):
+    """Byte-identical builds of any layout: planes, slot maps, checksums,
+    __flat_group__, the dense plan, whether the Benes plan attaches, and
+    a split's parts, index maps and composite slot routing."""
+    assert tm.exec_kind == jm.exec_kind
+    if jm.exec_kind == "split":
+        for part in ("main", "tail"):
+            assert_same_routing(getattr(jm, part), getattr(tm, part))
+        for f in ("idx_main", "idx_tail", "flat_cksum"):
+            a, b = getattr(jm, f), getattr(tm, f)
+            assert (a is None) == (b is None), f
+            assert a is None or np.array_equal(a, b), f
+        assert (tm.R, tm.K, tm.band, tm.exec_size) == \
+            (jm.R, jm.K, jm.band, jm.exec_size)
+        np.testing.assert_array_equal(tm.slot_to_canonical(),
+                                      jm.slot_to_canonical())
+        return
+    assert_same_build(jm, tm)
+    assert tm.dense_plan == jm.dense_plan
+    assert tm.unstr_attached == (getattr(jm, "unstr_plan", None) is not None)
+
+
+# name -> (triplets, build kwargs, JAX routing); small sizes of the zoo
+# families the JAX build lays out flat or split.
+ROUTES = {
+    "powerlaw": (lambda: matzoo.powerlaw_graph(n=2048), {}, "split"),
+    "powerlaw-flat": (lambda: matzoo.powerlaw_graph(n=2048),
+                      {"split": "none"}, "flat"),
+    "stencil27-rcm-flat": (lambda: matzoo.stencil27_shuffled(side=10),
+                           {"force_exec": "flat"}, "flat"),
+    "k729": (lambda: matzoo.dense_radius_3d(side=10, rx=4, ry=4, rz=4), {},
+             "flat"),
+    "k1": (lambda: _pairs(1024), {"reorder": "none"}, "flat"),
+    "band-split": (lambda: matzoo.band_plus_random(n=16384), {}, "split"),
+    "bordered-split": (lambda: matzoo.arrowhead(n=2048), {}, "split"),
+}
+
+
+def _pairs(n, seed=0):
+    """One off-diagonal entry per row at a random partner: K = 1, which
+    no ELL kernel tier takes, so the JAX build lays it out flat."""
+    p = np.random.default_rng(seed).permutation(n)
+    a, b = p[0::2], p[1::2]
+    return np.maximum(a, b), np.minimum(a, b), np.full(n // 2, 0.5), n
+
+
+# k729 (343k entries) in one plain and one ECC mode, the rest in all six.
+ROUTE_CASES = [(f, m) for f in ROUTES for m in MODES
+               if f != "k729" or m in ("none", "secded")]
+
+
+@pytest.mark.parametrize("family,mode", ROUTE_CASES,
+                         ids=[f"{f}-{m}" for f, m in ROUTE_CASES])
+def test_flat_and_split_builds_byte_identical(family, mode):
+    make, kw, kind = ROUTES[family]
+    jm, tm = both_builds(make(), mode, **kw)
+    assert tm.exec_kind == kind
+    assert_same_routing(jm, tm)
+
+
 @pytest.mark.parametrize("family,kwargs,jax_kind", [
     ("arrowhead", dict(n=4096), "split"),
     ("dense-radius-k729", None, "flat"),
 ])
 def test_flat_and_split_routes_refused(family, kwargs, jax_kind):
     """Where the JAX build returns the split or flat layout, the port's
-    build refuses in one line naming ROADMAP.md queue 1 item 9."""
+    build now returns the same layout, byte for byte (it refused these
+    matrices before the flat and split layouts were ported), also with
+    ``force_exec="flat"``."""
     make = matzoo.ZOO[family][0]
     tri = make(**kwargs) if kwargs else make()
     rows, cols, vals, n = tri
-    assert jbuild("csr", jassemble(cols, rows, vals, n, 1),
-                  "secded").exec_kind == jax_kind
-    with pytest.raises(NotImplementedError, match="queue 1 item 9") as e:
-        build_protected("csr", assemble(cols, rows, vals, n, 1), "secded")
-    assert "\n" not in str(e.value)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    jm = jbuild("csr", jassemble(cols, rows, vals, n, 1), "secded")
+    tm = build_protected("csr", assemble(cols, rows, vals, n, 1), "secded")
+    assert jm.exec_kind == jax_kind
+    assert_same_routing(jm, tm)
+    assert_same_routing(
+        jbuild("csr", jassemble(cols, rows, vals, n, 1), "secded",
+               force_exec="flat"),
         build_protected("csr", assemble(cols, rows, vals, n, 1), "secded",
-                        force_exec="flat")
+                        force_exec="flat"))
 
 
 def test_declined_band_split_refused():
-    """The recorded divergence (ROADMAP.md queue 3): a band in
-    (1920, 16256] whose band split the JAX build declines stays ELL
-    there and is refused here."""
+    """A band in (1920, 16256] whose band split the JAX build declines
+    stays ELL there, and here too now (the port refused it before)."""
     rows, cols, vals, n = matzoo.band_plus_random(n=8192)
     jm = jbuild("csr", jassemble(cols, rows, vals, n, 1), "secded")
     assert jm.exec_kind == "ell" and 1920 < jm.band <= 16256
-    with pytest.raises(NotImplementedError, match="band of"):
-        build_protected("csr", assemble(cols, rows, vals, n, 1), "secded")
+    tm = build_protected("csr", assemble(cols, rows, vals, n, 1), "secded")
+    assert_same_routing(jm, tm)
+
+
+def test_stencil27_routes_flat_under_rcm():
+    """stencil27-shuffled at side 30: band 2611 after RCM, the band split
+    declines, the JAX cost model favours its Benes route and the plan
+    attaches — flat under the permutation, in both builds."""
+    jm, tm = both_builds(matzoo.stencil27_shuffled(side=30), "secded")
+    assert jm.exec_kind == "flat" and jm.perm is not None
+    assert_same_routing(jm, tm)
+
+
+def test_wide_band_ell_when_the_plan_does_not_attach(monkeypatch):
+    """The same matrix with both packages' 2^23-slot Benes envelope cut
+    to 2^16: the plan no longer attaches, so both builds keep it as
+    wide-band ELL (band 2611) — the case the port refused before."""
+    from abft_sparse_cg_tpu.ops import spmv_unstructured as junstr
+    from abft_sparse_cg_tpu_torch.ops import spmv_unstructured as tunstr
+
+    monkeypatch.setattr(junstr, "_MAX_TOTAL_M", 1 << 16)
+    monkeypatch.setattr(tunstr, "_MAX_TOTAL_M", 1 << 16)
+    jm, tm = both_builds(matzoo.stencil27_shuffled(side=30), "secded")
+    assert jm.exec_kind == "ell" and 1920 < jm.band <= 16256
+    assert_same_routing(jm, tm)
+
+
+@pytest.mark.parametrize("caps", [None, "block", "grid", "total"])
+@pytest.mark.parametrize("family", ["powerlaw-flat", "stencil27-rcm-flat",
+                                    "k729"])
+def test_attach_predicate_equals_jax_plan(monkeypatch, family, caps):
+    """The port's envelope arithmetic (ops.spmv_unstructured.
+    plan_attaches) equals ``unstructured_plan(m) is not None`` of the JAX
+    package, with the real caps and with each cap shrunk in both
+    packages so that its refusal branch is taken."""
+    from abft_sparse_cg_tpu.ops import spmv_unstructured as junstr
+    from abft_sparse_cg_tpu_torch.ops import spmv_unstructured as tunstr
+
+    shrink = {"block": {"_BLOCK_TARGET": 1 << 12},
+              "grid": {"_BLOCK_TARGET": 1 << 12, "_MAX_M": 1 << 13},
+              "total": {"_MAX_TOTAL_M": 1 << 13}}.get(caps, {})
+    for name, v in shrink.items():
+        monkeypatch.setattr(junstr, name, v)
+        monkeypatch.setattr(tunstr, name, v)
+    monkeypatch.setattr(junstr, "_PLAN_CACHE", {})
+    make, kw, _ = ROUTES[family]
+    kw = dict(kw, force_exec="flat")
+    rows, cols, vals, n = make()
+    jm = jbuild("csr", jassemble(cols, rows, vals, n, 1), "none",
+                _attach_unstr=False, **kw)
+    tm = build_protected("csr", assemble(cols, rows, vals, n, 1), "none",
+                         _attach_unstr=False, **kw)
+    assert jm.exec_kind == tm.exec_kind == "flat"
+    want = junstr.unstructured_plan(jm) is not None
+    assert tunstr.plan_attaches(tm) == want
+    if caps is None:
+        assert want
 
 
 def test_layout_and_codec_constants_equal():
@@ -174,11 +291,11 @@ ARGVS = [
 @pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a) or "-")
 def test_parse_arguments_equal(argv):
     """The copied parser gives the JAX one's result; the only difference
-    is the default target (torch here, jnp there)."""
+    is the default target (cuda here, jnp there)."""
     got = cli.parse_arguments(list(argv), "csr")
     want = jcli.parse_arguments(list(argv), "csr")
     if "-t" not in argv:
-        assert got.pop("target") == "torch" and want.pop("target") == "jnp"
+        assert got.pop("target") == "cuda" and want.pop("target") == "jnp"
     got["matrix_file"] = os.path.normpath(got["matrix_file"])
     want["matrix_file"] = os.path.normpath(want["matrix_file"])
     assert got == want
@@ -254,6 +371,9 @@ def test_port_imports_nothing_of_the_jax_package():
         "             or k.startswith('jax.') or k == 'abft_sparse_cg_tpu'\n"
         "             or k.startswith('abft_sparse_cg_tpu.'))\n"
         "assert not bad, bad\n"
+        "new = ('formats.split', 'ops.spmv_unstructured', 'ops.spmv_cuda',\n"
+        "       'solver.fused', 'backends.cuda_backend')\n"
+        "assert all(p.__name__ + '.' + n in sys.modules for n in new)\n"
         "print('ok', len([k for k in sys.modules\n"
         "                 if k.startswith(p.__name__)]))\n"
     )
@@ -261,4 +381,4 @@ def test_port_imports_nothing_of_the_jax_package():
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, cwd=REPO, timeout=120)
     assert p.returncode == 0, p.stderr
-    assert p.stdout.startswith("ok") and int(p.stdout.split()[1]) >= 25
+    assert p.stdout.startswith("ok") and int(p.stdout.split()[1]) >= 27

@@ -47,6 +47,9 @@ from abft_sparse_cg_tpu_torch.solver.fused import (
 
 MAX_ITRS, CONV = 300, 1e-8
 CPU = torch.device("cpu")
+# Small eager CPU tensors: one intra-op thread per process, so that
+# parallel test workers do not oversubscribe the cores.
+torch.set_num_threads(1)
 
 
 def dia_matrix(mode, n=1024, sign=1.0):

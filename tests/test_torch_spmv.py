@@ -49,6 +49,9 @@ from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
 
 MODES = ["none", "constraints", "sed", "sec7", "sec8", "secded"]
 CPU = torch.device("cpu")
+# Small eager CPU tensors: one intra-op thread per process, so that
+# parallel test workers do not oversubscribe the cores.
+torch.set_num_threads(1)
 ECC = ["sed", "sec7", "sec8", "secded"]
 
 
@@ -214,19 +217,24 @@ def test_cuda_impl_full_matches_pallas_full(mode):
 
 
 def test_non_dia_layouts_not_ported():
-    """The layouts still to port (ROADMAP.md queue 1 item 9): a bordered
-    matrix the JAX build splits, and a K = 729 one it lays out flat."""
+    """The layouts this package refused before the flat and split ports:
+    a bordered matrix the JAX build splits and a K = 729 one it lays out
+    flat now upload and multiply; the float64 oracle equals the jnp one
+    (tests/test_torch_flat.py holds them in every mode)."""
     for kind, (rows, cols, vals, n) in (
             ("split", arrowhead(n=2048)),
             ("flat", dense_radius_3d(side=10, rx=4, ry=4, rz=4))):
         m = build_protected("csr", assemble(cols, rows, vals, n, 1),
                             "secded")
         assert m.exec_kind == kind
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_matrix_device(m, torch.float32, CPU)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_spmv(m, torch.float32, "secded")
-
+        x = xvec(m, np.float64)
+        jw, jst = jax.jit(jmake_spmv(m, jnp.float64, "secded").full)(
+            jmake_md(m, jnp.float64), jnp.asarray(x))
+        tw, tst = make_spmv(m, torch.float64, "secded").full(
+            make_matrix_device(m, torch.float64, CPU), torch.tensor(x))
+        np.testing.assert_allclose(tw.numpy(), np.asarray(jw), rtol=1e-12,
+                                   atol=1e-12)
+        assert tuple(tst) == tuple(int(v) for v in jst)
 
 
 # --------------------------------------------------------------------------
