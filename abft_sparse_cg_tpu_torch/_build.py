@@ -38,6 +38,10 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # The split tail of the fused kernels: td, tb, rows, starts, T, S, the
 # chunk partials, the tail's signal plane and baseline, E.
 _TAIL = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I]
+# The Jacobi and lazy options of the fused kernels: M^-1, the rz
+# partials, the x/r/p snapshot, the check interval, the snapshot's
+# itr and rr/rz outputs.
+_OPTS = [_P, _P, _P, _P, _P, _I, _P, _P]
 # source name -> {C function: argtypes}
 _SIGNATURES = {
     "dia_spmv_detect": {
@@ -46,10 +50,10 @@ _SIGNATURES = {
         "abft_dia_spmv_block": [],
     },
     "fused_cg_dia": {
-        "abft_fused_grid": [_I, _I, _P],
+        "abft_fused_grid": [_I, _I, _I, _I, _P],
         "abft_fused_cg_dia": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                               _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                              _F, *_TAIL, _I, _P],
+                              _F, *_TAIL, *_OPTS, _I, _P],
     },
     "ell_spmv_detect": {
         "abft_ell_spmv_detect": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _I, _P,
@@ -57,10 +61,10 @@ _SIGNATURES = {
         "abft_ell_spmv_block": [],
     },
     "fused_cg_ell": {
-        "abft_fused_ell_grid": [_I, _I, _P],
+        "abft_fused_ell_grid": [_I, _I, _I, _I, _P],
         "abft_fused_cg_ell": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _P, _P,
                               _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
-                              _P, _I, _F, *_TAIL, _I, _P],
+                              _P, _I, _F, *_TAIL, *_OPTS, _I, _P],
     },
     "flat_spmv_detect": {
         "abft_flat_spmv_detect": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _I,

@@ -1,21 +1,32 @@
 """The ``cuda`` target: the hand-written CUDA kernels on ``cuda:0``.
 
-Counterpart of ``abft_sparse_cg_tpu.backends.pallas_backend`` (:160-219),
-single device, live detection, unpreconditioned, with the same two
-tiers as the TPU package:
+Counterpart of ``abft_sparse_cg_tpu.backends.pallas_backend`` (:141-219),
+single device, unpreconditioned or Jacobi, live or lazy detection, with
+the same two tiers as the TPU package:
 
   - the whole-solve tier, when ``supports_fused`` holds: kernel B for a
     DIA matrix, D for a banded-ELL one, either with the split tail for a
-    bordered split whose tail has a dense plan (solver.fused);
+    bordered split whose tail has a dense plan (solver.fused), in the
+    Jacobi and lazy instances as the solve asks;
   - otherwise the per-iteration tier: solver.cg's detect-fast /
     repair-rarely loop over the cuda SpmvImpl (ops.spmv_cuda: kernel A,
     C or E per product, ``combine_impls`` of the main's kernel and
     kernel E for a split), re-executing a triggered iteration after the
-    repair (solver/cg.py:8-22).  Flat matrices and band splits take this
+    repair (solver/cg.py:8-22); with a check interval > 1, solver.cg's
+    lazy loop over the same kernels and their detection-free products
+    (``make_cuda_product``).  Flat matrices and band splits take this
     tier, as they do on the TPU, whose ``_plan`` has no flat branch and
     whose ``_plan_split`` needs a dense plan (fused.py:390-392).  Its
     loop runs on the host: a few small launches and a host read of rr
-    and the trigger per iteration.
+    (and, on a checked iteration, the trigger) per iteration.
+
+``--check-interval auto`` resolves to live (1) on the whole-solve tier
+and to 32 on the per-iteration tier (``_check_interval``).  The TPU
+policy (pallas_backend.py:27-50) also gives 32 to its streaming
+megakernel tier, a VMEM artifact the H100 has no counterpart of: a
+decided divergence for matrices past the TPU's resident envelope (DIA
+``-b 100``), which changes no output (a clean lazy solve equals the live
+one).
 
 ``spmv_once`` runs the cuda SpmvImpl's ``full`` — kernel A, C or E in
 modes none/constraints, the plain check-and-correct oracle in the ECC
@@ -32,8 +43,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.spmv import not_ported
-from ..ops.spmv_cuda import make_cuda_spmv
-from ..solver.cg import make_cg_solver
+from ..ops.spmv_cuda import make_cuda_product, make_cuda_spmv
+from ..solver.cg import make_cg_solver, make_lazy_ci_solver
 from ..solver.fused import make_fused_solver, supports_fused
 from . import registry
 from .torch_backend import TorchBackend
@@ -41,17 +52,40 @@ from .torch_backend import TorchBackend
 __all__ = ["CudaBackend"]
 
 
+def _check_interval(check_interval, mat) -> int:
+    """The lazy schedule's interval of a solve of ``mat``: None or 1 is
+    live; 'auto' is live on the whole-solve tier and 32 on the
+    per-iteration tier; an int K is max(1, K) (pallas_backend.py:19-62,
+    taken as a parameter instead of ABFT_CHECK_INTERVAL)."""
+    if check_interval is None:
+        return 1
+    if check_interval == "auto":
+        return 1 if supports_fused(mat, torch.float32) else 32
+    try:
+        return max(1, int(check_interval))
+    except ValueError:
+        raise ValueError(f"check interval must be an integer or 'auto', "
+                         f"got {check_interval!r}") from None
+
+
 class CudaBackend(TorchBackend):
     target = "cuda"
     default_reps = 10
 
-    def _solver(self, mat, dtype, max_itrs, conv):
+    def _solver(self, mat, dtype, max_itrs, conv, precond=False,
+                check_interval=None):
         if dtype != torch.float32:
             raise not_ported(f"a {dtype} solve on the cuda target")
-        if supports_fused(mat, dtype):
-            return make_fused_solver(mat, self.mode, max_itrs, conv)
-        return make_cg_solver(make_cuda_spmv(mat, dtype, self.mode),
-                              max_itrs, conv)
+        ci = _check_interval(check_interval, mat)
+        if supports_fused(mat, dtype, precond, ci):
+            return make_fused_solver(mat, self.mode, max_itrs, conv,
+                                     precond=precond, check_interval=ci)
+        spmv = make_cuda_spmv(mat, dtype, self.mode)
+        if ci > 1 and spmv.classify is not None:
+            return make_lazy_ci_solver(
+                spmv, make_cuda_product(mat, dtype, self.mode), ci,
+                max_itrs, conv)
+        return make_cg_solver(spmv, max_itrs, conv)
 
     def _spmv_full(self, mat, dtype):
         return make_cuda_spmv(mat, dtype, self.mode).full

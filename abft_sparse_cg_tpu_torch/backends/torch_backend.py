@@ -1,13 +1,17 @@
 """The ``torch`` target: plain PyTorch SpMV + CG on the CPU.
 
 Counterpart of ``abft_sparse_cg_tpu.backends.jnp_backend`` (:60-351),
-single device, no checkpointing.  ``time taken`` is measured on warm
+single device, no checkpointing, unpreconditioned or Jacobi (the M^-1
+set-up of jnp_backend.py:188-229).  ``time taken`` is measured on warm
 runs; the first run (which pays every one-time cost, a kernel build
-included on the cuda target) is reported as the compile time.
+included on the cuda target) is reported as the compile time.  Like the
+jnp target, it has no lazy ``--check-interval`` schedule: it warns once
+and runs live (``warn_live_schedule``, jnp_backend.py:29-51).
 """
 
 from __future__ import annotations
 
+import sys
 import time
 
 import numpy as np
@@ -19,7 +23,35 @@ from ..solver.cg import make_cg_solver
 from . import registry
 from .base import Backend, HostResult, stats_to_messages
 
-__all__ = ["TorchBackend"]
+__all__ = ["TorchBackend", "warn_live_schedule", "jacobi_minv"]
+
+_warned_live = set()
+
+
+def warn_live_schedule(route, check_interval):
+    """Warn once per route per process when a check interval > 1 asks
+    for a lazy schedule that ``route`` does not have, and it runs live
+    (jnp_backend.py:29-51; 'auto' never warns)."""
+    try:
+        ci = int(check_interval or 1)
+    except ValueError:
+        return
+    if ci > 1 and route not in _warned_live:
+        _warned_live.add(route)
+        print(f"warning: --check-interval has no lazy schedule on the "
+              f"{route} route; running the live detection schedule",
+              file=sys.stderr)
+
+
+def jacobi_minv(mat, precond) -> np.ndarray:
+    """The canonical (N,) Jacobi M^-1 of ``-p jacobi`` (1 where the
+    diagonal is zero), or None for ``-p none`` (jnp_backend.py:188-193)."""
+    if precond == "none":
+        return None
+    if precond != "jacobi":
+        raise ValueError(f"unknown preconditioner: {precond!r}")
+    d = mat.diagonal()
+    return np.where(d != 0.0, 1.0 / np.where(d == 0, 1, d), 1.0)
 
 
 class TorchBackend(Backend):
@@ -33,7 +65,9 @@ class TorchBackend(Backend):
 
     # -- per-target routing (overridden by the cuda target) -------------
 
-    def _solver(self, mat, dtype, max_itrs, conv):
+    def _solver(self, mat, dtype, max_itrs, conv, precond=False,
+                check_interval=None):
+        warn_live_schedule(self.target, check_interval)
         return make_cg_solver(make_spmv(mat, dtype, self.mode), max_itrs,
                               conv)
 
@@ -52,19 +86,25 @@ class TorchBackend(Backend):
     # -- Backend API ------------------------------------------------------
 
     def solve(self, mat, b, max_itrs, conv_threshold, dtype="auto",
-              reps=0) -> HostResult:
+              reps=0, precond="none", check_interval=None) -> HostResult:
+        """``precond``: "none" or "jacobi" (M^-1 in exec order, zero on
+        pad rows); ``check_interval``: None, an int or "auto"."""
         dt = compute_dtype(self.target, dtype)
+        minv_host = jacobi_minv(mat, precond)
+        minv = (None if minv_host is None
+                else self._exec_vector(mat, minv_host, dt))
         md = make_matrix_device(mat, dt, self.device)
         bdev = self._exec_vector(mat, b, dt)
-        solve_fn = self._solver(mat, dt, max_itrs, conv_threshold)
+        solve_fn = self._solver(mat, dt, max_itrs, conv_threshold,
+                                minv is not None, check_interval)
 
         t0 = time.perf_counter()
-        res = solve_fn(md, bdev)
+        res = solve_fn(md, bdev, minv)
         self._sync()
         t1 = time.perf_counter()
         reps = reps or self.default_reps
         for _ in range(reps):
-            res = solve_fn(md, bdev)
+            res = solve_fn(md, bdev, minv)
         self._sync()
         t2 = time.perf_counter()
 

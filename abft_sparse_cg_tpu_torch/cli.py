@@ -12,10 +12,15 @@ card ``cuda-<mode>`` is not registered, so a run without ``-t`` prints
 "No implementation found for cuda-<mode>" and exits 1; it never falls
 back to the CPU.  ``main`` returns the exit code.
 
-Flags of features this package has not ported yet print a one-line
-error and exit 1: --devices, --solver pipelined, -p/--precond jacobi,
---refine, --checkpoint/--checkpoint-every/--resume, --check-interval
-K > 1, --profile and --format coo.
+``-p jacobi``, ``--check-interval K`` (K > 1 or ``auto``) and
+``--refine K`` reach the backend (cli.py:382-419): on ``cuda`` the Jacobi
+and lazy instances of the whole-solve kernels, or the per-iteration
+tier's lazy loop over the detection-free products; ``torch`` runs Jacobi
+and refinement and, like ``-t jnp``, has no lazy schedule (it warns on
+stderr and runs live).  ``--refine`` with ``--checkpoint`` is refused, as
+in the JAX CLI.  Flags of features this package has not ported yet print
+a one-line error and exit 1: --devices, --solver pipelined,
+--checkpoint/--checkpoint-every/--resume, --profile and --format coo.
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ _USAGE_OPTIONS = """Options:
       --check-interval  K     Lazy ABFT schedule: verify every K-th
                               iteration, snapshot-rollback on a
                               trigger (default 1 = live; 'auto' =
-                              live on the whole-solve kernels)
+                              live on the whole-solve kernels, 32 on
+                              the per-iteration tier; torch: live)
       --checkpoint      PATH  Segment the solve and snapshot CG state
                               to PATH (.npz) between segments
       --checkpoint-every N    Iterations per segment (default: 100)
@@ -275,16 +281,8 @@ def _unported_flag(params):
         return "--devices"
     if params["solver"] != "standard":
         return "--solver pipelined"
-    if params["precond"] != "none":
-        return "-p/--precond"
-    if params.get("refine"):
-        return "--refine"
     if params["checkpoint"] or params["resume"]:
         return "--checkpoint/--resume"
-    if params.get("check_interval") not in (None, 1, "auto"):
-        # 'auto' resolves to the live schedule on the whole-solve kernel
-        # tier, as in the reference; every path here is live.
-        return "--check-interval K > 1"
     if params["profile"]:
         return "--profile"
     return None
@@ -311,6 +309,11 @@ def _main(params):
         return 0
 
     backend = create(params["target"], params["mode"])
+    if params.get("refine") and params["checkpoint"]:
+        # cli.py:387-389: the refinement's inner solves would share one
+        # snapshot path, and a resume would replay a different rhs.
+        print("--refine cannot be combined with --checkpoint/--resume")
+        return 1
     flag = _unported_flag(params)
     if flag:
         print(f"{flag} {_ROADMAP}")
@@ -360,8 +363,18 @@ def _main(params):
         mat = inject_bitflips(mat, params["bitflip_kind"],
                               params["num_bit_flips"], inj_rng)
 
-    res = backend.solve(mat, b, params["max_itrs"], params["conv_threshold"],
-                        dtype=params["dtype"], reps=params["reps"])
+    kw = dict(dtype=params["dtype"], precond=params["precond"],
+              check_interval=params.get("check_interval"))
+    if params.get("refine"):
+        # Mixed-precision refinement: inner solves on the target plus
+        # binary64 true-residual restarts (backends.base.solve_refined).
+        res = backend.solve_refined(mat, b, params["max_itrs"],
+                                    params["conv_threshold"],
+                                    params["refine"], **kw)
+    else:
+        res = backend.solve(mat, b, params["max_itrs"],
+                            params["conv_threshold"], reps=params["reps"],
+                            **kw)
 
     # ABFT event messages print first (reference cg.cpp:97 runs before
     # the rr print at cg.cpp:117), then the per-iteration residuals.

@@ -352,6 +352,29 @@ inline bool make_tail_plan(TailPlan* t, const float* td, const float* tb,
   return true;
 }
 
+// ---- The Jacobi and lazy instances of the fused kernels B and D ----------
+//
+// Jacobi (kPrecond, solver/fused.py:1022-1039): z1 = M^-1 r1, rz1 = r1 . z1
+// reduced beside rr1 in the same pass (a second partial array, the same
+// fixed order, no extra grid sync), beta = rz1 / rz, p = z1 + beta p.
+// Lazy (kLazy, fused.py:912-1155): iteration itr streams the signal plane
+// only when itr % ci == ci - 1 (keyed on the absolute count, so resumes
+// agree); a checked iteration that stands copies x, r, p of its rows to
+// the snapshot and records its/rrs/rzs; the entry state seeds it; a clean
+// exit with its != itr runs one signals-only pass that closes the
+// unverified window.  The instances without them take this struct and
+// never read it.
+struct CgOpts {
+  const float* minv;  // (R) M^-1; kPrecond
+  float* part_rz;     // (grid) rz1 partials; kPrecond
+  float* xs;          // (R) snapshot of x, r, p; kLazy
+  float* rs;
+  float* ps;
+  int ci;             // check interval > 1; kLazy
+  int* snap_iout;     // its
+  float* snap_fout;   // rrs, rzs
+};
+
 // Fixed-order sum of a whole grid's per-block partials, computed by
 // every block (fused kernels, after a grid sync; __ldcg: other blocks
 // wrote them).

@@ -22,7 +22,12 @@
 // sync and the trigger test, every thread adds the tail terms to its rows
 // of w and the pw partials are taken over the complete product, with one
 // more grid sync before pw is reduced (solver/fused.py:977-1014).  The
-// tail-free instance is the code without it.
+// tail-free instance is the code without it.  The Jacobi (kPrecond) and
+// lazy --check-interval (kLazy) instances, with or without the tail, are
+// the `precond` and `ci > 1` branches of the same TPU kernel (fused.py:
+// 552-678, 912-1155; dia_common.cuh CgOpts); the same instances run the
+// `-b 100` solves that the TPU routes to _make_streaming_kernel (pallas_
+// call at :1931; the H100 has no resident-vector envelope to leave).
 // x, r and p are updated IN PLACE.  That is safe because an iteration
 // that triggers or breaks down writes none of them: the caller sees
 // exactly the state before that iteration.  The trace is written only
@@ -63,6 +68,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kBlock = 256;
+// The lazy instances are launched with their live counterpart's grid, so
+// that every reduction sums in the same order and a clean lazy solve
+// equals the live one bit for bit: they must fit as many blocks per SM as
+// the live instances do (8 at 256 threads, i.e. 32 registers).
+constexpr int kLazyBlocksPerSM = 8;
 
 struct FusedArgs {
   const float* vals;      // (D, R)
@@ -84,9 +94,12 @@ struct FusedArgs {
   float conv;
 };
 
-template <bool kTail>
-__global__ void __launch_bounds__(kBlock)
-fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs, TailPlan t) {
+// The loop of every instance; each __global__ below inlines it with its
+// own launch bounds.
+template <bool kTail, bool kPrecond, bool kLazy>
+__device__ __forceinline__ void cg_loop(const FusedArgs& a,
+                                        const DiaOffsets& offs,
+                                        const TailPlan& t, const CgOpts& o) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float fbuf[33];
   __shared__ int ibuf[1];
@@ -98,8 +111,20 @@ fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs, TailPlan t) {
   float rr = a.fscal_in[0];
   float rz = a.fscal_in[1];
   int trig = 0, err = 0;
+  // lazy: the entry state is verified and seeds the snapshot
+  int its = itr;
+  float rrs = rr, rzs = rz;
+  if constexpr (kLazy) {
+    for (int i = tid; i < R; i += stride) {
+      o.xs[i] = __ldcg(a.x + i);
+      o.rs[i] = __ldcg(a.r + i);
+      o.ps[i] = __ldcg(a.p + i);
+    }
+  }
 
   while (itr < upto && rr > a.conv) {
+    // lazy: only every ci-th iteration reads the signal planes
+    const bool chk = !kLazy || itr % o.ci == o.ci - 1;
     // 1. stencil + pw + signals
     float pw_l = 0.0f;
     int bad = 0;
@@ -108,11 +133,12 @@ fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs, TailPlan t) {
       a.w[i] = wr;
       if constexpr (!kTail)
         pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
-      if (a.sig.plane != nullptr) bad |= dia_row_signals(a.sig, offs.n, R, i);
+      if (a.sig.plane != nullptr && chk)
+        bad |= dia_row_signals(a.sig, offs.n, R, i);
     }
     if constexpr (kTail) {
       tail_dense_partials(t, a.p, fbuf);
-      bad |= tail_signals(t, tid, stride);
+      if (chk) bad |= tail_signals(t, tid, stride);
     }
     const float bpw = block_sum(pw_l, fbuf);
     const int bbad = block_any(bad, ibuf);
@@ -146,38 +172,79 @@ fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs, TailPlan t) {
         break;
       }
     }
-    // 4. r1 = r - alpha w into the w buffer, rr1 partials
+    // 4. r1 = r - alpha w into the w buffer, rr1 (and rz1) partials
     const float alpha = __fdiv_rn(rz, pw);
-    float rr_l = 0.0f;
+    float rr_l = 0.0f, rz_l = 0.0f;
     for (int i = tid; i < R; i += stride) {
       const float r1 =
           __fsub_rn(__ldcg(a.r + i), __fmul_rn(alpha, __ldcg(a.w + i)));
       a.w[i] = r1;
       rr_l = __fadd_rn(rr_l, __fmul_rn(r1, r1));
+      if constexpr (kPrecond)
+        rz_l = __fadd_rn(rz_l, __fmul_rn(r1, __fmul_rn(__ldg(o.minv + i), r1)));
     }
     const float brr = block_sum(rr_l, fbuf);
     if (threadIdx.x == 0) a.part_rr[blockIdx.x] = brr;
+    if constexpr (kPrecond) {
+      const float brz = block_sum(rz_l, fbuf);
+      if (threadIdx.x == 0) o.part_rz[blockIdx.x] = brz;
+    }
     grid.sync();
     const float rr1 = grid_total(a.part_rr, fbuf);
+    float rz1 = rr1;
+    if constexpr (kPrecond) rz1 = grid_total(o.part_rz, fbuf);
     // 5. breakdown: exit without the update
     if (pw <= 0.0f || !isfinite(rr1)) {
       err = ABFT_ERR_BREAKDOWN;
       break;
     }
     // 6. the update (each thread touches only its own rows)
-    const float beta = __fdiv_rn(rr1, rz);
+    const float beta = __fdiv_rn(rz1, rz);
     for (int i = tid; i < R; i += stride) {
       const float pv = __ldcg(a.p + i);
       const float r1 = __ldcg(a.w + i);
-      a.x[i] = __fadd_rn(__ldcg(a.x + i), __fmul_rn(alpha, pv));
+      const float xn = __fadd_rn(__ldcg(a.x + i), __fmul_rn(alpha, pv));
+      float z1 = r1;
+      if constexpr (kPrecond) z1 = __fmul_rn(__ldg(o.minv + i), r1);
+      const float pn = __fadd_rn(z1, __fmul_rn(beta, pv));
+      a.x[i] = xn;
       a.r[i] = r1;
-      a.p[i] = __fadd_rn(r1, __fmul_rn(beta, pv));
+      a.p[i] = pn;
+      if constexpr (kLazy) {
+        if (chk) {  // a checked iteration that stood: verified state
+          o.xs[i] = xn;
+          o.rs[i] = r1;
+          o.ps[i] = pn;
+        }
+      }
     }
     if (tid == 0 && itr < a.trace_len) a.trace[itr] = rr1;
     itr += 1;
     rr = rr1;
-    rz = rr1;
+    rz = rz1;
+    if constexpr (kLazy) {
+      if (chk) {
+        its = itr;
+        rrs = rr1;
+        rzs = rz1;
+      }
+    }
     grid.sync();
+  }
+  if constexpr (kLazy) {
+    // A clean exit mid-window: one signals-only pass closes the window
+    // (fused.py:1101-1155); a trigger here rolls the caller back.
+    if (its != itr && trig == 0 && err == 0) {
+      int bad = 0;
+      if (a.sig.plane != nullptr)
+        for (int i = tid; i < R; i += stride)
+          bad |= dia_row_signals(a.sig, offs.n, R, i);
+      if constexpr (kTail) bad |= tail_signals(t, tid, stride);
+      const int bbad = block_any(bad, ibuf);
+      if (threadIdx.x == 0) a.part_flag[blockIdx.x] = bbad;
+      grid.sync();
+      trig = grid_any(a.part_flag, ibuf);
+    }
   }
   if (tid == 0) {
     a.iscal_out[0] = itr;
@@ -185,16 +252,49 @@ fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs, TailPlan t) {
     a.iscal_out[2] = err;
     a.fscal_out[0] = rr;
     a.fscal_out[1] = rz;
+    if constexpr (kLazy) {
+      o.snap_iout[0] = its;
+      o.snap_fout[0] = rrs;
+      o.snap_fout[1] = rzs;
+    }
   }
+}
+
+template <bool kTail, bool kPrecond>
+__global__ void __launch_bounds__(kBlock)
+fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs, TailPlan t, CgOpts o) {
+  cg_loop<kTail, kPrecond, false>(a, offs, t, o);
+}
+
+template <bool kTail, bool kPrecond>
+__global__ void __launch_bounds__(kBlock, kLazyBlocksPerSM)
+fused_cg_dia_lazy_kernel(FusedArgs a, DiaOffsets offs, TailPlan t, CgOpts o) {
+  cg_loop<kTail, kPrecond, true>(a, offs, t, o);
+}
+
+// The instance of (tail, Jacobi, lazy).
+const void* instance(bool tail, bool precond, bool lazy) {
+  const void* fns[8] = {
+      (const void*)fused_cg_dia_kernel<false, false>,
+      (const void*)fused_cg_dia_kernel<true, false>,
+      (const void*)fused_cg_dia_kernel<false, true>,
+      (const void*)fused_cg_dia_kernel<true, true>,
+      (const void*)fused_cg_dia_lazy_kernel<false, false>,
+      (const void*)fused_cg_dia_lazy_kernel<true, false>,
+      (const void*)fused_cg_dia_lazy_kernel<false, true>,
+      (const void*)fused_cg_dia_lazy_kernel<true, true>};
+  return fns[(tail ? 1 : 0) + (precond ? 2 : 0) + (lazy ? 4 : 0)];
 }
 
 }  // namespace
 
 // Largest co-resident grid for the cooperative launch on ``device`` of
-// the tail-free instance (``tail`` 0) or the split-tail one: SMs x
-// resident blocks per SM.  The tail instance needs more registers, so
-// each instance gets its own grid.  Returns a cudaError_t.
-extern "C" int abft_fused_grid(int device, int tail, int* grid) {
+// the instance (``tail``, ``precond``, ``lazy``): SMs x resident blocks
+// per SM.  The instances need different register counts (the tail-free
+// live one fits 8 blocks per SM, the tail one 6), so each instance gets
+// its own grid.  Returns a cudaError_t.
+extern "C" int abft_fused_grid(int device, int tail, int precond, int lazy,
+                               int* grid) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int coop = 0, sms = 0, per_sm = 0;
@@ -204,10 +304,7 @@ extern "C" int abft_fused_grid(int device, int tail, int* grid) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm,
-      tail ? (const void*)fused_cg_dia_kernel<true>
-           : (const void*)fused_cg_dia_kernel<false>,
-      kBlock, 0);
+      &per_sm, instance(tail, precond, lazy), kBlock, 0);
   if (err != cudaSuccess) return (int)err;
   *grid = sms * per_sm;
   return *grid > 0 ? (int)cudaSuccess : (int)cudaErrorLaunchOutOfResources;
@@ -221,15 +318,21 @@ extern "C" int abft_fused_cg_dia(
     int* iscal_out, float* fscal_out, float* trace, int trace_len,
     float conv, const float* td, const float* tb, const int* trows,
     const int* tstarts, int T, int S, float* tpart, const uint32_t* tplane,
-    const uint32_t* tbase, int E, int device, void* stream) {
-  if (D < 1 || D > ABFT_MAX_D || R % 32 != 0 || grid < 1)
+    const uint32_t* tbase, int E, const float* minv, float* part_rz,
+    float* xs, float* rs, float* ps, int ci, int* snap_iout,
+    float* snap_fout, int device, void* stream) {
+  const bool precond = minv != nullptr, lazy = ci > 1;
+  if (D < 1 || D > ABFT_MAX_D || R % 32 != 0 || grid < 1 || ci < 1 ||
+      (precond && part_rz == nullptr) ||
+      (lazy && (xs == nullptr || rs == nullptr || ps == nullptr ||
+                snap_iout == nullptr || snap_fout == nullptr)))
     return (int)cudaErrorInvalidValue;
   TailPlan t;
   if (!make_tail_plan(&t, td, tb, trows, tstarts, T, S, tpart, tplane,
                       tbase, use_parity, use_cksum, E))
     return (int)cudaErrorInvalidValue;
   int max_grid = 0;
-  int rc = abft_fused_grid(device, T > 0, &max_grid);
+  int rc = abft_fused_grid(device, T > 0, precond, lazy, &max_grid);
   if (rc != (int)cudaSuccess) return rc;
   if (grid > max_grid) return (int)cudaErrorCooperativeLaunchTooLarge;
   DiaOffsets offs;
@@ -253,11 +356,11 @@ extern "C" int abft_fused_cg_dia(
   a.trace = trace;
   a.trace_len = trace_len;
   a.conv = conv;
-  void* args[] = {&a, &offs, &t};
-  const void* fn = T ? (const void*)fused_cg_dia_kernel<true>
-                     : (const void*)fused_cg_dia_kernel<false>;
+  CgOpts o{minv, part_rz, xs, rs, ps, ci, snap_iout, snap_fout};
+  void* args[] = {&a, &offs, &t, &o};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3(grid), dim3(kBlock), args, 0, (cudaStream_t)stream);
+      instance(T > 0, precond, lazy), dim3(grid), dim3(kBlock), args, 0,
+      (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

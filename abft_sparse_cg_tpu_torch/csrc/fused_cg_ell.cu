@@ -19,7 +19,9 @@
 //   4. x += alpha p, r = r1, p = r1 + (rr1 / rz) p, trace[itr] = rr1;
 //      grid sync (the next product gathers p at arbitrary rows).
 // A bordered split whose main part is banded ELL runs the instances with
-// kernel B's split tail (kTail; dia_common.cuh TailPlan, fused_cg_dia.cu).
+// kernel B's split tail (kTail; dia_common.cuh TailPlan, fused_cg_dia.cu),
+// and the Jacobi and lazy instances are kernel B's (dia_common.cuh
+// CgOpts).
 //
 // What bounds it on the H100: bytes per iteration — the plane streams (K
 // values + K gather words + K signal words per row in the detecting
@@ -57,6 +59,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kBlock = 256;
+// The lazy instances are launched with their live counterpart's grid, so
+// that every reduction sums in the same order and a clean lazy solve
+// equals the live one bit for bit: they must fit as many blocks per SM as
+// the live instances do (8 at 256 threads, i.e. 32 registers).
+constexpr int kLazyBlocksPerSM = 8;
 
 struct EllPlanes {
   const float* vals;      // (K, R)
@@ -86,10 +93,14 @@ struct FusedArgs {
 };
 
 // kSignals: the detecting modes (a signal plane is streamed); mode none
-// runs the instance without the signal code.
-template <bool kSignals, bool kTail>
-__global__ void __launch_bounds__(kBlock)
-fused_cg_ell_kernel(FusedArgs a, EllPlanes m, TailPlan t) {
+// runs the instance without the signal code.  kPrecond, kLazy: the Jacobi
+// and lazy instances (dia_common.cuh CgOpts); lazy implies kSignals.  The
+// lazy instance's unchecked iterations run ell_row, its checked ones
+// ell_row_signals: both sum the slots in order, so w is the same bits.
+template <bool kSignals, bool kTail, bool kPrecond, bool kLazy>
+__device__ __forceinline__ void cg_loop(const FusedArgs& a,
+                                        const EllPlanes& m,
+                                        const TailPlan& t, const CgOpts& o) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float fbuf[33];
   __shared__ int ibuf[1];
@@ -101,25 +112,37 @@ fused_cg_ell_kernel(FusedArgs a, EllPlanes m, TailPlan t) {
   float rr = a.fscal_in[0];
   float rz = a.fscal_in[1];
   int trig = 0, err = 0;
+  // lazy: the entry state is verified and seeds the snapshot
+  int its = itr;
+  float rrs = rr, rzs = rz;
+  if constexpr (kLazy) {
+    for (int i = tid; i < R; i += stride) {
+      o.xs[i] = __ldcg(a.x + i);
+      o.rs[i] = __ldcg(a.r + i);
+      o.ps[i] = __ldcg(a.p + i);
+    }
+  }
 
   while (itr < upto && rr > a.conv) {
+    // lazy: only every ci-th iteration reads the signal planes
+    const bool chk = !kLazy || itr % o.ci == o.ci - 1;
     // 1. ELL product + pw + signals
     float pw_l = 0.0f;
     int bad = 0;
     for (int i = tid; i < R; i += stride) {
       const float wr =
-          kSignals ? ell_row_signals<true>(m.vals, m.gsrc, m.gmask,
-                                           m.ell_len, m.K, R, a.p, i, a.sig,
-                                           &bad)
-                   : ell_row<true>(m.vals, m.gsrc, m.gmask, m.ell_len, m.K,
-                                   R, a.p, i);
+          kSignals && chk
+              ? ell_row_signals<true>(m.vals, m.gsrc, m.gmask, m.ell_len,
+                                      m.K, R, a.p, i, a.sig, &bad)
+              : ell_row<true>(m.vals, m.gsrc, m.gmask, m.ell_len, m.K, R,
+                              a.p, i);
       a.w[i] = wr;
       if constexpr (!kTail)
         pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
     }
     if constexpr (kTail) {
       tail_dense_partials(t, a.p, fbuf);
-      bad |= tail_signals(t, tid, stride);
+      if (chk) bad |= tail_signals(t, tid, stride);
     }
     const float bpw = block_sum(pw_l, fbuf);
     const int bbad = block_any(bad, ibuf);
@@ -153,37 +176,77 @@ fused_cg_ell_kernel(FusedArgs a, EllPlanes m, TailPlan t) {
         break;
       }
     }
-    // 3. r1 = r - alpha w into the w buffer, rr1 partials
+    // 3. r1 = r - alpha w into the w buffer, rr1 (and rz1) partials
     const float alpha = __fdiv_rn(rz, pw);
-    float rr_l = 0.0f;
+    float rr_l = 0.0f, rz_l = 0.0f;
     for (int i = tid; i < R; i += stride) {
       const float r1 =
           __fsub_rn(__ldcg(a.r + i), __fmul_rn(alpha, __ldcg(a.w + i)));
       a.w[i] = r1;
       rr_l = __fadd_rn(rr_l, __fmul_rn(r1, r1));
+      if constexpr (kPrecond)
+        rz_l = __fadd_rn(rz_l, __fmul_rn(r1, __fmul_rn(__ldg(o.minv + i), r1)));
     }
     const float brr = block_sum(rr_l, fbuf);
     if (threadIdx.x == 0) a.part_rr[blockIdx.x] = brr;
+    if constexpr (kPrecond) {
+      const float brz = block_sum(rz_l, fbuf);
+      if (threadIdx.x == 0) o.part_rz[blockIdx.x] = brz;
+    }
     grid.sync();
     const float rr1 = grid_total(a.part_rr, fbuf);
+    float rz1 = rr1;
+    if constexpr (kPrecond) rz1 = grid_total(o.part_rz, fbuf);
     if (pw <= 0.0f || !isfinite(rr1)) {
       err = ABFT_ERR_BREAKDOWN;
       break;
     }
     // 4. the update (each thread touches only its own rows)
-    const float beta = __fdiv_rn(rr1, rz);
+    const float beta = __fdiv_rn(rz1, rz);
     for (int i = tid; i < R; i += stride) {
       const float pv = __ldcg(a.p + i);
       const float r1 = __ldcg(a.w + i);
-      a.x[i] = __fadd_rn(__ldcg(a.x + i), __fmul_rn(alpha, pv));
+      const float xn = __fadd_rn(__ldcg(a.x + i), __fmul_rn(alpha, pv));
+      float z1 = r1;
+      if constexpr (kPrecond) z1 = __fmul_rn(__ldg(o.minv + i), r1);
+      const float pn = __fadd_rn(z1, __fmul_rn(beta, pv));
+      a.x[i] = xn;
       a.r[i] = r1;
-      a.p[i] = __fadd_rn(r1, __fmul_rn(beta, pv));
+      a.p[i] = pn;
+      if constexpr (kLazy) {
+        if (chk) {  // a checked iteration that stood: verified state
+          o.xs[i] = xn;
+          o.rs[i] = r1;
+          o.ps[i] = pn;
+        }
+      }
     }
     if (tid == 0 && itr < a.trace_len) a.trace[itr] = rr1;
     itr += 1;
     rr = rr1;
-    rz = rr1;
+    rz = rz1;
+    if constexpr (kLazy) {
+      if (chk) {
+        its = itr;
+        rrs = rr1;
+        rzs = rz1;
+      }
+    }
     grid.sync();
+  }
+  if constexpr (kLazy) {
+    // A clean exit mid-window: one signals-only pass over the (K, R)
+    // plane (and the tail's) closes the window (fused.py:1101-1155).
+    if (its != itr && trig == 0 && err == 0) {
+      int bad = 0;
+      for (int i = tid; i < R; i += stride)
+        bad |= dia_row_signals(a.sig, m.K, R, i);
+      if constexpr (kTail) bad |= tail_signals(t, tid, stride);
+      const int bbad = block_any(bad, ibuf);
+      if (threadIdx.x == 0) a.part_flag[blockIdx.x] = bbad;
+      grid.sync();
+      trig = grid_any(a.part_flag, ibuf);
+    }
   }
   if (tid == 0) {
     a.iscal_out[0] = itr;
@@ -191,15 +254,59 @@ fused_cg_ell_kernel(FusedArgs a, EllPlanes m, TailPlan t) {
     a.iscal_out[2] = err;
     a.fscal_out[0] = rr;
     a.fscal_out[1] = rz;
+    if constexpr (kLazy) {
+      o.snap_iout[0] = its;
+      o.snap_fout[0] = rrs;
+      o.snap_fout[1] = rzs;
+    }
   }
+}
+
+// Each __global__ below inlines the loop with its own launch bounds.
+template <bool kSignals, bool kTail, bool kPrecond>
+__global__ void __launch_bounds__(kBlock)
+fused_cg_ell_kernel(FusedArgs a, EllPlanes m, TailPlan t, CgOpts o) {
+  cg_loop<kSignals, kTail, kPrecond, false>(a, m, t, o);
+}
+
+template <bool kTail, bool kPrecond>
+__global__ void __launch_bounds__(kBlock, kLazyBlocksPerSM)
+fused_cg_ell_lazy_kernel(FusedArgs a, EllPlanes m, TailPlan t, CgOpts o) {
+  cg_loop<true, kTail, kPrecond, true>(a, m, t, o);
+}
+
+// The instance of (signals, tail, Jacobi, lazy); null for lazy without
+// signals (mode none has no lazy schedule).
+const void* instance(bool signals, bool tail, bool precond, bool lazy) {
+  if (lazy) {
+    if (!signals) return nullptr;
+    const void* fns[4] = {
+        (const void*)fused_cg_ell_lazy_kernel<false, false>,
+        (const void*)fused_cg_ell_lazy_kernel<true, false>,
+        (const void*)fused_cg_ell_lazy_kernel<false, true>,
+        (const void*)fused_cg_ell_lazy_kernel<true, true>};
+    return fns[(tail ? 1 : 0) + (precond ? 2 : 0)];
+  }
+  const void* fns[8] = {
+      (const void*)fused_cg_ell_kernel<false, false, false>,
+      (const void*)fused_cg_ell_kernel<false, true, false>,
+      (const void*)fused_cg_ell_kernel<false, false, true>,
+      (const void*)fused_cg_ell_kernel<false, true, true>,
+      (const void*)fused_cg_ell_kernel<true, false, false>,
+      (const void*)fused_cg_ell_kernel<true, true, false>,
+      (const void*)fused_cg_ell_kernel<true, false, true>,
+      (const void*)fused_cg_ell_kernel<true, true, true>};
+  return fns[(tail ? 1 : 0) + (precond ? 2 : 0) + (signals ? 4 : 0)];
 }
 
 }  // namespace
 
 // Largest co-resident grid for the cooperative launch on ``device``:
-// SMs x resident blocks per SM, for both signal instances of the tail-free
-// kernel (``tail`` 0) or of the split-tail one.  Returns a cudaError_t.
-extern "C" int abft_fused_ell_grid(int device, int tail, int* grid) {
+// SMs x resident blocks per SM, for both signal instances of (``tail``,
+// ``precond``) live, or for the lazy instance (signals only).  Returns a
+// cudaError_t.
+extern "C" int abft_fused_ell_grid(int device, int tail, int precond,
+                                   int lazy, int* grid) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int coop = 0, sms = 0, per_sm = 0;
@@ -208,13 +315,11 @@ extern "C" int abft_fused_ell_grid(int device, int tail, int* grid) {
   if (!coop) return (int)cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  const void* fns[] = {
-      tail ? (const void*)fused_cg_ell_kernel<true, true>
-           : (const void*)fused_cg_ell_kernel<true, false>,
-      tail ? (const void*)fused_cg_ell_kernel<false, true>
-           : (const void*)fused_cg_ell_kernel<false, false>};
+  const void* fns[] = {instance(true, tail, precond, lazy),
+                       instance(false, tail, precond, lazy)};
   per_sm = 1 << 30;
   for (const void* fn : fns) {
+    if (fn == nullptr) continue;
     int n = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kBlock, 0);
     if (err != cudaSuccess) return (int)err;
@@ -233,15 +338,22 @@ extern "C" int abft_fused_cg_ell(
     float* fscal_out, float* trace, int trace_len, float conv,
     const float* td, const float* tb, const int* trows, const int* tstarts,
     int T, int S, float* tpart, const uint32_t* tplane,
-    const uint32_t* tbase, int E, int device, void* stream) {
-  if (K < 1 || K > ABFT_MAX_K || R % 32 != 0 || grid < 1)
+    const uint32_t* tbase, int E, const float* minv, float* part_rz,
+    float* xs, float* rs, float* ps, int ci, int* snap_iout,
+    float* snap_fout, int device, void* stream) {
+  const bool precond = minv != nullptr, lazy = ci > 1;
+  if (K < 1 || K > ABFT_MAX_K || R % 32 != 0 || grid < 1 || ci < 1 ||
+      (precond && part_rz == nullptr) ||
+      (lazy && (plane == nullptr || xs == nullptr || rs == nullptr ||
+                ps == nullptr || snap_iout == nullptr ||
+                snap_fout == nullptr)))
     return (int)cudaErrorInvalidValue;
   TailPlan t;
   if (!make_tail_plan(&t, td, tb, trows, tstarts, T, S, tpart, tplane,
                       tbase, use_parity, use_cksum, E))
     return (int)cudaErrorInvalidValue;
   int max_grid = 0;
-  int rc = abft_fused_ell_grid(device, T > 0, &max_grid);
+  int rc = abft_fused_ell_grid(device, T > 0, precond, lazy, &max_grid);
   if (rc != (int)cudaSuccess) return rc;
   if (grid > max_grid) return (int)cudaErrorCooperativeLaunchTooLarge;
   EllPlanes m{vals, gsrc, ell_len, gmask, K};
@@ -262,15 +374,11 @@ extern "C" int abft_fused_cg_ell(
   a.trace = trace;
   a.trace_len = trace_len;
   a.conv = conv;
-  void* args[] = {&a, &m, &t};
-  const void* fn =
-      plane != nullptr
-          ? (T ? (const void*)fused_cg_ell_kernel<true, true>
-               : (const void*)fused_cg_ell_kernel<true, false>)
-          : (T ? (const void*)fused_cg_ell_kernel<false, true>
-               : (const void*)fused_cg_ell_kernel<false, false>);
+  CgOpts o{minv, part_rz, xs, rs, ps, ci, snap_iout, snap_fout};
+  void* args[] = {&a, &m, &t, &o};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3(grid), dim3(kBlock), args, 0, (cudaStream_t)stream);
+      instance(plane != nullptr, T > 0, precond, lazy), dim3(grid),
+      dim3(kBlock), args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

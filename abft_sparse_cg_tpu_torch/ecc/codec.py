@@ -45,6 +45,7 @@ __all__ = [
     "syndrome",
     "decode_flipped_bit",
     "check_and_correct",
+    "check_and_correct_np",
     "encode",
     "flip_bits",
 ]
@@ -193,6 +194,71 @@ def check_and_correct(mode: str, words: Sequence[torch.Tensor],
         double = ~par & has_syn
         flags = dict(flags, double=double, detected=double)
     return corrected, flags
+
+
+def check_and_correct_np(mode: str, words, layout: CodewordLayout):
+    """``check_and_correct`` on uint32 NumPy planes, for the host paths
+    (the Jacobi diagonal, the refinement residual): the JAX codec's
+    NumPy path (codec.py:216), with the syndrome decoded only where a
+    parity or syndrome fired.  Returns uint32 planes and NumPy flags
+    (``corrected_bit`` uint32)."""
+    words = [np.asarray(w, dtype=np.uint32) for w in words]
+    zeros_b = np.zeros(words[0].shape, dtype=bool)
+    flags = {"detected": zeros_b, "corrected": zeros_b,
+             "corrected_bit": np.zeros(words[0].shape, dtype=np.uint32),
+             "double": zeros_b}
+    if mode in ("none", "constraints"):
+        return list(words), flags
+    if mode == "sed":
+        return list(words), dict(flags,
+                                 detected=_np_overall_parity(words) != 0)
+    if mode not in ("sec7", "sec8", "secded"):
+        raise ValueError(f"unknown ABFT mode: {mode!r}")
+    syn = _np_syndrome(words, layout)
+    has_syn = syn != 0
+    if mode == "sec7":
+        fix, fix_data = has_syn, has_syn
+    else:
+        fix = _np_overall_parity(words) != 0
+        fix_data = fix & has_syn
+    bit = np.zeros(words[0].shape, dtype=np.uint32)
+    # parity fail, no syndrome: the overall-parity bit itself flipped
+    bit[fix & ~has_syn] = layout.col_word * 32 + OVERALL_PARITY_BIT
+    where = np.flatnonzero(fix_data)
+    bit.reshape(-1)[where] = _np_decode(syn.reshape(-1)[where], layout)
+    out = list(words)
+    for k in np.flatnonzero(fix):
+        b = int(bit.reshape(-1)[k])
+        w, shift = divmod(b, 32)
+        if w < layout.num_words:
+            if out[w] is words[w]:
+                out[w] = words[w].copy()
+            out[w].reshape(-1)[k] ^= np.uint32(1 << shift)
+    flags = dict(flags, corrected=fix, corrected_bit=bit)
+    if mode == "secded":
+        double = ~fix & has_syn
+        flags = dict(flags, double=double, detected=double)
+    return out, flags
+
+
+def _np_decode(syn: np.ndarray, layout: CodewordLayout) -> np.ndarray:
+    """``decode_flipped_bit`` on uint32 NumPy syndromes."""
+    syn = syn.astype(np.int64)
+    x = np.zeros_like(syn)
+    for p in range(1, NUM_PARITY_BITS + 1):
+        x |= ((syn >> (32 - p)) & 1) << (p - 1)
+    blen = np.zeros_like(x)
+    v = x.copy()
+    for _ in range(8):
+        blen = np.where(v > 0, blen + 1, blen)
+        v >>= 1
+    is_pow2 = (x != 0) & ((x & (x - 1)) == 0)
+    data_bit = (x - blen - 1) & MASK32
+    data_bit = np.where(data_bit >= layout.parity_region_start,
+                        data_bit + 8, data_bit)
+    parity_bit = (layout.col_word * 32 + 31 - (blen - 1)) & MASK32
+    return (np.where(is_pow2, parity_bit, data_bit) & MASK32).astype(
+        np.uint32)
 
 
 # --------------------------------------------------------------------------

@@ -23,8 +23,7 @@ formats.py).  Where the JAX build asks whether its Benes-route plan for
 a flat matrix attaches, this one evaluates the same envelope arithmetic
 (ops.spmv_unstructured) and records the answer in ``unstr_attached``;
 the port's flat kernel needs no routing plan.  Not copied: ``row_align``
-(mesh-aligned padding, for the multi-device tiers) and ``diagonal()``
-(the Jacobi preconditioner); neither is ported yet.
+(mesh-aligned padding, for the multi-device tiers), not ported yet.
 """
 
 from __future__ import annotations
@@ -139,6 +138,31 @@ class ProtectedMatrix:
     def words_list(self):
         """Flat planes as a list in codeword-word order."""
         return [self.planes[n] for n in self.layout.word_names]
+
+    def diagonal(self) -> np.ndarray:
+        """(N,) main-diagonal values from the canonical planes, for the
+        Jacobi preconditioner (protected.py:162): ECC correction first,
+        so a correctable fault on the diagonal gives the preconditioner
+        of the corrected matrix."""
+        from ..ecc.layout import ECC_COL_MASK
+        from ..ecc.values import planes_to_f64_np
+
+        words, _ = codec.check_and_correct_np(self.mode, self.words_list(),
+                                              self.layout)
+        planes = dict(zip(self.layout.word_names, words))
+        cols = planes["col"]
+        if self.mode in codec.ECC_MODES:
+            cols = cols & ECC_COL_MASK
+        cols = cols.astype(np.int64)
+        if self.fmt == "csr":
+            rows = np.repeat(np.arange(self.N), np.diff(self.row_ptr))
+        else:
+            rows = planes["row"].astype(np.int64)
+        vals = planes_to_f64_np(planes["value_lo"], planes["value_hi"])
+        d = np.zeros(self.N)
+        sel = rows == cols
+        d[rows[sel]] = vals[sel]
+        return d
 
     def with_planes(self, planes: Dict[str, np.ndarray]) -> "ProtectedMatrix":
         """Return a copy with new flat planes and a re-derived exec layout.

@@ -125,6 +125,10 @@ class CompositeMatrix:
     def words_list(self):
         return [self.planes[n] for n in self.layout.word_names]
 
+    def diagonal(self) -> np.ndarray:
+        # The diagonal belongs to whichever part holds it; sum covers both.
+        return self.main.diagonal() + self.tail.diagonal()
+
     def slot_to_canonical(self) -> np.ndarray:
         """Composite exec slot -> GLOBAL canonical element index (tail
         slots are offset by the main part's exec size)."""

@@ -9,7 +9,10 @@ trigger, in one launch (csrc/dia_spmv_detect.cu, csrc/ell_spmv_detect.cu,
 csrc/flat_spmv_detect.cu).  ``dia_fast_plain``, ``ell_fast_plain`` and
 ``flat_fast_plain`` beside them are the same functions in plain
 PyTorch: the CPU tests run them, and chip_smoke.py holds each kernel
-against its plain version on the card.
+against its plain version on the card.  ``make_cuda_product`` is the
+detection-free product of the lazy ``--check-interval`` schedule's
+unchecked iterations (spmv_pallas.py:202-235): the same kernels with no
+signal plane, the gather masking of the true mode kept.
 
 The wrapper launches the kernel for CUDA tensors and raises on anything
 it cannot take; it takes the plain version only for tensors on the CPU.
@@ -50,7 +53,8 @@ from .spmv import (
 __all__ = ["DiaSpec", "dia_spec", "dia_fast", "dia_fast_plain",
            "EllSpec", "ell_spec", "ell_fast", "ell_fast_plain",
            "FlatSpec", "flat_spec", "flat_fast", "flat_fast_plain",
-           "make_cuda_spmv", "stream_words", "use_fold"]
+           "make_cuda_spmv", "make_cuda_product", "product_spec",
+           "stream_words", "use_fold"]
 
 
 def stream_words(mode, layout, fmt) -> tuple:
@@ -83,12 +87,14 @@ class DiaSpec(NamedTuple):
     """Static description of one DIA product with signals.
 
     ``plane``: None (no signals), "fold" (ECC modes) or the index of the
-    one word plane scanned (constraints: the col word)."""
+    one word plane scanned (constraints: the col word).  ``detect`` is
+    False for the detection-free product (``product_spec``)."""
 
     offsets: tuple
     use_parity: bool
     use_cksum: bool
     plane: object
+    detect: bool = True
 
 
 def _signal_plane(mode, mat):
@@ -127,6 +133,7 @@ class EllSpec(NamedTuple):
     plane: object
     gather: object
     mask_ecc: bool
+    detect: bool = True
 
 
 def _gather_source(mat, mode) -> dict:
@@ -157,6 +164,7 @@ class FlatSpec(NamedTuple):
     plane: object
     gather: object
     mask_ecc: bool
+    detect: bool = True
 
 
 def flat_spec(mat, mode) -> FlatSpec:
@@ -174,6 +182,14 @@ def fast_spec(mat, mode):
     if mat.exec_kind == "flat":
         return flat_spec(mat, mode)
     raise ValueError(f"fast_spec: a {mat.exec_kind!r} matrix")
+
+
+def product_spec(mat, mode):
+    """``fast_spec`` without signals (``_mode_signals(detect=False)``,
+    spmv_pallas.py:313): no plane streamed, the gather source and ECC
+    masking of the true mode kept."""
+    return fast_spec(mat, mode)._replace(use_parity=False, use_cksum=False,
+                                         plane=None, detect=False)
 
 
 def _signal_planes(md: MatrixDevice, spec):
@@ -285,10 +301,13 @@ def dia_fast(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec):
     del offs
     check(rc, "dia_spmv_detect launch")
     dia_fast.launches += 1
+    if not spec.detect:
+        dia_fast.product_launches += 1
     return w, trig[0] != 0, torch.sum(pw_part)
 
 
 dia_fast.launches = 0
+dia_fast.product_launches = 0   # the detection-free product's share
 
 
 def ell_gather_plane(md: MatrixDevice, spec) -> torch.Tensor:
@@ -330,10 +349,13 @@ def ell_fast(md: MatrixDevice, x: torch.Tensor, spec: EllSpec):
         stream)
     check(rc, "ell_spmv_detect launch")
     ell_fast.launches += 1
+    if not spec.detect:
+        ell_fast.product_launches += 1
     return w, trig[0] != 0, torch.sum(pw_part)
 
 
 ell_fast.launches = 0
+ell_fast.product_launches = 0   # the detection-free product's share
 
 
 def flat_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: FlatSpec):
@@ -392,10 +414,13 @@ def flat_fast(md: MatrixDevice, x: torch.Tensor, spec: FlatSpec):
         stream)
     check(rc, "flat_spmv_detect launch")
     flat_fast.launches += 1
+    if not spec.detect:
+        flat_fast.product_launches += 1
     return w, trig[0] != 0, torch.sum(pw_part)
 
 
 flat_fast.launches = 0
+flat_fast.product_launches = 0   # the detection-free product's share
 
 _KERNELS = {DiaSpec: dia_fast, EllSpec: ell_fast, FlatSpec: flat_fast}
 
@@ -423,6 +448,34 @@ def make_cuda_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
         return w, trig
 
     return _wrap_mode(mat, dtype, mode, fast, fast_pw)
+
+
+def make_cuda_product(mat, dtype=torch.float32, mode: str = None
+                      ) -> SpmvImpl:
+    """The detection-free product of the lazy ``--check-interval``
+    schedule's unchecked iterations (make_pallas_product, spmv_pallas.py:
+    202-235): kernel A, C or E under ``product_spec``, the same
+    arithmetic as the checked kernel and a constant-False trigger.  A
+    split combines its parts' products.  Divergence: the JAX function
+    keeps a split tail's checked impl, whose trigger only detects early;
+    the unchecked iterations here read no trigger, so the tail runs its
+    product too (the rollback lands on the same snapshot)."""
+    mode = mat.mode if mode is None else mode
+    if mat.exec_kind == "split":
+        return combine_impls(make_cuda_product(mat.main, dtype, mode),
+                             make_cuda_product(mat.tail, dtype, mode),
+                             mat.main.exec_size)
+    spec = product_spec(mat, mode)
+    kernel = _KERNELS[type(spec)]
+
+    def fast_pw(md, x):
+        return kernel(md, x, spec)
+
+    def fast(md, x):
+        w, trig, _ = kernel(md, x, spec)
+        return w, trig
+
+    return SpmvImpl(full=None, fast=fast, fast_pw=fast_pw)
 
 
 def _wrap_mode(mat, dtype, mode, fast, fast_pw):

@@ -3,15 +3,21 @@
 
 Counterpart of ``abft_sparse_cg_tpu.solver.fused`` for the DIA and
 banded-ELL layouts and for bordered splits of either with a dense-plan
-tail (``_plan_split``, fused.py:381-436), unpreconditioned, live
-detection (check interval 1), every mode.  The fast loop runs inside one
-persistent cooperative CUDA kernel (csrc/fused_cg_dia.cu,
-csrc/fused_cg_ell.cu) that exits on convergence, ``upto``, a trigger or
-a breakdown; a split runs the kernels' instance with the split tail
-(span-window dense rows, mirrored AXPYs and the tail's live signals,
-csrc/dia_common.cuh).  The rare classify/repair stays the plain ops.spmv
-path in the outer loop, with the reference's livelock guard
-(fused.py:2120-2148).
+tail (``_plan_split``, fused.py:381-436), every mode, unpreconditioned
+or Jacobi (``precond``), live or lazy detection (``check_interval``).
+The fast loop runs inside one persistent cooperative CUDA kernel
+(csrc/fused_cg_dia.cu, csrc/fused_cg_ell.cu) that exits on convergence,
+``upto``, a trigger or a breakdown; a split runs the kernels' instance
+with the split tail (span-window dense rows, mirrored AXPYs and the
+tail's live signals, csrc/dia_common.cuh).  The Jacobi instances keep
+M^-1 as one more vector; the lazy ones read the signal planes every
+CI-th iteration, keep a verified snapshot and close the exit window
+in-kernel (dia_common.cuh CgOpts).  One kernel family covers what the
+TPU splits into a resident and a streaming kernel (fused.py:1263): the
+H100 has no resident-vector envelope.  The rare classify/repair stays
+the plain ops.spmv path in the outer loop, with the reference's
+livelock guard (fused.py:2120-2148) and, under the lazy schedule,
+solver.cg's rollback resolution (fused.py:2150-2164).
 
 ``fused_cg_dia`` / ``fused_cg_ell`` launch their kernel for CUDA tensors
 and run ``fused_cg_dia_plain`` / ``fused_cg_ell_plain`` — a Python loop
@@ -44,29 +50,32 @@ from ..ops.spmv_cuda import (
     signals_plain,
 )
 from .cg import (
-    CGResult,
     CGState,
     _baseline_changed,
+    _lazy_exit_resolve,
     _phantom_guard,
-    init_state,
+    _solver,
 )
 
 __all__ = ["supports_fused", "make_fused_continue", "make_fused_solver",
            "fused_cg_dia", "fused_cg_dia_plain", "fused_cg_ell",
-           "fused_cg_ell_plain", "TailSpec", "tail_spec", "split_tail_plain"]
+           "fused_cg_ell_plain", "TailSpec", "tail_spec", "split_tail_plain",
+           "Snapshot", "FusedOut"]
 
 _MAX_K = 512        # csrc/dia_common.cuh ABFT_MAX_K
 _MAX_T = 64         # csrc/dia_common.cuh ABFT_MAX_T
 _TAIL_CHUNK = 2048  # csrc/dia_common.cuh ABFT_TAIL_CHUNK
 
 
-def supports_fused(mat, dtype) -> bool:
+def supports_fused(mat, dtype, precond=False, check_interval=1) -> bool:
     """The envelope of kernels B and D: a DIA matrix, an ELL matrix of at
     most 512 slots per row, or a bordered split of either whose flat
     tail has a dense plan with 128-aligned spans (fused.py:381-401);
     float32.  Flat matrices and band splits (no dense plan) take the
-    per-iteration tier, as on the TPU.  (Every solve of the port is
-    unpreconditioned with live detection.)"""
+    per-iteration tier, as on the TPU.  ``precond`` and
+    ``check_interval`` narrow nothing: every instance holds its vectors
+    in device memory, where the TPU's budget of resident vectors
+    (fused.py:257-277) has no counterpart."""
     if dtype != torch.float32 or mat.R % 32:
         return False
     if mat.exec_kind == "split":
@@ -76,7 +85,7 @@ def supports_fused(mat, dtype) -> bool:
         rows, starts, S = tp
         if S % 128 or any(st % 128 for st in starts) or len(rows) > _MAX_T:
             return False
-        return supports_fused(mat.main, dtype)
+        return supports_fused(mat.main, dtype, precond, check_interval)
     if mat.exec_kind == "dia":
         return len(mat.dia_offsets) > 0
     return mat.exec_kind == "ell" and mat.K <= _MAX_K
@@ -117,21 +126,69 @@ def split_tail_plain(mdt, ts: TailSpec, p, w):
     return w, signals_plain(mdt, ts), torch.sum(p * w)
 
 
+class Snapshot(NamedTuple):
+    """The lazy instances' last verified state: itr, x, r, p, rr, rz."""
+
+    itr: int
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rr: torch.Tensor
+    rz: torch.Tensor
+
+
+class FusedOut(NamedTuple):
+    """What kernels B and D return: ints for itr/trig/err, 0-d tensors
+    for rr/rz, and the Snapshot of a lazy run (None when live)."""
+
+    itr: int
+    rr: torch.Tensor
+    rz: torch.Tensor
+    trig: int
+    err: int
+    snap: object = None
+
+
+def _lazy_ci(spec, ci: int) -> int:
+    """The check interval a launch runs: mode none has no signals, so a
+    lazy request runs live (fused.py:257)."""
+    ci = int(ci)
+    if ci < 1:
+        raise ValueError(f"check interval {ci} < 1")
+    return ci if spec.plane is not None else 1
+
+
 def _cg_loop_plain(fast_plain, md, spec, x, r, p, rr, rz, itr, upto, conv,
-                   trace, tail=None):
+                   trace, tail=None, minv=None, ci=1):
     """The fused kernels' loop in plain PyTorch around one product (and
-    ``tail`` = (tail MatrixDevice, TailSpec) of a split)."""
+    ``tail`` = (tail MatrixDevice, TailSpec) of a split), with the Jacobi
+    recurrences when ``minv`` is given and the lazy schedule when ``ci``
+    > 1 (the same snapshot and exit-window close as the kernels)."""
+    ci = _lazy_ci(spec, ci)
+    lazy = ci > 1
     conv_t = torch.tensor(conv, dtype=rr.dtype, device=rr.device)
     trig = err = 0
+    snap = (Snapshot(itr, x.clone(), r.clone(), p.clone(), rr, rz)
+            if lazy else None)
+
+    def signals(t_main, t_tail):
+        return bool(t_main) or (tail is not None and bool(t_tail))
+
     while itr < upto and bool(rr > conv_t):
+        chk = not lazy or itr % ci == ci - 1
         w, t, pw = fast_plain(md, p, spec)
+        tt = None
         if tail is not None:
             w, tt, pw = split_tail_plain(tail[0], tail[1], p, w)
-            t = t | tt
         alpha = rz / pw
         r1 = r - alpha * w
         rr1 = torch.sum(r1 * r1)
-        if bool(t):
+        if minv is None:
+            z1, rz1 = r1, rr1
+        else:
+            z1 = minv * r1
+            rz1 = torch.sum(r1 * z1)
+        if chk and signals(t, tt):
             trig = 1
             break
         if bool(pw <= 0) or not bool(torch.isfinite(rr1)):
@@ -139,25 +196,33 @@ def _cg_loop_plain(fast_plain, md, spec, x, r, p, rr, rz, itr, upto, conv,
             break
         x.copy_(x + alpha * p)
         r.copy_(r1)
-        p.copy_(r1 + (rr1 / rz) * p)
+        p.copy_(z1 + (rz1 / rz) * p)
         if itr < trace.shape[0]:
             trace[itr] = rr1
-        itr, rr, rz = itr + 1, rr1, rr1
-    return itr, rr, rz, trig, err
+        itr, rr, rz = itr + 1, rr1, rz1
+        if lazy and chk:
+            snap = Snapshot(itr, x.clone(), r.clone(), p.clone(), rr, rz)
+    if lazy and snap.itr != itr and not trig and not err:
+        # the exit-window close: one signals-only pass
+        tt = signals_plain(tail[0], tail[1]) if tail is not None else None
+        trig = int(signals(signals_plain(md, spec), tt))
+    return FusedOut(itr, rr, rz, trig, err, snap)
 
 
 def fused_cg_dia_plain(md, spec: DiaSpec, x, r, p, rr, rz, itr: int,
-                       upto: int, conv: float, trace, tail=None):
-    """Plain version of kernel B.  Returns (itr, rr, rz, trig, err)."""
+                       upto: int, conv: float, trace, tail=None, minv=None,
+                       ci: int = 1) -> "FusedOut":
+    """Plain version of kernel B."""
     return _cg_loop_plain(dia_fast_plain, md, spec, x, r, p, rr, rz, itr,
-                          upto, conv, trace, tail)
+                          upto, conv, trace, tail, minv, ci)
 
 
 def fused_cg_ell_plain(md, spec: EllSpec, x, r, p, rr, rz, itr: int,
-                       upto: int, conv: float, trace, tail=None):
-    """Plain version of kernel D.  Returns (itr, rr, rz, trig, err)."""
+                       upto: int, conv: float, trace, tail=None, minv=None,
+                       ci: int = 1) -> "FusedOut":
+    """Plain version of kernel D."""
     return _cg_loop_plain(ell_fast_plain, md, spec, x, r, p, rr, rz, itr,
-                          upto, conv, trace, tail)
+                          upto, conv, trace, tail, minv, ci)
 
 
 def _tail_args(what, tail, R, device):
@@ -192,8 +257,29 @@ def _tail_args(what, tail, R, device):
                 keep=(rows, starts, part))
 
 
+def _opts_args(what, minv, ci, grid, x, r, p):
+    """The Jacobi and lazy arguments of the C interface (null when
+    unused): M^-1 and the rz partials, the snapshot buffers and outputs
+    and the check interval."""
+    f32 = dict(dtype=torch.float32, device=p.device)
+    keep = {}
+    if minv is not None:
+        _check_tensor(what, "minv", minv, torch.float32, tuple(p.shape),
+                      p.device)
+        keep["part_rz"] = torch.empty(grid, **f32)
+    if ci > 1:
+        keep.update(xs=torch.empty_like(x), rs=torch.empty_like(r),
+                    ps=torch.empty_like(p),
+                    its=torch.empty(1, dtype=torch.int32, device=p.device),
+                    fs=torch.empty(2, **f32))
+    ptrs = (_ptr(minv), _ptr(keep.get("part_rz")), _ptr(keep.get("xs")),
+            _ptr(keep.get("rs")), _ptr(keep.get("ps")), ci,
+            _ptr(keep.get("its")), _ptr(keep.get("fs")))
+    return dict(ptrs=ptrs, keep=keep)
+
+
 def _launch_args(what, md, spec, x, r, p, rr, rz, itr, upto, trace,
-                 tail=None):
+                 tail=None, minv=None, ci=1):
     """Validated tensors and the scratch one cooperative launch needs."""
     D, R, plane, base, gsrc = _check_cuda_args(md, p, spec, what)
     for name, t in (("x", x), ("r", r), ("p", p), ("trace", trace)):
@@ -204,8 +290,15 @@ def _launch_args(what, md, spec, x, r, p, rr, rz, itr, upto, trace,
     if x.shape[0] != R or r.shape[0] != R:
         raise ValueError(f"{what}: x, r, p must have R rows")
     dev = p.device.index if p.device.index is not None else 0
-    grid = fused_grid(dev, "ell" if isinstance(spec, EllSpec) else "dia",
-                      tail is not None)
+    layout = "ell" if isinstance(spec, EllSpec) else "dia"
+    # A lazy instance runs on its live counterpart's grid: the same
+    # partition of the rows, so the same reduction order and, on a clean
+    # solve, the live instance's x bit for bit.
+    grid = fused_grid(dev, layout, tail is not None, minv is not None)
+    if ci > 1 and fused_grid(dev, layout, tail is not None,
+                             minv is not None, True) < grid:
+        raise RuntimeError(f"{what}: the lazy instance does not fit the "
+                           f"live instance's grid of {grid} blocks")
     f32 = dict(dtype=torch.float32, device=p.device)
     i32 = dict(dtype=torch.int32, device=p.device)
     return dict(
@@ -217,29 +310,55 @@ def _launch_args(what, md, spec, x, r, p, rr, rz, itr, upto, trace,
         fscal_in=torch.stack([rr.to(torch.float32), rz.to(torch.float32)]),
         iscal_out=torch.empty(3, **i32), fscal_out=torch.empty(2, **f32),
         stream=torch.cuda.current_stream(p.device).cuda_stream,
-        tail=_tail_args(what, tail, R, p.device))
+        tail=_tail_args(what, tail, R, p.device),
+        opts=_opts_args(what, minv, ci, grid, x, r, p))
 
 
 def _launch_result(a):
     itr_out, trig, err = (int(v) for v in a["iscal_out"].tolist())
-    return itr_out, a["fscal_out"][0], a["fscal_out"][1], trig, err
+    snap = None
+    o = a["opts"]["keep"]
+    if "xs" in o:
+        snap = Snapshot(int(o["its"][0]), o["xs"], o["rs"], o["ps"],
+                        o["fs"][0], o["fs"][1])
+    return FusedOut(itr_out, a["fscal_out"][0], a["fscal_out"][1], trig,
+                    err, snap)
+
+
+def _instance(tail, minv, ci) -> str:
+    """The name of a fused kernel's instance, for its launch counts."""
+    parts = (["split tail"] if tail is not None else []) + (
+        ["lazy"] if ci > 1 else []) + (["Jacobi"] if minv is not None
+                                       else [])
+    return " ".join(parts) or "live"
+
+
+def _count(kernel, tail, minv, ci):
+    kernel.launches += 1
+    if tail is not None:
+        kernel.tail_launches += 1
+    name = _instance(tail, minv, ci)
+    kernel.instances[name] = kernel.instances.get(name, 0) + 1
 
 
 def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
-                 conv: float, trace, tail=None):
+                 conv: float, trace, tail=None, minv=None,
+                 ci: int = 1) -> FusedOut:
     """Kernel B: run CG iterations ``itr .. upto`` in place on x, r, p.
 
     ``rr``/``rz`` are 0-d tensors, ``trace`` a float tensor whose slots
     [itr, itr_out) get the new residuals; ``tail`` = (tail MatrixDevice,
-    TailSpec) runs the split-tail instance.  Returns (itr, rr, rz, trig,
-    err) with ints for itr/trig/err and 0-d tensors for rr/rz."""
+    TailSpec) runs the split-tail instance, ``minv`` (the (R,) Jacobi
+    M^-1) the Jacobi one, ``ci`` > 1 the lazy one (in the modes with
+    signals), which returns its Snapshot."""
     if x.device.type == "cpu":
         return fused_cg_dia_plain(md, spec, x, r, p, rr, rz, itr, upto,
-                                  conv, trace, tail)
+                                  conv, trace, tail, minv, ci)
     from .._build import check, library
 
+    ci = _lazy_ci(spec, ci)
     a = _launch_args("fused_cg_dia", md, spec, x, r, p, rr, rz, itr, upto,
-                     trace, tail)
+                     trace, tail, minv, ci)
     offs, offs_ptr = _offsets_arg(spec.offsets)
     rc = library("fused_cg_dia").abft_fused_cg_dia(
         md.values.data_ptr(), offs_ptr, a["D"], a["R"], x.data_ptr(),
@@ -249,29 +368,31 @@ def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
         a["part_flag"].data_ptr(), a["grid"], a["iscal_in"].data_ptr(),
         a["fscal_in"].data_ptr(), a["iscal_out"].data_ptr(),
         a["fscal_out"].data_ptr(), trace.data_ptr(), trace.shape[0],
-        float(conv), *a["tail"]["ptrs"], a["dev"], a["stream"])
+        float(conv), *a["tail"]["ptrs"], *a["opts"]["ptrs"], a["dev"],
+        a["stream"])
     del offs
     check(rc, "fused_cg_dia cooperative launch")
-    fused_cg_dia.launches += 1
-    if tail is not None:
-        fused_cg_dia.tail_launches += 1
+    _count(fused_cg_dia, tail, minv, ci)
     return _launch_result(a)
 
 
 fused_cg_dia.launches = 0
-fused_cg_dia.tail_launches = 0   # the split-tail instance's share
+fused_cg_dia.tail_launches = 0   # the split-tail instances' share
+fused_cg_dia.instances = {}      # launches by instance (``_instance``)
 
 
 def fused_cg_ell(md, spec: EllSpec, x, r, p, rr, rz, itr: int, upto: int,
-                 conv: float, trace, tail=None):
+                 conv: float, trace, tail=None, minv=None,
+                 ci: int = 1) -> FusedOut:
     """Kernel D: kernel B's contract over a banded-ELL matrix."""
     if x.device.type == "cpu":
         return fused_cg_ell_plain(md, spec, x, r, p, rr, rz, itr, upto,
-                                  conv, trace, tail)
+                                  conv, trace, tail, minv, ci)
     from .._build import check, library
 
+    ci = _lazy_ci(spec, ci)
     a = _launch_args("fused_cg_ell", md, spec, x, r, p, rr, rz, itr, upto,
-                     trace, tail)
+                     trace, tail, minv, ci)
     rc = library("fused_cg_ell").abft_fused_cg_ell(
         md.values.data_ptr(), a["gsrc"].data_ptr(), gather_mask(spec),
         md.ell_len.data_ptr(), a["D"], a["R"], x.data_ptr(), r.data_ptr(),
@@ -281,63 +402,83 @@ def fused_cg_ell(md, spec: EllSpec, x, r, p, rr, rz, itr: int, upto: int,
         a["iscal_in"].data_ptr(), a["fscal_in"].data_ptr(),
         a["iscal_out"].data_ptr(), a["fscal_out"].data_ptr(),
         trace.data_ptr(), trace.shape[0], float(conv), *a["tail"]["ptrs"],
-        a["dev"], a["stream"])
+        *a["opts"]["ptrs"], a["dev"], a["stream"])
     check(rc, "fused_cg_ell cooperative launch")
-    fused_cg_ell.launches += 1
-    if tail is not None:
-        fused_cg_ell.tail_launches += 1
+    _count(fused_cg_ell, tail, minv, ci)
     return _launch_result(a)
 
 
 fused_cg_ell.launches = 0
 fused_cg_ell.tail_launches = 0
+fused_cg_ell.instances = {}
 
 _grids = {}
 
 
-def fused_grid(device_index: int, layout: str, tail: bool = False) -> int:
-    """Co-resident grid of kernel B ("dia") or D ("ell"), tail-free or
-    with the split tail, on a device (SMs x blocks per SM)."""
-    key = (device_index, layout, tail)
+def fused_grid(device_index: int, layout: str, tail: bool = False,
+               precond: bool = False, lazy: bool = False) -> int:
+    """Co-resident grid of an instance of kernel B ("dia") or D ("ell"):
+    tail-free or with the split tail, live or lazy, unpreconditioned or
+    Jacobi, on a device (SMs x blocks per SM).  Each instance has its
+    own: the live tail-free instance must keep its occupancy whatever
+    the others need.  A lazy instance is launched with its live
+    counterpart's grid (``_launch_args``), which its own must hold."""
+    key = (device_index, layout, tail, precond, lazy)
     if key not in _grids:
         from .._build import check, library
 
         out = ctypes.c_int(0)
+        args = (device_index, int(tail), int(precond), int(lazy),
+                ctypes.addressof(out))
         if layout == "dia":
-            rc = library("fused_cg_dia").abft_fused_grid(
-                device_index, int(tail), ctypes.addressof(out))
+            rc = library("fused_cg_dia").abft_fused_grid(*args)
         else:
-            rc = library("fused_cg_ell").abft_fused_ell_grid(
-                device_index, int(tail), ctypes.addressof(out))
+            rc = library("fused_cg_ell").abft_fused_ell_grid(*args)
         check(rc, f"fused_cg_{layout} occupancy query")
         _grids[key] = out.value
     return _grids[key]
 
 
-def make_fused_continue(mat, mode, conv_threshold):
-    """``continue_(md, state, upto) -> (CGState, MatrixDevice)`` with
-    solver.cg's contract, the fast loop in kernel B or D
-    (fused.py:1946).  A split's ``md`` is the (main, tail) pair."""
+def make_fused_continue(mat, mode, conv_threshold, precond=False,
+                        check_interval=1):
+    """``continue_(md, state, upto, minv=None) -> (CGState,
+    MatrixDevice)`` with solver.cg's contract, the fast loop in kernel B
+    or D (fused.py:1946).  A split's ``md`` is the (main, tail) pair.
+    ``precond``: the Jacobi instance, ``minv`` required; a
+    ``check_interval`` > 1 runs the lazy instance in the modes with
+    signals, resolved by solver.cg's ``_lazy_exit_resolve`` with the
+    phantom guard (fused.py:2150-2164; the kernel closes the exit window
+    itself, so the resolve's verify is a no-op)."""
     split = mat.exec_kind == "split"
     spec = fast_spec(mat.main if split else mat, mode)
     tspec = tail_spec(mat, mode) if split else None
     kernel = fused_cg_dia if isinstance(spec, DiaSpec) else fused_cg_ell
     classify = make_spmv(mat, torch.float32, mode).classify
+    ci = _lazy_ci(spec, check_interval)
 
-    def run_fast(md, s: CGState, upto: int):
+    def run_fast(md, s: CGState, upto: int, minv):
         ktrace = torch.full_like(s.trace, float("nan"))
         tail = None
         if split:
             md, tail = md[0], (md[1], tspec)
-        itr, rr, rz, trig, err = kernel(
-            md, spec, s.x, s.r, s.p, s.rr, s.rz, s.itr, upto,
-            conv_threshold, ktrace, tail)
+        out = kernel(md, spec, s.x, s.r, s.p, s.rr, s.rz, s.itr, upto,
+                     conv_threshold, ktrace, tail, minv, ci)
         # Merge the kernel's trace: it wrote slots [s.itr, itr) only.
         tio = torch.arange(s.trace.shape[0], device=s.trace.device)
-        trace = torch.where((tio >= s.itr) & (tio < itr), ktrace, s.trace)
-        return s._replace(itr=itr, rr=rr, rz=rz, trace=trace), trig, err
+        trace = torch.where((tio >= s.itr) & (tio < out.itr), ktrace,
+                            s.trace)
+        s1 = s._replace(itr=out.itr, rr=out.rr, rz=out.rz, trace=trace)
+        snap = None
+        if out.snap is not None:
+            snap = CGState(out.snap.itr, out.snap.x, out.snap.r, out.snap.p,
+                           out.snap.rr, out.snap.rz, s.stats, trace)
+        return s1, snap, out.trig, out.err
 
-    def continue_(md, state: CGState, upto):
+    def continue_(md, state: CGState, upto, minv=None):
+        if precond != (minv is not None):
+            raise ValueError("preconditioned fused solver needs minv"
+                             if precond else
+                             "fused solver built unpreconditioned")
         upto = int(upto)
         # The kernel updates x, r, p in place: work on copies so the
         # caller's state stays as it was.
@@ -346,12 +487,22 @@ def make_fused_continue(mat, mode, conv_threshold):
         if spec.plane is None and (tspec is None or tspec.plane is None):
             # Mode none: no detection, no repair — one launch runs the
             # loop to convergence, the limit or a breakdown.
-            s, _trig, err = run_fast(md, s, upto)
+            s, _snap, _trig, err = run_fast(md, s, upto, minv)
             return s._replace(stats=s.stats.merge_first(
                 SpmvStats(errcode=err))), md
         stuck = 0
         while True:
-            s, trig, err = run_fast(md, s, upto)
+            s1, snap, trig, err = run_fast(md, s, upto, minv)
+            if ci > 1:
+                # A rollback restores the snapshot's buffers, on which
+                # the next launch runs in place.
+                done, md, s, stuck = _lazy_exit_resolve(
+                    md, s1, snap, bool(trig), err, lambda md_, p_: False,
+                    classify, stuck)
+                if done:
+                    return s, md
+                continue
+            s = s1
             st1 = SpmvStats.clean()
             md_in = md
             if trig:
@@ -367,13 +518,9 @@ def make_fused_continue(mat, mode, conv_threshold):
     return continue_
 
 
-def make_fused_solver(mat, mode, max_itrs: int, conv_threshold: float):
-    """``solve(md, b) -> CGResult`` on kernel B or D."""
-    cont = make_fused_continue(mat, mode, conv_threshold)
-
-    def solve(md, b):
-        s, md_out = cont(md, init_state(b, max_itrs), max_itrs)
-        return CGResult(x=s.x, iterations=s.itr, rr=s.rr, stats=s.stats,
-                        rr_trace=s.trace, md=md_out)
-
-    return solve
+def make_fused_solver(mat, mode, max_itrs: int, conv_threshold: float,
+                      precond=False, check_interval=1):
+    """``solve(md, b, minv=None) -> CGResult`` on kernel B or D;
+    ``minv`` must match ``precond``."""
+    return _solver(make_fused_continue(mat, mode, conv_threshold, precond,
+                                       check_interval), max_itrs)

@@ -21,7 +21,11 @@ CUDA kernel against its plain PyTorch version on the card:
     split tail (dense rows, mirrored AXPYs, tail signals), and A + E in
     ``spmv_once``;
   - wide-band ELL, stencil27-shuffled -b 10 (band 4681 under RCM):
-    kernels C and D.
+    kernels C and D;
+  - the solver options on these paths: -p jacobi and --check-interval K
+    (the Jacobi and lazy instances of kernels B and D, the per-iteration
+    tier's lazy loop over the detection-free products of C and E) and
+    --refine 2.
 
 Phases:
 
@@ -51,7 +55,7 @@ Phases:
  11. kernel D vs its plain loop: a clean and a faulted secded solve on
      dense-radius-3d -b 10;
  12. the ELL main path: the four run_tests classes through main_csr with
-     -t cuda -f <file> -b 4 --seed 11, the .mtx file written by the
+     -t cuda -f <file> -b 2 --seed 11, the .mtx file written by the
      port's mmio into a temporary directory; launch counts reset before
      and read after;
  13. the ELL float32 trajectory against the port's float64 plain solve;
@@ -70,9 +74,9 @@ Phases:
      secded, clean and two faults (trace within 1e-3 above float32's
      noise floor);
  18. the flat and split main paths: the four run_tests classes through
-     main_csr -t cuda -f <file> -b 10 --seed 11 on powerlaw-graph,
-     band+random-1pct and arrowhead, launch counts reset before each
-     file and read after;
+     main_csr -t cuda -f <file> -b 2 --seed 11 on powerlaw-graph,
+     band+random-1pct and arrowhead (-b 10 is timed in phase 21), launch
+     counts reset before each file and read after;
  19. their float32 trajectories against the float64 plain solve (run
      on the card), to rr0 * 1e-8;
  20. wide-band ELL (stencil27-shuffled -b 10): kernel C vs plain, kernel
@@ -81,9 +85,32 @@ Phases:
      slope and GB/s, kernel E per call against its plain version,
      ``A @ x`` and its bound, the secded-over-none price of kernel E's
      per-call signals, the split tail against its plain loop;
- 22. powerlaw-graph -b 100 (HBM-bound), if its host build takes under a
+ 22. the lazy (CI 4) and Jacobi instances of kernels B and D (and of the
+     split tail) against their plain loops, secded, on DIA -b 10,
+     dense-radius-3d -b 10 and arrowhead -b 10: clean (a lazy x equal
+     to the live instance's bit for bit, the trace within 1e-3 above
+     float32's noise floor), one fault corrected (through a rollback
+     under the lazy schedule: x equal to the clean solve's), a sed
+     fail-stop (DIA; ELL at -b 4);
+ 23. kernel B at DIA -b 100, what the TPU routes to its streaming
+     kernel: live, lazy CI 32 and Jacobi against the plain loop;
+ 24. the detection-free products of kernels A, C and E (no signal
+     plane, the mode's gather masking kept) against their plain
+     versions on the phase 3, 10 and 16 shapes, then a per-iteration
+     lazy solve on powerlaw-graph -b 10 equal to the live one;
+ 25. the solver options on the main paths: the run_tests classes
+     through main_csr -t cuda -b 10 --seed 11 with --check-interval 4,
+     -p jacobi and both, a --refine 2 run, -b 100 with CI 32, and a
+     secded -x run with each option on dense-radius-3d -b 2, arrowhead
+     -b 4, powerlaw-graph and band+random-1pct -b 10; launch counts of
+     each instance reset before each path and read after;
+ 26. solver-option times: secded over none at CI 1, 4 and 32 and
+     Jacobi over unpreconditioned on DIA -b 10 and -b 100, dense-
+     radius-3d -b 10 and powerlaw-graph -b 10 (slope, GB/s), each new
+     instance against its plain loop and the products per call;
+ 27. powerlaw-graph -b 100 (HBM-bound), if its host build takes under a
      minute and the run is early enough;
- 23. torch.profiler windows over warm -b 10 solves (DIA, ELL, flat,
+ 28. torch.profiler windows over warm -b 10 solves (DIA, ELL, flat,
      split): device time per solve by kernel and the device's idle
      share.
 
@@ -121,8 +148,11 @@ def require(cond, what):
         raise RuntimeError(f"check failed: {what}")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(title):
-    print(f"\n== {title}", flush=True)
+    print(f"\n== {title} [at {time.perf_counter() - _T0:.0f} s]", flush=True)
 
 
 def spread(vals):
@@ -313,6 +343,20 @@ def profile_solves(mats, dev, card, label, solves=10):
               f"window [{card}]")
 
 
+def device_state(card):
+    """The card's clocks, power and temperatures (nvidia-smi) and the
+    memory this process holds on it, beside a timed phase."""
+    import torch
+
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu,temperature.memory", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(f"device state: {q} (sm MHz, mem MHz, draw, gpu C, mem C); "
+          f"allocated {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+          f"[{card}]")
+
+
 def run_cli(main_csr, args):
     """(exit code, stdout) of one in-process CLI run."""
     buf = io.StringIO()
@@ -425,7 +469,11 @@ def main():
         for fn in (dia_fast, fused_cg_dia, ell_fast, fused_cg_ell,
                    flat_fast):
             fn.launches = 0
+        for fn in (dia_fast, ell_fast, flat_fast):
+            fn.product_launches = 0
         fused_cg_dia.tail_launches = fused_cg_ell.tail_launches = 0
+        fused_cg_dia.instances.clear()
+        fused_cg_ell.instances.clear()
 
     # ---- 1. device and card ---------------------------------------------
     phase("1. device")
@@ -447,6 +495,12 @@ def main():
           f"{fused_grid(0, 'dia')} blocks ({fused_grid(0, 'dia', True)} with "
           f"the split tail), kernel D {fused_grid(0, 'ell')} "
           f"({fused_grid(0, 'ell', True)})")
+    print("every instance's own grid (a lazy one runs on its live "
+          "counterpart's): " + ", ".join(
+              f"{lay} {'tail ' if tail else ''}{'Jacobi ' if pre else ''}"
+              f"{'lazy' if lazy else 'live'} {fused_grid(0, lay, tail, pre, lazy)}"
+              for lay in ("dia", "ell") for tail in (False, True)
+              for pre in (False, True) for lazy in (False, True)))
 
     if not os.path.exists(MATRIX):
         subprocess.run([sys.executable,
@@ -520,11 +574,13 @@ def main():
     bd[: m.N] = torch.tensor(b, dtype=f32)
     md = make_matrix_device(m, f32, dev)
 
-    def run_loop(fn, md_, spec_, bvec, upto=1000, tail=None):
-        s = init_state(bvec, upto)
+    def run_loop(fn, md_, spec_, bvec, upto=1000, tail=None, minv=None,
+                 ci=1):
+        s = init_state(bvec, upto, minv)
         x_, r_, p_ = s.x.clone(), s.r.clone(), s.p.clone()
         tr = torch.full_like(s.trace, float("nan"))
-        out = fn(md_, spec_, x_, r_, p_, s.rr, s.rz, 0, upto, CONV, tr, tail)
+        out = fn(md_, spec_, x_, r_, p_, s.rr, s.rz, 0, upto, CONV, tr, tail,
+                 minv, ci)
         torch.cuda.synchronize()
         return out, x_, tr
 
@@ -532,10 +588,10 @@ def main():
         """Kernel against plain loop: iterations equal, the trace to 1e-5
         (a split tail's to 1e-3 above float32's noise floor, rr0 * 1e-5:
         its dot products are summed in another order), x beside."""
-        (ik, _, _, tk, ek), xk, trk = run_loop(kernel, md_, spec_, bvec,
-                                               tail=tail)
-        (ip, _, _, tp, ep), xp, trp = run_loop(plain, md_, spec_, bvec,
-                                               tail=tail)
+        (ik, _, _, tk, ek, _), xk, trk = run_loop(kernel, md_, spec_, bvec,
+                                                  tail=tail)
+        (ip, _, _, tp, ep, _), xp, trp = run_loop(plain, md_, spec_, bvec,
+                                                  tail=tail)
         require(ik == ip and tk == tp == 0 and ek == ep == 0,
                 f"{label}: kernel {ik} it (trig {tk}, err {ek}), plain "
                 f"{ip} it (trig {tp}, err {ep})")
@@ -599,6 +655,7 @@ def main():
 
     # ---- 8. times ---------------------------------------------------------
     phase(f"8. DIA times on {card} (warm, build excluded)")
+    device_state(card)
 
     def solver_fn(mm, mode, upto=1000):
         # the tier the cuda target picks: whole-solve or per-iteration
@@ -675,7 +732,7 @@ def main():
     mats100 = parallel_builds(a100, ("none", "secded"))
     solve_table(f"-b 100 (N={mats100['none'].N})", mats100, 3, 3,
                 dia_iter_bytes)
-    del mats100, a100
+    del a100   # mats100 serves phases 23 and 26 too
 
     def kernel_times(kernel, plain, md_, spec_, xd_, label, nbytes, flops):
         """Per-call device time (CUDA events, interleaved) of a kernel,
@@ -707,12 +764,12 @@ def main():
         dia_fast, dia_fast_plain, md, spec, xd, "kernel A secded -b 10",
         4 * (2 * D * R + 2 * R + R // 8), 2 * D * R)
 
-    def loop_fn(fn, md_, spec_, bvec, tail=None):
+    def loop_fn(fn, md_, spec_, bvec, tail=None, minv=None, ci=1):
         def go():
-            s = init_state(bvec, 1000)
+            s = init_state(bvec, 1000, minv)
             fn(md_, spec_, s.x.clone(), s.r.clone(), s.p.clone(), s.rr,
                s.rz, 0, 1000, CONV, torch.full_like(s.trace, float("nan")),
-               tail)
+               tail, minv, ci)
         return go
 
     tb = interleave({"plain": loop_fn(fused_cg_dia_plain, md, spec, bd),
@@ -844,12 +901,12 @@ def main():
 
     # ---- 12. ELL main path ------------------------------------------------
     phase("12. ELL main path: run_tests classes, cg-csr -t cuda -f "
-          "dense-radius-3d.mtx -b 4 --seed 11 (-b 10 is timed in 14)")
+          "dense-radius-3d.mtx -b 2 --seed 11 (-b 10 is timed in 14)")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "dense-radius-3d.mtx")
         write_mm_triangle(path, *dense_radius_3d())
         reset_launches()
-        run_tests_classes(main_csr, ["-f", path, "-b", "4", "--seed", "11",
+        run_tests_classes(main_csr, ["-f", path, "-b", "2", "--seed", "11",
                                      "-t", "cuda"])
         ell_launches = {"ell_spmv_detect": ell_fast.launches,
                         "fused_cg_ell": fused_cg_ell.launches}
@@ -867,6 +924,7 @@ def main():
 
     # ---- 14. ELL times ----------------------------------------------------
     phase(f"14. ELL times on {card} (warm, build excluded)")
+    device_state(card)
     solve_table("dense-radius-3d -b 10", ell, 7, 10, ell_iter_bytes)
     layer_times(ell["secded"], a_ell, "dense-radius-3d -b 10", reps=1)
     m = ell["secded"]
@@ -1028,7 +1086,7 @@ def main():
 
     # ---- 18. the flat and split main paths ---------------------------------
     phase("18. flat and split main paths: run_tests classes, cg-csr -t cuda "
-          "-f <file> -b 10 --seed 11")
+          "-f <file> -b 2 --seed 11 (-b 10 is timed in 21)")
     path_launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, need in (("powerlaw-graph", ("flat_spmv_detect",)),
@@ -1040,7 +1098,7 @@ def main():
             write_mm_triangle(path, *ZOO[name][0]())
             t0 = time.perf_counter()
             reset_launches()
-            run_tests_classes(main_csr, ["-f", path, "-b", "10", "--seed",
+            run_tests_classes(main_csr, ["-f", path, "-b", "2", "--seed",
                                          "11", "-t", "cuda"])
             got = {"dia_spmv_detect": dia_fast.launches,
                    "ell_spmv_detect": ell_fast.launches,
@@ -1223,8 +1281,524 @@ def main():
          "library_ms": None},
     ]
 
-    # ---- 22. powerlaw-graph -b 100 (HBM-bound), if its build is quick ------
-    phase("22. powerlaw-graph -b 100, none and secded")
+    # ---- 22. the lazy and Jacobi instances of kernels B and D -------------
+    phase("22. kernels B and D, lazy (CI 4) and Jacobi instances vs their "
+          "plain loops, secded: DIA -b 10, dense-radius-3d -b 10, arrowhead "
+          "-b 10")
+    from abft_sparse_cg_tpu_torch.backends.torch_backend import jacobi_minv
+    from abft_sparse_cg_tpu_torch.ops.spmv import ERR_SED
+
+    minvs = {}
+
+    def minv_of(mm, device=dev, like=None):
+        """The exec-order Jacobi M^-1 of ``mm`` (or, for a faulted or
+        other-mode copy, of the matrix ``like`` it was built from: the
+        ECC-corrected diagonal is the same), computed once per matrix."""
+        key = (id(like if like is not None else mm), str(device))
+        if key not in minvs:
+            src = like if like is not None else mm
+            v = torch.zeros(src.R, dtype=f32)
+            v[: src.N] = torch.tensor(src.to_exec_order(
+                jacobi_minv(src, "jacobi")), dtype=f32)
+            minvs[key] = v.to(device)
+        return minvs[key]
+
+    def bvec_of(mm, device=dev):
+        v = torch.zeros(mm.R, dtype=f32)
+        v[: mm.N] = torch.tensor(mm.to_exec_order(
+            np.random.default_rng(11).random(mm.N)), dtype=f32)
+        return v.to(device)
+
+    VARIANTS = (("lazy", False, 4), ("Jacobi", True, 1),
+                ("lazy Jacobi", True, 4))
+    opt = {}    # (matrix, instance) -> {"err": max|x err|, "its": iters}
+
+    def check_variant(kernel, plain, md_, spec_, bvec, name, label, minv,
+                      ci, tail=None):
+        """One instance against its plain loop on the card: iterations
+        equal, no trigger or error, the trace within 1e-3 above float32's
+        noise floor (rr0 * 1e-5), and a lazy run's x equal to the live
+        instance's bit for bit."""
+        ok, xk, trk = run_loop(kernel, md_, spec_, bvec, tail=tail,
+                               minv=minv, ci=ci)
+        op, xp, trp = run_loop(plain, md_, spec_, bvec, tail=tail,
+                               minv=minv, ci=ci)
+        require(ok.itr == op.itr and ok.trig == op.trig == 0
+                and ok.err == op.err == 0,
+                f"{label} {name}: kernel {ok.itr} it (trig {ok.trig}, err "
+                f"{ok.err}), plain {op.itr} it (trig {op.trig}, err "
+                f"{op.err})")
+        it = ok.itr
+        keep = trp[:it] > trp[0] * 1e-5
+        dev_tr = float(((trk[:it] - trp[:it]).abs() / trp[:it].abs())[keep]
+                       .max())
+        err = float((xk - xp).abs().max())
+        require(dev_tr <= 1e-3, f"{label} {name}: trace dev {dev_tr:.2e}")
+        same = "-"
+        if ci > 1:
+            live, xl, _ = run_loop(kernel, md_, spec_, bvec, tail=tail,
+                                   minv=minv, ci=1)
+            same = torch.equal(xk, xl) and live.itr == it
+            require(same, f"{label} {name}: lazy x differs from live")
+        print(f"{label} {name}: kernel {it} it, plain {op.itr}; trace max rel"
+              f" dev {dev_tr:.2e}; x max|err| {err:.3e}; lazy x == live x: "
+              f"{same}")
+        opt[label, name] = {"err": err, "its": it}
+        return xk
+
+    def check_faulted_variant(m1, mode, name, label, precond, ci, clean_x,
+                              plain_too, clean):
+        """One corrected fault (a rollback under the lazy schedule): one
+        correction, no error, x equal to the clean solve's bit for bit;
+        with ``plain_too``, the events and iterations of the plain loop
+        (CPU tensors) too."""
+        solve = make_fused_solver(m1, mode, 1000, CONV, precond=precond,
+                                  check_interval=ci)
+        args = (minv_of(m1, like=clean),) if precond else ()
+        rk = solve(make_matrix_device(m1, f32, dev), bvec_of(m1), *args)
+        require(rk.stats.corrected_count == 1 and rk.stats.errcode == 0,
+                f"{label} {name} 1-bit: stats {tuple(rk.stats)}")
+        require(torch.equal(rk.x, clean_x),
+                f"{label} {name} 1-bit: x differs from the clean solve")
+        msg = ""
+        if plain_too:
+            cargs = (minv_of(m1, "cpu", like=clean),) if precond else ()
+            rp = solve(make_matrix_device(m1, f32, torch.device("cpu")),
+                       bvec_of(m1, "cpu"), *cargs)
+            require(rp.iterations == rk.iterations
+                    and tuple(rp.stats) == tuple(rk.stats),
+                    f"{label} {name} 1-bit: plain {rp.iterations} it "
+                    f"{tuple(rp.stats)} vs kernel {rk.iterations} it")
+            msg = f"; plain loop {rp.iterations} it, the same events"
+        print(f"{label} {name} 1-bit flip: {rk.iterations} it, stats "
+              f"{tuple(rk.stats)}, x equal to the clean solve{msg}")
+
+    def check_sed(msed, name, label, precond, ci):
+        m1 = inject_bitflips(msed, "ANY", 1, np.random.default_rng(5),
+                             echo=lambda s: None)
+        solve = make_fused_solver(m1, "sed", 1000, CONV, precond=precond,
+                                  check_interval=ci)
+        args = (minv_of(m1, like=msed),) if precond else ()
+        rk = solve(make_matrix_device(m1, f32, dev), bvec_of(m1), *args)
+        require(rk.stats.errcode == ERR_SED and rk.iterations == 0,
+                f"{label} {name} sed: {rk.iterations} it, stats "
+                f"{tuple(rk.stats)}")
+        print(f"{label} {name} sed 1-bit flip: fail-stop, errcode "
+              f"{rk.stats.errcode}, iterations 0")
+
+    ell_sed = shapes["dense-radius-3d"][1]["sed"]
+    for label, mm, kernel, plain, tail_of, msed, plain_too in (
+            ("DIA -b 10", mats["secded"], fused_cg_dia, fused_cg_dia_plain,
+             None, mats["sed"], True),
+            ("dense-radius-3d -b 10", ell["secded"], fused_cg_ell,
+             fused_cg_ell_plain, None, ell_sed, False),
+            ("arrowhead -b 10", splits["arrowhead"][1]["secded"],
+             fused_cg_dia, fused_cg_dia_plain, "tail", None, True)):
+        split = tail_of is not None
+        mdv = make_matrix_device(mm, f32, dev)
+        tl = None
+        if split:
+            mdv, tl = mdv[0], (mdv[1], tail_spec(mm, "secded"))
+        spec_v = (dia_spec(mm.main, "secded") if split
+                  else (dia_spec if mm.exec_kind == "dia" else ell_spec)(
+                      mm, "secded"))
+        bv = bvec_of(mm)
+        mi = minv_of(mm)
+        m1 = inject_bitflips(mm, "ANY", 1, np.random.default_rng(12),
+                             echo=lambda s: None)
+        for vname, precond, ci in VARIANTS:
+            name = ("split tail " if split else "") + vname
+            xk = check_variant(kernel, plain, mdv, spec_v, bv, name, label,
+                               mi if precond else None, ci, tl)
+            # The plain loop of a faulted solve runs on CPU tensors: once
+            # per matrix (phases 4 and 17 hold the live instances).
+            check_faulted_variant(m1, "secded", name, label, precond, ci,
+                                  xk, plain_too and vname == "lazy Jacobi",
+                                  mm)
+            if msed is not None:
+                check_sed(msed, name, label, precond, ci)
+        del mdv
+
+    # ---- 23. kernel B at -b 100: the streaming kernel's counterpart -------
+    phase("23. kernel B at DIA -b 100 (what the TPU routes to "
+          "_make_streaming_kernel): live, lazy CI 32 and Jacobi vs plain")
+    m = mats100["secded"]
+    md100 = make_matrix_device(m, f32, dev)
+    spec100 = dia_spec(m, "secded")
+    b100, mi100 = bvec_of(m), minv_of(m)
+    check_loops(fused_cg_dia, fused_cg_dia_plain, md100, spec100, b100,
+                "-b 100 live")
+    for vname, precond, ci in (("lazy", False, 32), ("Jacobi", True, 1)):
+        check_variant(fused_cg_dia, fused_cg_dia_plain, md100, spec100,
+                      b100, f"{vname}, -b 100", "DIA -b 100",
+                      mi100 if precond else None, ci)
+
+    # ---- 24. the detection-free products of kernels A, C and E -------------
+    phase("24. the detection-free products of kernels A, C and E vs plain "
+          "(no signal plane, the mode's gather masking kept), then a lazy "
+          "per-iteration solve on powerlaw-graph -b 10")
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import product_spec
+
+    prod_errs = {"dia_spmv_detect": [], "ell_spmv_detect": [],
+                 "flat_spmv_detect": []}
+    prod_shapes = [("DIA -b 10", mats, dia_fast, dia_fast_plain,
+                    "dia_spmv_detect")]
+    prod_shapes += [(name, per, ell_fast, ell_fast_plain, "ell_spmv_detect")
+                    for name, (_, per) in shapes.items()]
+    prod_shapes += [(name, per, flat_fast, flat_fast_plain,
+                     "flat_spmv_detect") for name, (_, per) in flat.items()]
+    for name, per, kern, plain, key in prod_shapes:
+        for mode in ("constraints", "sec8", "secded"):
+            m = per[mode]
+            spec = product_spec(m, mode)
+            xp_ = torch.zeros(m.R, dtype=f32, device=dev)
+            xp_[: m.N] = torch.tensor(np.random.default_rng(3).random(m.N),
+                                      dtype=f32)
+            for label, mm in (("clean", m), ("1-bit", inject_bitflips(
+                    m, "ANY", 1, np.random.default_rng(21),
+                    echo=lambda s: None))):
+                mdp = make_matrix_device(mm, f32, dev)
+                before = kern.product_launches
+                wk, tk, pk = kern(mdp, xp_, spec)
+                wp, tp, pp = plain(mdp, xp_, spec)
+                torch.cuda.synchronize()
+                tag = f"{name} {mode} {label} product"
+                require(kern.product_launches == before + 1,
+                        f"{tag}: not counted")
+                fin = torch.isfinite(wp)
+                err = float((wk - wp)[fin].abs().max())
+                if key == "dia_spmv_detect":   # kernel A's rule, phase 3
+                    rel = err / float(wp[fin].abs().max())
+                    require(rel <= 1e-6, f"{tag}: w rel err {rel:.2e}")
+                else:
+                    require(same_w(wk, wp), f"{tag}: w not bit-exact")
+                require(pw_rel(pk, pp) <= 1e-5 and not bool(tk)
+                        and not bool(tp), f"{tag}: pw or trigger")
+                prod_errs[key].append(err)
+                print(f"{tag:52s} w max|err| {err:.1e}, pw rel "
+                      f"{pw_rel(pk, pp):.1e}, trig {bool(tk)}")
+                del mdp
+    mpl = flat["powerlaw-graph"][1]["secded"]
+    bpl = bvec_of(mpl)
+    mdpl = make_matrix_device(mpl, f32, dev)
+    live_pl = CudaBackend("secded")._solver(mpl, f32, 1000, CONV)(mdpl, bpl)
+    for ci in (4, 32):
+        lz = CudaBackend("secded")._solver(mpl, f32, 1000, CONV, False, ci)(
+            mdpl, bpl)
+        require(lz.iterations == live_pl.iterations
+                and torch.equal(lz.x, live_pl.x),
+                f"powerlaw lazy CI {ci}: {lz.iterations} it vs live "
+                f"{live_pl.iterations}, x equal {torch.equal(lz.x, live_pl.x)}")
+        print(f"powerlaw-graph -b 10 secded, per-iteration lazy CI {ci}: "
+              f"{lz.iterations} it, x equal to the live solve's bit for bit")
+    del mdpl
+
+    # ---- 25. the solver options on the main paths --------------------------
+    phase("25. solver options on the main paths: run_tests classes through "
+          "main_csr -t cuda -b 10 --seed 11 with --check-interval 4, -p "
+          "jacobi and both, a --refine 2 run; the other layouts' paths")
+    base10 = ["-b", "10", "--seed", "11", "-t", "cuda"]
+    path_counts = {}   # path label -> {instance: launches}
+
+    def read_counts():
+        got = {f"fused_cg_dia ({k})": v
+               for k, v in fused_cg_dia.instances.items()}
+        got.update({f"fused_cg_ell ({k})": v
+                    for k, v in fused_cg_ell.instances.items()})
+        for fn, name in ((dia_fast, "dia_spmv_detect"),
+                         (ell_fast, "ell_spmv_detect"),
+                         (flat_fast, "flat_spmv_detect")):
+            got[f"{name} (detection-free product)"] = fn.product_launches
+        return got
+
+    def drive(label, runs, need):
+        """Counts reset, the runs, counts read: each instance in ``need``
+        must have launched."""
+        t0 = time.perf_counter()
+        reset_launches()
+        runs()
+        got = read_counts()
+        print(f"{label}: launches {got} ({time.perf_counter() - t0:.0f} s)")
+        for k in need:
+            require(got.get(k, 0) > 0, f"{k} was not launched on {label}")
+        path_counts[label] = got
+
+    def option_run(base, flags):
+        """One run of the run_tests class 3 with ``flags``: secded -x,
+        corrected, exit 0 (phase 22 holds the fail-stops)."""
+        code, out = run_cli(main_csr, [*base, *flags, "-m", "secded", "-x"])
+        require(code == 0 and total_error(out) < 1.0
+                and "[ECC] corrected" in out,
+                f"{' '.join(flags)} secded -x: exit {code}")
+        print(f"passed {' '.join(flags)} secded -x: corrected, exit 0, total "
+              f"error {total_error(out):f}")
+
+    for flags, need in ((["--check-interval", "4"], ["fused_cg_dia (lazy)"]),
+                        (["-p", "jacobi"], ["fused_cg_dia (Jacobi)"]),
+                        (["-p", "jacobi", "--check-interval", "4"],
+                         ["fused_cg_dia (lazy Jacobi)"])):
+        drive(f"DIA -b 10 {' '.join(flags)}",
+              lambda f=flags: run_tests_classes(main_csr, [*base10, *f]),
+              need)
+
+    def refine_run():
+        code, out = run_cli(main_csr, [*base10, "-m", "secded", "-x",
+                                       "--refine", "2"])
+        require(code == 0 and total_error(out) < 1.0,
+                f"--refine 2: exit {code}")
+        print(f"passed --refine 2 secded -x: exit 0, total error "
+              f"{total_error(out):f}")
+
+    drive("DIA -b 10 --refine 2", refine_run, ["fused_cg_dia (live)"])
+
+    def b100_run():
+        code, out = run_cli(main_csr, ["-b", "100", "--seed", "11", "-t",
+                                       "cuda", "-m", "secded",
+                                       "--check-interval", "32"])
+        require(code == 0 and total_error(out) < 1.0,
+                f"-b 100 --check-interval 32: exit {code}")
+        print(f"passed -b 100 secded --check-interval 32: total error "
+              f"{total_error(out):f}")
+
+    drive("DIA -b 100", b100_run, ["fused_cg_dia (lazy)"])
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {}
+        for name, gen in (("dense-radius-3d", dense_radius_3d),
+                          ("arrowhead", ZOO["arrowhead"][0]),
+                          ("powerlaw-graph", ZOO["powerlaw-graph"][0]),
+                          ("band+random-1pct", ZOO["band+random-1pct"][0])):
+            files[name] = os.path.join(tmp, f"{name}.mtx")
+            write_mm_triangle(files[name], *gen())
+        for name, blocks, flag_sets, need in (
+                ("dense-radius-3d", "2",
+                 (["--check-interval", "4"], ["-p", "jacobi"],
+                  ["-p", "jacobi", "--check-interval", "4"]),
+                 ["fused_cg_ell (lazy)", "fused_cg_ell (Jacobi)",
+                  "fused_cg_ell (lazy Jacobi)"]),
+                ("arrowhead", "4",
+                 (["--check-interval", "4"], ["-p", "jacobi"],
+                  ["-p", "jacobi", "--check-interval", "4"]),
+                 ["fused_cg_dia (split tail lazy)",
+                  "fused_cg_dia (split tail Jacobi)",
+                  "fused_cg_dia (split tail lazy Jacobi)"]),
+                ("powerlaw-graph", "10", (["--check-interval", "4"],),
+                 ["flat_spmv_detect (detection-free product)"]),
+                ("band+random-1pct", "10", (["--check-interval", "4"],),
+                 ["ell_spmv_detect (detection-free product)",
+                  "flat_spmv_detect (detection-free product)"])):
+            base = ["-f", files[name], "-b", blocks, "--seed", "11", "-t",
+                    "cuda"]
+            drive(f"{name} -b {blocks}",
+                  lambda b_=base, fs=flag_sets: [option_run(b_, f)
+                                                 for f in fs], need)
+
+    # ---- 26. times of the solver options -----------------------------------
+    phase(f"26. solver-option times on {card} (warm, build excluded): "
+          "secded over none at CI 1 / 4 / 32, Jacobi over unpreconditioned")
+    device_state(card)
+
+    def options_table(label, mats_, batches, reps, none_bytes, sig_bytes):
+        """Interleaved full and 2-iteration solves of each configuration:
+        medians, spread, slope and its bandwidth (the bytes an average
+        iteration must move: the signal plane every CI-th iteration, M^-1
+        twice with Jacobi), each over none at CI 1."""
+        configs = {"none": ("none", False, 1),
+                   "secded CI 1": ("secded", False, 1),
+                   "secded CI 4": ("secded", False, 4),
+                   "secded CI 32": ("secded", False, 32),
+                   "none Jacobi": ("none", True, 1),
+                   "secded Jacobi": ("secded", True, 1)}
+        fns, its = {}, {}
+        for cname, (mode, precond, ci) in configs.items():
+            mm = mats_[mode]
+            mdd = make_matrix_device(mm, f32, dev)
+            bb = bvec_of(mm)
+            args = (minv_of(mm, like=mats_["secded"]),) if precond else ()
+            for upto, suffix in ((1000, ""), (2, "@2")):
+                solve = CudaBackend(mode)._solver(mm, f32, upto, CONV,
+                                                  precond, ci)
+                its[cname + suffix] = solve(mdd, bb, *args).iterations
+                fns[cname + suffix] = (
+                    lambda s=solve, m_=mdd, b_=bb, a_=args: s(m_, b_, *a_))
+        t = interleave(fns, reps, batches)
+        med = {n: statistics.median(v) for n, v in t.items()}
+        R = mats_["none"].R
+        out = {}
+        for cname, (mode, precond, ci) in configs.items():
+            slope = ((med[cname] - med[cname + "@2"])
+                     / max(1, its[cname] - its[cname + "@2"]))
+            nb = (none_bytes + (sig_bytes / ci if mode != "none" else 0)
+                  + (8 * R if precond else 0))
+            gbs = nb / (slope * 1e-3) / 1e9 if slope > 0 else float("nan")
+            out[cname] = (med[cname], its[cname], slope)
+            print(f"{label} {cname:14s}: {spread(t[cname])}, {its[cname]} it;"
+                  f" slope {slope:.4f} ms/it = {gbs:.0f} GB/s "
+                  f"({gbs / 3350 * 100:.1f}% of 3.35 TB/s; {nb / 1e6:.1f} "
+                  f"MB/it); over none {(med[cname] / med['none'] - 1) * 100:+.1f}%"
+                  f" [{card}]")
+        print(f"{label} Jacobi over unpreconditioned: none "
+              f"{(med['none Jacobi'] / med['none'] - 1) * 100:+.1f}%, secded "
+              f"{(med['secded Jacobi'] / med['secded CI 1'] - 1) * 100:+.1f}% "
+              f"(iterations {its['none Jacobi']} vs {its['none']}) [{card}]")
+        return out
+
+    def dia_sig(mm):
+        return 4 * len(mm.dia_offsets) * mm.R
+
+    def ell_sig(mm):
+        return 4 * mm.K * mm.R + mm.R // 2
+
+    def flat_sig(mm):
+        return 4 * mm.exec_size + mm.exec_size // 2
+
+    opt_times = {}
+    for label, mats_, batches, reps, nb_fn, sig_fn in (
+            ("DIA -b 10", mats, 7, 10, dia_iter_bytes, dia_sig),
+            ("DIA -b 100", mats100, 3, 3, dia_iter_bytes, dia_sig),
+            ("dense-radius-3d -b 10", ell, 3, 3, ell_iter_bytes, ell_sig),
+            ("powerlaw-graph -b 10", flat["powerlaw-graph"][1], 3, 2,
+             flat_iter_bytes, flat_sig)):
+        opt_times[label] = options_table(
+            label, mats_, batches, reps, nb_fn("none", mats_["none"]),
+            sig_fn(mats_["secded"]))
+
+    def lazy_bytes(k, ci, none_b, sig_b, R, precond):
+        """Bytes a lazy solve of k iterations must move: k iterations
+        without signals, the signal plane on the checked ones and in the
+        exit pass, the snapshot (seeded from the entry state, refreshed
+        on every checked iteration), M^-1 twice per Jacobi iteration."""
+        checked = [i for i in range(k) if i % ci == ci - 1]
+        exit_pass = bool(k) and (not checked or checked[-1] + 1 != k)
+        nbytes = (k * none_b + (len(checked) + exit_pass) * sig_b
+                  + 4 * R * (6 + 3 * len(checked)))
+        return nbytes + (8 * R * k if precond else 0)
+
+    def instance_row(label, name, source, replaces, kernel, plain, mm, spec_,
+                     mdv, bv, mi, ci, none_b, sig_b, flops_it, launches,
+                     tail=None, reps=3, batches=5):
+        tt = interleave({"plain": loop_fn(plain, mdv, spec_, bv, tail, mi,
+                                          ci),
+                         "kernel": loop_fn(kernel, mdv, spec_, bv, tail, mi,
+                                           ci)}, reps, batches=batches)
+        ms_, plain_ = (statistics.median(tt["kernel"]),
+                       statistics.median(tt["plain"]))
+        k = opt[label, name]["its"]
+        nbytes = (lazy_bytes(k, ci, none_b, sig_b, mm.R, mi is not None)
+                  if ci > 1 else k * (none_b + sig_b)
+                  + (8 * mm.R * k if mi is not None else 0))
+        bms, by = bound(nbytes, k * flops_it)
+        print(f"{kernel.__name__} ({name}), {label} secded ({k} it): kernel "
+              f"{spread(tt['kernel'])}; plain loop "
+              f"{spread(tt['plain'])}; bound {bms:.4f} ms ({by}; "
+              f"{nbytes / 1e6:.1f} MB) = {bms / ms_ * 100:.1f}% of the bound"
+              f" [{card}]")
+        return {"name": f"{kernel.__name__} ({name})", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": launches,
+                "max_abs_err": opt[label, name]["err"], "ms": ms_,
+                "plain_ms": plain_, "bound_ms": bms, "bound_by": by,
+                "library_ms": None}
+
+    m = mats["secded"]
+    mdv = make_matrix_device(m, f32, dev)
+    D, R = len(m.dia_offsets), m.R
+    none_b = dia_iter_bytes("none", m)
+    for (name, precond, ci), path in zip(VARIANTS, (
+            "--check-interval 4", "-p jacobi",
+            "-p jacobi --check-interval 4")):
+        kernels.append(instance_row(
+            "DIA -b 10", name,
+            "abft_sparse_cg_tpu_torch/csrc/fused_cg_dia.cu",
+            "abft_sparse_cg_tpu/solver/fused.py:1248", fused_cg_dia,
+            fused_cg_dia_plain, m, dia_spec(m, "secded"), mdv, bvec_of(m),
+            minv_of(m) if precond else None, ci, none_b, dia_sig(m),
+            2 * D * R + 10 * R,
+            path_counts[f"DIA -b 10 {path}"][f"fused_cg_dia ({name})"]))
+    del mdv
+    m = mats100["secded"]
+    for name, precond, ci in (("lazy, -b 100", False, 32),):
+        kernels.append(instance_row(
+            "DIA -b 100", name,
+            "abft_sparse_cg_tpu_torch/csrc/fused_cg_dia.cu",
+            "abft_sparse_cg_tpu/solver/fused.py:1931", fused_cg_dia,
+            fused_cg_dia_plain, m, spec100, md100, b100,
+            mi100 if precond else None, ci, dia_iter_bytes("none", m),
+            dia_sig(m), 2 * 3 * m.R + 10 * m.R,
+            path_counts["DIA -b 100"][
+                f"fused_cg_dia ({name.split(',')[0]})"]))
+    del md100
+    m = ell["secded"]
+    mdv = make_matrix_device(m, f32, dev)
+    for name, precond, ci in VARIANTS:
+        kernels.append(instance_row(
+            "dense-radius-3d -b 10", name,
+            "abft_sparse_cg_tpu_torch/csrc/fused_cg_ell.cu",
+            "abft_sparse_cg_tpu/solver/fused.py:1248", fused_cg_ell,
+            fused_cg_ell_plain, m, ell_spec(m, "secded"), mdv, bvec_of(m),
+            minv_of(m) if precond else None, ci, ell_iter_bytes("none", m),
+            ell_sig(m), 2 * m.nnz + 10 * m.R,
+            path_counts["dense-radius-3d -b 2"][f"fused_cg_ell ({name})"],
+            reps=1, batches=3))
+    del mdv
+    m = splits["arrowhead"][1]["secded"]
+    mda = make_matrix_device(m, f32, dev)
+    tl = (mda[1], tail_spec(m, "secded"))
+    T_a, S_a = len(m.tail.dense_plan[0]), m.tail.dense_plan[2]
+    for name, precond, ci in VARIANTS:
+        kernels.append(instance_row(
+            "arrowhead -b 10", f"split tail {name}",
+            "abft_sparse_cg_tpu_torch/csrc/dia_common.cuh",
+            "abft_sparse_cg_tpu/solver/fused.py:977", fused_cg_dia,
+            fused_cg_dia_plain, m, dia_spec(m.main, "secded"), mda[0],
+            bvec_of(m), minv_of(m) if precond else None, ci,
+            split_iter_bytes("none", m),
+            split_iter_bytes("secded", m) - split_iter_bytes("none", m),
+            2 * len(m.dia_offsets) * m.R + 10 * m.R + 4 * T_a * S_a,
+            path_counts["arrowhead -b 4"][
+                f"fused_cg_dia (split tail {name})"], tail=tl))
+    del mda
+    # The detection-free products, per call against plain and A @ x.
+    # Kernel A's is on no main path (DIA matrices take kernel B, and the
+    # zoo's splits have ELL mains or dense-plan tails): printed, not
+    # listed.
+    for key, label, mm, kern, plain, nbytes, flops, replaces in (
+            ("dia_spmv_detect", "DIA -b 10 secded", mats["secded"], dia_fast,
+             dia_fast_plain, 4 * (len(mats["secded"].dia_offsets) + 2)
+             * mats["secded"].R, 2 * 3 * mats["secded"].R,
+             "abft_sparse_cg_tpu/ops/spmv_pallas.py:519"),
+            ("ell_spmv_detect", "dense-radius-3d -b 10 secded", ell["secded"],
+             ell_fast, ell_fast_plain, 8 * ell["secded"].nnz
+             + 12 * ell["secded"].R, 2 * ell["secded"].nnz,
+             "abft_sparse_cg_tpu/ops/spmv_pallas.py:846"),
+            ("flat_spmv_detect", "powerlaw-graph -b 10 secded",
+             flat["powerlaw-graph"][1]["secded"], flat_fast, flat_fast_plain,
+             flat_call_bytes("none", flat["powerlaw-graph"][1]["secded"]),
+             2 * flat["powerlaw-graph"][1]["secded"].nnz,
+             "abft_sparse_cg_tpu/ops/spmv_unstructured.py:447")):
+        mdp = make_matrix_device(mm, f32, dev)
+        xq = torch.zeros(mm.R, dtype=f32, device=dev)
+        xq[: mm.N] = torch.tensor(np.random.default_rng(3).random(mm.N),
+                                  dtype=f32)
+        med, bms, by = kernel_times(kern, plain, mdp, product_spec(mm,
+                                                                   "secded"),
+                                    xq, f"{key} detection-free product, "
+                                    f"{label}", nbytes, flops)
+        del mdp
+        if key == "dia_spmv_detect":
+            continue
+        kernels.append(
+            {"name": f"{key} (detection-free product)", "route": "cuda",
+             "source": f"abft_sparse_cg_tpu_torch/csrc/{key}.cu",
+             "replaces": replaces,
+             "launches": sum(c.get(f"{key} (detection-free product)", 0)
+                             for c in path_counts.values()),
+             "max_abs_err": max(prod_errs[key]), "ms": med["kernel"],
+             "plain_ms": med["plain"], "bound_ms": bms, "bound_by": by,
+             "library_ms": med["A @ x"]})
+    del mats100
+
+    # ---- 27. powerlaw-graph -b 100 (HBM-bound), if its build is quick ------
+    phase("27. powerlaw-graph -b 100, none and secded")
     if time.perf_counter() - t_start > 660:
         print("skipped: the run is past 660 s (the 1200 s limit)")
     else:
@@ -1243,8 +1817,9 @@ def main():
                   "does not route flat")
         del a100, p100
 
-    # ---- 23. profile (last: the profiler may disturb later timings) --------
-    phase(f"23. torch.profiler over warm -b 10 solves on {card}")
+    # ---- 28. profile (last: the profiler may disturb later timings) --------
+    phase(f"28. torch.profiler over warm -b 10 solves on {card}")
+    device_state(card)
     profile_solves(mats, dev, card, "DIA -b 10")
     profile_solves(ell, dev, card, "ELL dense-radius-3d -b 10")
     profile_solves(pl, dev, card, "flat powerlaw-graph -b 10", solves=5)

@@ -1,8 +1,10 @@
 """The port's CLI contract: run_tests' four classes on ``-t torch``, line
 for line identity with the JAX CLI's ``-t jnp`` in float64 (on the DIA
 stand-in, a banded-ELL matrix, and flat, band-split and bordered-split
-matrices), the default ``cuda`` target, the unported-flag errors, and
-the package's independence from JAX."""
+matrices; with ``-p jacobi``, ``--refine 2`` and ``--check-interval 4``,
+which both targets run live, on DIA and ELL), the default ``cuda``
+target, the unported-flag errors, and the package's independence from
+JAX."""
 
 import ast
 import os
@@ -117,11 +119,18 @@ def contract_lines(out):
             if not ln.startswith(("compile time", "time taken"))]
 
 
+# The solver options, each without and with an injected fault.
+OPTION_RUNS = [[*opt, *fault]
+               for opt in (["-p", "jacobi"], ["--refine", "2"],
+                           ["--check-interval", "4"])
+               for fault in (["-m", "secded"], ["-m", "secded", "-x"])]
+
+
 @pytest.mark.parametrize("flags", [
     ["-m", "none"], ["-m", "secded", "-x"], ["-m", "sed", "-x"],
     ["-m", "secded", "-x", "2"], ["-m", "sec7", "-x", "VALUE"],
-    ["-m", "constraints", "-x", "INDEX"], ["-m", "sec8", "-x", "3"]],
-    ids=lambda f: "_".join(f))
+    ["-m", "constraints", "-x", "INDEX"], ["-m", "sec8", "-x", "3"],
+    *OPTION_RUNS], ids=lambda f: "_".join(f))
 def test_f64_stdout_identical_to_jnp(mtx, flags, capsys):
     argv = ["-f", mtx, "-b", "4", "--seed", "5", "--dtype", "f64", *flags]
     jcode, jout, _ = run(jcli.main_csr, argv + ["-t", "jnp"], capsys)
@@ -142,15 +151,40 @@ def test_cuda_target_without_card(mtx, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--solver", "pipelined"], ["-p", "jacobi"],
-    ["--refine", "2"], ["--checkpoint", "snap.npz"], ["--resume"],
-    ["--check-interval", "8"], ["--profile", "trace"],
+    ["--devices", "2"], ["--solver", "pipelined"],
+    ["--checkpoint", "snap.npz"], ["--resume"], ["--profile", "trace"],
     ["--format", "coo"]], ids=lambda f: f[0])
 def test_unported_flags_fail_with_one_line(mtx, flags, capsys):
     code, out, _ = run(cli.main_csr, ["-f", mtx, "-t", "torch", *flags],
                        capsys)
     assert code == 1
     assert out.strip().count("\n") == 0 and "not ported" in out
+
+
+def test_refine_with_checkpoint_is_refused(mtx, capsys):
+    """--refine and --checkpoint together: the JAX CLI's refusal
+    (cli.py:387-389), one line, exit 1."""
+    code, out, _ = run(cli.main_csr, ["-f", mtx, "-t", "torch", "--refine",
+                                      "2", "--checkpoint", "snap.npz"],
+                       capsys)
+    assert code == 1
+    assert out.strip() == ("--refine cannot be combined with "
+                           "--checkpoint/--resume")
+
+
+def test_check_interval_on_torch_warns_and_runs_live(mtx, capsys):
+    """-t torch has no lazy schedule: a check interval > 1 prints the
+    jnp target's warning on stderr and runs the live solve."""
+    from abft_sparse_cg_tpu_torch.backends import torch_backend
+
+    torch_backend._warned_live.discard("torch")
+    argv = ["-f", mtx, "-b", "2", "--seed", "3", "-t", "torch", "-m",
+            "secded"]
+    code, out, err = run(cli.main_csr, argv + ["--check-interval", "8"],
+                         capsys)
+    assert code == 0 and "no lazy schedule on the torch route" in err
+    _, live, _ = run(cli.main_csr, argv, capsys)
+    assert contract_lines(out) == contract_lines(live)
 
 
 def test_check_interval_auto_and_1_run_live(mtx, capsys):
@@ -233,10 +267,12 @@ def ell_mtx(tmp_path_factory):
 @pytest.mark.parametrize("flags", [
     ["-m", "none"], ["-m", "sed", "-x"], ["-m", "sec8", "-x"],
     ["-m", "secded", "-x", "2"], ["-m", "secded", "-x"],
-    ["-m", "constraints", "-x", "INDEX"]], ids=lambda f: "_".join(f))
+    ["-m", "constraints", "-x", "INDEX"], *OPTION_RUNS],
+    ids=lambda f: "_".join(f))
 def test_ell_f64_stdout_identical_to_jnp(ell_mtx, flags, capsys):
     """The banded-ELL path on -t torch in float64: stdout equal to -t jnp
-    line for line, clean and in the run_tests -x classes."""
+    line for line, clean, in the run_tests -x classes and with the
+    solver options."""
     argv = ["-f", ell_mtx, "-b", "2", "--seed", "1", "--dtype", "f64",
             *flags]
     jcode, jout, _ = run(jcli.main_csr, argv + ["-t", "jnp"], capsys)

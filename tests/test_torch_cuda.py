@@ -336,3 +336,127 @@ def test_per_iteration_tier(dev, shape):
     assert res.corrected_count == 1 and not res.failed
     w, code, _ = CudaBackend("secded").spmv_once(m, res.x)
     assert code == 0 and np.abs(w - b).max() < 1e-2
+
+
+# --------------------------------------------------------------------------
+# The Jacobi and lazy instances of kernels B and D, the detection-free
+# products of kernels A, C and E, the per-iteration lazy loop
+# --------------------------------------------------------------------------
+
+def jacobi_minv(m, device):
+    from abft_sparse_cg_tpu_torch.backends.torch_backend import (
+        jacobi_minv as host_minv)
+
+    minv = torch.zeros(m.R, dtype=torch.float32)
+    minv[: m.N] = torch.tensor(m.to_exec_order(host_minv(m, "jacobi")))
+    return minv.to(device)
+
+
+def fused_matrix(layout, mode):
+    if layout == "dia":
+        return dia_matrix(mode)
+    if layout == "ell":
+        return ell_matrix(mode)
+    return split_matrix(mode, "dia")
+
+
+@pytest.mark.parametrize("layout", ["dia", "ell", "split"])
+@pytest.mark.parametrize("variant", ["lazy", "Jacobi", "lazy Jacobi"])
+@pytest.mark.parametrize("mode,flips,seed", [
+    ("secded", 0, 0), ("secded", 1, 6), ("sed", 1, 6)])
+def test_fused_instances_match_plain(dev, layout, variant, mode, flips,
+                                     seed):
+    """The lazy (CI 4) and Jacobi instances of kernels B and D (and of
+    the split tail) against their plain loops: iterations and events
+    equal, the trace to 1e-5 (1e-4 with Jacobi, whose rz = r . z is one
+    more reduction summed in another order than torch.sum; 1e-3 above
+    float32's noise floor for the split tail); a clean lazy solve's x
+    equals the live instance's bit for bit, and a rolled-back faulted
+    one equals the clean one."""
+    m = fused_matrix(layout, mode)
+    precond = "Jacobi" in variant
+    ci = 4 if "lazy" in variant else 1
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    mf = faulted(m, flips, seed) if flips else m
+    args = (jacobi_minv(m, dev),) if precond else ()
+    cpu_args = (jacobi_minv(m, CPU),) if precond else ()
+    solve = make_fused_solver(mf, mode, 300, 1e-8, precond=precond,
+                              check_interval=ci)
+    kernel = fused_cg_ell if layout == "ell" else fused_cg_dia
+    name = ("split tail " if layout == "split" else "") + variant
+    before = kernel.instances.get(name, 0)
+    rk = solve(make_matrix_device(mf, torch.float32, dev), b.to(dev), *args)
+    assert kernel.instances.get(name, 0) > before
+    rp = solve(make_matrix_device(mf, torch.float32, CPU), b, *cpu_args)
+    assert rk.iterations == rp.iterations
+    assert tuple(rk.stats) == tuple(rp.stats)
+    it = rk.iterations
+    t0 = rp.rr_trace[:it].numpy()
+    above, tol = np.ones(it, bool), 1e-4 if precond else 1e-5
+    if layout == "split":
+        above, tol = t0 > (t0[0] * 1e-5 if it else 0), 1e-3
+    np.testing.assert_allclose(rk.rr_trace[:it].cpu().numpy()[above],
+                               t0[above], rtol=tol)
+    if mode == "secded":
+        live = make_fused_solver(m, mode, 300, 1e-8, precond=precond)(
+            make_matrix_device(m, torch.float32, dev), b.to(dev), *args)
+        assert torch.equal(rk.x, live.x)
+
+
+@pytest.mark.parametrize("shape", ["dia", "ell", "flat"])
+def test_detection_free_product_matches_plain(dev, shape):
+    """Kernels A, C and E under product_spec: no signal plane, the gather
+    masking of the mode kept; w bit-exact (A: to 1e-6) against the plain
+    version, a constant-False trigger even on a faulted matrix."""
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
+        flat_fast,
+        make_cuda_product,
+    )
+
+    m = {"dia": lambda: dia_matrix("secded"),
+         "ell": lambda: ell_matrix("secded", "permuted"),
+         "flat": lambda: flat_matrix("secded", "powerlaw")}[shape]()
+    kernel = {"dia": dia_fast, "ell": ell_fast, "flat": flat_fast}[shape]
+    prod = make_cuda_product(m)
+    x = torch.tensor(np.random.default_rng(5).random(m.R),
+                     dtype=torch.float32)
+    for mm in (m, faulted(m, 1, 31)):
+        before = kernel.product_launches
+        wk, tk, pk = prod.fast_pw(make_matrix_device(mm, torch.float32, dev),
+                                  x.to(dev))
+        assert kernel.product_launches == before + 1
+        wp, tp, pp = prod.fast_pw(make_matrix_device(mm, torch.float32, CPU),
+                                  x)
+        tol = 1e-6 if shape == "dia" else 0
+        torch.testing.assert_close(wk.cpu(), wp, rtol=tol, atol=0,
+                                   equal_nan=True)
+        torch.testing.assert_close(pk.cpu(), pp, rtol=1e-5, atol=0,
+                                   equal_nan=True)
+        assert not bool(tk) and not bool(tp)
+
+
+@pytest.mark.parametrize("shape", ["flat", "band-split"])
+def test_per_iteration_lazy(dev, shape):
+    """The per-iteration tier's lazy loop on the card: a clean solve's x
+    equals the live one's, a faulted one is corrected through a rollback
+    to the same x."""
+    from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
+    from abft_sparse_cg_tpu_torch.utils.matzoo import band_plus_random
+
+    if shape == "flat":
+        m = flat_matrix("secded", "powerlaw")
+    else:
+        rows, cols, vals, n = band_plus_random(n=16384)
+        m = build_protected("csr", assemble(cols, rows, vals, n, 1),
+                            "secded")
+    b = np.random.default_rng(1).random(m.N)
+    be = CudaBackend("secded")
+    live = be.solve(m, b, 500, 1e-8, reps=1)
+    lazy = be.solve(m, b, 500, 1e-8, reps=1, check_interval=4)
+    assert lazy.iterations == live.iterations
+    np.testing.assert_array_equal(lazy.x, live.x)
+    fixed = be.solve(faulted(m, 1, 6), b, 500, 1e-8, reps=1,
+                     check_interval=4)
+    assert fixed.corrected_count == 1 and not fixed.failed
+    np.testing.assert_array_equal(fixed.x, live.x)

@@ -75,6 +75,22 @@ def test_check_and_correct_every_1_and_2_bit_flip(layout, mode):
 
 
 @pytest.mark.parametrize("layout", [CSR96, COO128], ids=["csr96", "coo128"])
+@pytest.mark.parametrize("mode", ["none", "sed", "sec7", "sec8", "secded"])
+def test_check_and_correct_np_every_1_and_2_bit_flip(layout, mode):
+    """The NumPy host path (the Jacobi diagonal, the refinement residual)
+    against the JAX codec's NumPy path: planes and flags, dtypes
+    included."""
+    words = flipped(layout, mode, seed=9)
+    jw, jf = jcodec.check_and_correct(mode, words, layout)
+    tw, tf = codec.check_and_correct_np(mode, words, layout)
+    for a, b in zip(jw, tw):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    for k in jf:
+        assert np.asarray(jf[k]).dtype == tf[k].dtype, k
+        np.testing.assert_array_equal(np.asarray(jf[k]), tf[k], k)
+
+
+@pytest.mark.parametrize("layout", [CSR96, COO128], ids=["csr96", "coo128"])
 def test_parity_syndrome_decode_match(layout):
     words = flipped(layout, "sec7", seed=8)
     jw = [jnp.asarray(w) for w in words]
