@@ -55,7 +55,7 @@ Phases:
  11. kernel D vs its plain loop: a clean and a faulted secded solve on
      dense-radius-3d -b 10;
  12. the ELL main path: the four run_tests classes through main_csr with
-     -t cuda -f <file> -b 2 --seed 11, the .mtx file written by the
+     -t cuda -f <file> -b 4 --seed 11, the .mtx file written by the
      port's mmio into a temporary directory; launch counts reset before
      and read after;
  13. the ELL float32 trajectory against the port's float64 plain solve;
@@ -74,9 +74,9 @@ Phases:
      secded, clean and two faults (trace within 1e-3 above float32's
      noise floor);
  18. the flat and split main paths: the four run_tests classes through
-     main_csr -t cuda -f <file> -b 2 --seed 11 on powerlaw-graph,
-     band+random-1pct and arrowhead (-b 10 is timed in phase 21), launch
-     counts reset before each file and read after;
+     main_csr -t cuda -f <file> -b 10 --seed 11 on powerlaw-graph,
+     band+random-1pct and arrowhead, launch counts reset before each
+     file and read after;
  19. their float32 trajectories against the float64 plain solve (run
      on the card), to rr0 * 1e-8;
  20. wide-band ELL (stencil27-shuffled -b 10): kernel C vs plain, kernel
@@ -91,7 +91,11 @@ Phases:
      to the live instance's bit for bit, the trace within 1e-3 above
      float32's noise floor), one fault corrected (through a rollback
      under the lazy schedule: x equal to the clean solve's), a sed
-     fail-stop (DIA; ELL at -b 4);
+     fail-stop (DIA; ELL at -b 4); then B's Jacobi and lazy Jacobi
+     instances on the DIA -b 10 matrix with its diagonal scaled row by
+     row (the bundled one is constant, where M^-1 = I / d leaves CG's
+     path unchanged), where the plain loop's Jacobi path must leave its
+     unpreconditioned one by far more than the check's tolerance;
  23. kernel B at DIA -b 100, what the TPU routes to its streaming
      kernel: live, lazy CI 32 and Jacobi against the plain loop;
  24. the detection-free products of kernels A, C and E (no signal
@@ -101,9 +105,10 @@ Phases:
  25. the solver options on the main paths: the run_tests classes
      through main_csr -t cuda -b 10 --seed 11 with --check-interval 4,
      -p jacobi and both, a --refine 2 run, -b 100 with CI 32, and a
-     secded -x run with each option on dense-radius-3d -b 2, arrowhead
-     -b 4, powerlaw-graph and band+random-1pct -b 10; launch counts of
-     each instance reset before each path and read after;
+     secded -x run with each option on dense-radius-3d, arrowhead,
+     powerlaw-graph and band+random-1pct, all -b 10; launch counts of
+     each instance reset before each path and read after (the kernels
+     line's counts come from these runs);
  26. solver-option times: secded over none at CI 1, 4 and 32 and
      Jacobi over unpreconditioned on DIA -b 10 and -b 100, dense-
      radius-3d -b 10 and powerlaw-graph -b 10 (slope, GB/s), each new
@@ -123,6 +128,7 @@ result.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -901,12 +907,12 @@ def main():
 
     # ---- 12. ELL main path ------------------------------------------------
     phase("12. ELL main path: run_tests classes, cg-csr -t cuda -f "
-          "dense-radius-3d.mtx -b 2 --seed 11 (-b 10 is timed in 14)")
+          "dense-radius-3d.mtx -b 4 --seed 11 (-b 10 is timed in 14)")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "dense-radius-3d.mtx")
         write_mm_triangle(path, *dense_radius_3d())
         reset_launches()
-        run_tests_classes(main_csr, ["-f", path, "-b", "2", "--seed", "11",
+        run_tests_classes(main_csr, ["-f", path, "-b", "4", "--seed", "11",
                                      "-t", "cuda"])
         ell_launches = {"ell_spmv_detect": ell_fast.launches,
                         "fused_cg_ell": fused_cg_ell.launches}
@@ -1086,7 +1092,7 @@ def main():
 
     # ---- 18. the flat and split main paths ---------------------------------
     phase("18. flat and split main paths: run_tests classes, cg-csr -t cuda "
-          "-f <file> -b 2 --seed 11 (-b 10 is timed in 21)")
+          "-f <file> -b 10 --seed 11")
     path_launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, need in (("powerlaw-graph", ("flat_spmv_detect",)),
@@ -1098,7 +1104,7 @@ def main():
             write_mm_triangle(path, *ZOO[name][0]())
             t0 = time.perf_counter()
             reset_launches()
-            run_tests_classes(main_csr, ["-f", path, "-b", "2", "--seed",
+            run_tests_classes(main_csr, ["-f", path, "-b", "10", "--seed",
                                          "11", "-t", "cuda"])
             got = {"dia_spmv_detect": dia_fast.launches,
                    "ell_spmv_detect": ell_fast.launches,
@@ -1419,6 +1425,39 @@ def main():
                 check_sed(msed, name, label, precond, ci)
         del mdv
 
+    # The bundled matrix's diagonal is constant: there M^-1 = I / d and
+    # Jacobi PCG takes plain CG's path, so a kernel B that ignored or
+    # misindexed M^-1 would still match.  Scaled row by row by up to 10x,
+    # the diagonal tells the two apart.
+    on_diag = a10.rows == a10.cols
+    vals = a10.values.copy()
+    vals[on_diag] *= 1.0 + 9.0 * np.random.default_rng(2).random(
+        int(on_diag.sum()))
+    mv = build_protected("csr", dataclasses.replace(a10, values=vals), "secded")
+    require(mv.exec_kind == "dia", "scaled-diagonal -b 10: DIA layout")
+    mdv, spec_v, bv, mi = (make_matrix_device(mv, f32, dev),
+                           dia_spec(mv, "secded"), bvec_of(mv), minv_of(mv))
+    m1 = inject_bitflips(mv, "ANY", 1, np.random.default_rng(12),
+                         echo=lambda s: None)
+    label = "DIA -b 10 scaled diagonal"
+    for vname, ci in (("Jacobi", 1), ("lazy Jacobi", 4)):
+        xk = check_variant(fused_cg_dia, fused_cg_dia_plain, mdv, spec_v, bv,
+                           vname, label, mi, ci)
+        check_faulted_variant(m1, "secded", vname, label, True, ci, xk,
+                              False, mv)
+        (ij, *_), _, trj = run_loop(fused_cg_dia_plain, mdv, spec_v, bv,
+                                    minv=mi, ci=ci)
+        (iu, *_), _, tru = run_loop(fused_cg_dia_plain, mdv, spec_v, bv,
+                                    ci=ci)
+        k = min(ij, iu)
+        apart = (float(((trj[:k] - tru[:k]).abs() / tru[:k].abs()).max())
+                 if k else 0.0)
+        print(f"{label} {vname}: the plain loop takes {ij} it with M^-1, "
+              f"{iu} without; traces apart by {apart:.2e} (rel)")
+        require(ij != iu or apart > 1e-2,
+                f"{label} {vname}: Jacobi indistinguishable from plain CG")
+    del mdv
+
     # ---- 23. kernel B at -b 100: the streaming kernel's counterpart -------
     phase("23. kernel B at DIA -b 100 (what the TPU routes to "
           "_make_streaming_kernel): live, lazy CI 32 and Jacobi vs plain")
@@ -1570,12 +1609,12 @@ def main():
             files[name] = os.path.join(tmp, f"{name}.mtx")
             write_mm_triangle(files[name], *gen())
         for name, blocks, flag_sets, need in (
-                ("dense-radius-3d", "2",
+                ("dense-radius-3d", "10",
                  (["--check-interval", "4"], ["-p", "jacobi"],
                   ["-p", "jacobi", "--check-interval", "4"]),
                  ["fused_cg_ell (lazy)", "fused_cg_ell (Jacobi)",
                   "fused_cg_ell (lazy Jacobi)"]),
-                ("arrowhead", "4",
+                ("arrowhead", "10",
                  (["--check-interval", "4"], ["-p", "jacobi"],
                   ["-p", "jacobi", "--check-interval", "4"]),
                  ["fused_cg_dia (split tail lazy)",
@@ -1737,7 +1776,7 @@ def main():
             fused_cg_ell_plain, m, ell_spec(m, "secded"), mdv, bvec_of(m),
             minv_of(m) if precond else None, ci, ell_iter_bytes("none", m),
             ell_sig(m), 2 * m.nnz + 10 * m.R,
-            path_counts["dense-radius-3d -b 2"][f"fused_cg_ell ({name})"],
+            path_counts["dense-radius-3d -b 10"][f"fused_cg_ell ({name})"],
             reps=1, batches=3))
     del mdv
     m = splits["arrowhead"][1]["secded"]
@@ -1754,7 +1793,7 @@ def main():
             split_iter_bytes("none", m),
             split_iter_bytes("secded", m) - split_iter_bytes("none", m),
             2 * len(m.dia_offsets) * m.R + 10 * m.R + 4 * T_a * S_a,
-            path_counts["arrowhead -b 4"][
+            path_counts["arrowhead -b 10"][
                 f"fused_cg_dia (split tail {name})"], tail=tl))
     del mda
     # The detection-free products, per call against plain and A @ x.

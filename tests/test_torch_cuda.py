@@ -352,9 +352,21 @@ def jacobi_minv(m, device):
     return minv.to(device)
 
 
+def varied_dia_matrix(mode, n=4096, blocks=2):
+    """dia_matrix with its diagonal scaled row by row by up to 10x: a
+    Jacobi M^-1 that is not a multiple of I, so that a Jacobi instance
+    that ignored or misindexed it would leave the plain loop."""
+    rows, cols, vals, n = spd_tridiagonal(n)
+    diag = rows == cols
+    vals = vals.copy()
+    vals[diag] *= 1.0 + 9.0 * np.random.default_rng(2).random(diag.sum())
+    return build_protected("csr", assemble(cols, rows, vals, n, blocks),
+                           mode)
+
+
 def fused_matrix(layout, mode):
     if layout == "dia":
-        return dia_matrix(mode)
+        return varied_dia_matrix(mode)
     if layout == "ell":
         return ell_matrix(mode)
     return split_matrix(mode, "dia")
@@ -402,6 +414,21 @@ def test_fused_instances_match_plain(dev, layout, variant, mode, flips,
         live = make_fused_solver(m, mode, 300, 1e-8, precond=precond)(
             make_matrix_device(m, torch.float32, dev), b.to(dev), *args)
         assert torch.equal(rk.x, live.x)
+    if precond and not flips:
+        # These diagonals vary: the unpreconditioned solve leaves the
+        # Jacobi one far past the tolerance above, so the comparison can
+        # tell a kernel that ignored M^-1 from one that applied it.
+        un = make_fused_solver(m, mode, 300, 1e-8, check_interval=ci)(
+            make_matrix_device(m, torch.float32, CPU), b)
+        assert not same_trajectory(un, rp, 1e-2)
+
+
+def same_trajectory(r1, r2, rtol):
+    """Equal iteration counts and rr traces within ``rtol``."""
+    it = r1.iterations
+    return it == r2.iterations and np.allclose(
+        r1.rr_trace[:it].cpu().numpy(), r2.rr_trace[:it].cpu().numpy(),
+        rtol=rtol, atol=0)
 
 
 @pytest.mark.parametrize("shape", ["dia", "ell", "flat"])
