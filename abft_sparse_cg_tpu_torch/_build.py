@@ -42,12 +42,15 @@ _TAIL = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I]
 # partials, the x/r/p snapshot, the check interval, the snapshot's
 # itr and rr/rz outputs.
 _OPTS = [_P, _P, _P, _P, _P, _I, _P, _P]
+# One launch per SpMV call (kernels A and E): the pw partials and signal
+# flags (scratch), the 0-d pw and trigger.
+_CALL = [_P, _P, _P, _P]
 # source name -> {C function: argtypes}
 _SIGNATURES = {
     "dia_spmv_detect": {
-        "abft_dia_spmv_detect": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
-                                 _I, _P, _I, _P],
-        "abft_dia_spmv_block": [],
+        "abft_dia_spmv_detect": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+                                 *_CALL, _I, _P],
+        "abft_dia_spmv_grid": [_I],
     },
     "fused_cg_dia": {
         "abft_fused_grid": [_I, _I, _I, _I, _P],
@@ -67,9 +70,10 @@ _SIGNATURES = {
                               _P, _I, _F, *_TAIL, *_OPTS, _I, _P],
     },
     "flat_spmv_detect": {
-        "abft_flat_spmv_detect": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _I,
-                                  _P, _P, _I, _I, _P, _I, _P],
-        "abft_flat_spmv_block": [],
+        "abft_flat_spmv_detect": [_P, _P, _U, _P, _P, _I, _P, _P, _I, _P,
+                                  _P, _P, _P, _I, _I, *_CALL, _I, _P],
+        "abft_flat_spmv_tile": [],
+        "abft_flat_spmv_run_rows": [],
     },
 }
 

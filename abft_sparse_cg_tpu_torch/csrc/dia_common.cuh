@@ -1,8 +1,9 @@
 // Shared device code of the five kernels (dia_spmv_detect.cu,
 // fused_cg_dia.cu, ell_spmv_detect.cu, fused_cg_ell.cu,
 // flat_spmv_detect.cu): the DIA stencil and banded-ELL row products, the
-// live ABFT signals, fixed-order block and grid reductions, and the
-// split tail pass of the fused kernels.
+// live ABFT signals, fixed-order block and grid reductions, the one-launch
+// epilogue of kernels A and E, and the split tail pass of the fused
+// kernels.
 //
 // Arithmetic order.  The row products sum the diagonals (d = 0..D-1) or
 // the slots (k = 0..ell_len[r]-1) in order with explicitly rounded
@@ -204,6 +205,23 @@ __device__ __forceinline__ int flat_signals(const DiaSignals& s, int E,
   return bad;
 }
 
+// flat_signals with the slot's word ``v`` and, where j % 8 == 0, its
+// block's baseline ``b`` already loaded (kernel E issues the loads of
+// several slots before their checks); the same rules.
+__device__ __forceinline__ int flat_signals_of(const DiaSignals& s, int E,
+                                               int j, uint32_t v,
+                                               uint32_t b) {
+  int bad = s.use_parity ? (__popc(v) & 1) : 0;
+  if (s.use_cksum) {
+    uint32_t acc = v;
+    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 1);
+    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 2);
+    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 4);
+    if ((j & 7) == 0 && j < E && acc != b) bad = 1;
+  }
+  return bad;
+}
+
 // Sum of a warp's 32 lane values in a fixed XOR butterfly (offsets 16,
 // 8, 4, 2, 1); every lane gets the total.  ops.spmv.flat_product repeats
 // this order.
@@ -240,6 +258,85 @@ __device__ __forceinline__ int block_any(int v, int* buf) {
   const int any = buf[0];
   __syncthreads();
   return any;
+}
+
+// ---- One launch per SpMV call (kernels A and E) ---------------------------
+//
+// Every block but block 0 writes its pw partial and its signal flag and
+// counts itself in with a release add, and is done.  Block 0, after its
+// own work, waits for the count (the other blocks wait on nothing, so
+// they all finish), sums the partials in a fixed order, writes pw and
+// the 0-d bool trigger, and resets the counter for the next call.  So a
+// call is one launch, with no fill of the trigger and no reduction
+// kernel after it, and pw is deterministic for a given grid.  The counter
+// is a __device__ variable of the kernel's library, zero when it loads:
+// two launches of one kernel must not run at once (the port issues them
+// all on one stream).
+struct CallOut {
+  float* part;            // (grid) pw partials; scratch
+  int* flags;             // (grid) signal flags; scratch
+  float* pw;              // 0-d: x . w
+  unsigned char* trig;    // 0-d bool: the signals fired
+};
+
+__device__ __forceinline__ void red_add_release(unsigned int* p,
+                                                unsigned int v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned int load_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// ``buf`` holds at least 33 floats and ``ibuf`` 33 ints of shared memory.
+__device__ __forceinline__ void finish_call(float pw, int bad,
+                                            const CallOut& o,
+                                            unsigned int* arrive, float* buf,
+                                            int* ibuf) {
+  // The block's sum (warp butterflies, then the warps in order) and OR,
+  // in thread 0.
+  for (int off = 16; off > 0; off >>= 1)
+    pw += __shfl_xor_sync(ABFT_FULL_MASK, pw, off);
+  bad = __any_sync(ABFT_FULL_MASK, bad);
+  if ((threadIdx.x & 31) == 0) {
+    buf[threadIdx.x >> 5] = pw;
+    ibuf[threadIdx.x >> 5] = bad;
+  }
+  __syncthreads();
+  float total = 0.0f;
+  int any = 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
+      total += buf[i];
+      any |= ibuf[i];
+    }
+    if (blockIdx.x != 0) {
+      o.part[blockIdx.x] = total;
+      o.flags[blockIdx.x] = any;
+      red_add_release(arrive, 1u);
+    } else {
+      while (load_acquire(arrive) != gridDim.x - 1) __nanosleep(64);
+    }
+  }
+  if (blockIdx.x != 0) return;
+  __syncthreads();
+  float v = 0.0f;
+  int f = 0;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x) {
+    v += i ? __ldcg(o.part + i) : total;
+    f |= i ? __ldcg(o.flags + i) : any;
+  }
+  v = block_sum(v, buf);
+  f = block_any(f, ibuf);
+  if (threadIdx.x == 0) {
+    *o.pw = v;
+    *o.trig = f ? 1 : 0;
+    *arrive = 0;
+  }
 }
 
 // ---- The split tail of the fused kernels B and D --------------------------

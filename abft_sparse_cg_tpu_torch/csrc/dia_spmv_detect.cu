@@ -4,7 +4,8 @@
 // _make_dia_fast (pallas_call at :519): w[r] = sum_d vals[d, r] *
 // x[r + off_d] (zero outside [0, R)), the fused pw = x . w, and the
 // mode's trigger signals (parity and/or 8-row-block checksum of the one
-// streamed word plane; dia_common.cuh).
+// streamed word plane; dia_common.cuh).  With no plane it is the
+// detection-free product of the lazy schedule.
 //
 // What bounds it on the H100: bytes.  Per row it reads D values (f32),
 // D signal words (u32, ECC and constraints modes), ~1 x element (the
@@ -12,16 +13,22 @@
 // tridiagonal secded case against ~2*D + 1 flops, far below the card's
 // ~20 flop/B balance point, so the kernel can at best run at memory
 // speed (3.35 TB/s HBM; the -b 10 working set of ~33 MB sits in the
-// 50 MB L2).
+// 50 MB L2).  At -b 10 a call moves ~26 MB: ~8 us at the HBM rate, less
+// than the fixed cost of a launch and its host call.
 //
-// What the design does about it: each plane is read exactly once, in
-// coalesced row-contiguous order (one thread per row, grid-stride loop,
-// each diagonal's row slice is a contiguous run); the signals ride the
-// same pass so detection costs no second read; nothing but w, one
-// float per block (pw partial) and one int (trigger) is written.  The
-// per-block pw partials are summed by the caller in a fixed order (the
-// JAX side sums pw_vec outside its kernel too, spmv_pallas.py:526).
-// The trigger is an int OR-ed once per warp with atomicOr.
+// What the design does about it: each thread takes 4 consecutive rows,
+// so every diagonal's values and signal words arrive in one 16-byte load
+// (R % 32 == 0 and plane row d starts at d * R: aligned), x[r + off_d]
+// stays a scalar read-only load, and the grid is sized to the rows (one
+// wave of R / 1024 blocks, not a grid-stride loop over a capped grid).
+// Each row still adds its D products in diagonal order with explicitly
+// rounded multiplies and adds, so w is bit-identical to ops/spmv.py::
+// dia_product.  An exact 8-row checksum block is two adjacent threads:
+// one shuffle closes it.  The call is one launch: block 0 waits for the
+// other blocks' pw partials and flags, sums them in a fixed order and
+// writes pw and the trigger (finish_call, dia_common.cuh), where the
+// caller used to fill the trigger and reduce the partials in two more
+// device operations.
 //
 // Interface: plain C, called through ctypes (abft_sparse_cg_tpu_torch/
 // _build.py).  Launches on the caller's stream, allocates nothing, and
@@ -32,40 +39,80 @@
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kRows = 4;   // rows per thread
+
+__device__ unsigned int g_arrive;   // finish_call's counter
+
+__device__ __forceinline__ float x_at(const float* __restrict__ x, int c,
+                                      int R) {
+  return (c >= 0 && c < R) ? __ldg(x + c) : 0.0f;
+}
 
 __global__ void __launch_bounds__(kBlock)
 dia_spmv_detect_kernel(const float* __restrict__ vals, DiaOffsets offs,
                        int R, const float* __restrict__ x,
-                       float* __restrict__ w, float* __restrict__ pw_part,
-                       DiaSignals sig, int* __restrict__ trig) {
+                       float* __restrict__ w, DiaSignals sig, CallOut out) {
   __shared__ float fbuf[33];
-  __shared__ int ibuf[1];
+  __shared__ int ibuf[33];
+  const int t = blockIdx.x * kBlock + threadIdx.x;
+  const int r = kRows * t;
   float pw = 0.0f;
   int bad = 0;
-  const int stride = gridDim.x * blockDim.x;
-  // R % 32 == 0 and stride % 32 == 0: whole warps take the same trips,
-  // as dia_row_signals' shuffles require.
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < R; r += stride) {
-    const float wr = dia_row<false>(vals, offs, R, x, r);
-    w[r] = wr;
-    pw = __fadd_rn(pw, __fmul_rn(__ldg(x + r), wr));
-    if (sig.plane != nullptr) bad |= dia_row_signals(sig, offs.n, R, r);
+  if (r < R) {
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+    for (int d = 0; d < offs.n; ++d) {
+      const float4 v = __ldg(
+          reinterpret_cast<const float4*>(vals + (size_t)d * R + r));
+      const int c = r + offs.off[d];
+      a0 = __fadd_rn(a0, __fmul_rn(v.x, x_at(x, c, R)));
+      a1 = __fadd_rn(a1, __fmul_rn(v.y, x_at(x, c + 1, R)));
+      a2 = __fadd_rn(a2, __fmul_rn(v.z, x_at(x, c + 2, R)));
+      a3 = __fadd_rn(a3, __fmul_rn(v.w, x_at(x, c + 3, R)));
+    }
+    *reinterpret_cast<float4*>(w + r) = make_float4(a0, a1, a2, a3);
+    pw = __fadd_rn(pw, __fmul_rn(__ldg(x + r), a0));
+    pw = __fadd_rn(pw, __fmul_rn(__ldg(x + r + 1), a1));
+    pw = __fadd_rn(pw, __fmul_rn(__ldg(x + r + 2), a2));
+    pw = __fadd_rn(pw, __fmul_rn(__ldg(x + r + 3), a3));
   }
-  const float total = block_sum(pw, fbuf);
-  if (threadIdx.x == 0) pw_part[blockIdx.x] = total;
-  if (block_any(bad, ibuf) && threadIdx.x == 0) atomicOr(trig, 1);
+  if (sig.plane != nullptr) {
+    // R / 4 is a multiple of 8: both threads of an 8-row block are in
+    // range or both are not, and every lane takes the shuffle.
+    uint32_t acc = 0;
+    if (r < R) {
+      for (int d = 0; d < offs.n; ++d) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+            sig.plane + (size_t)d * R + r));
+        if (sig.use_parity)
+          bad |= (__popc(u.x) | __popc(u.y) | __popc(u.z) | __popc(u.w)) & 1;
+        acc ^= u.x ^ u.y ^ u.z ^ u.w;
+      }
+    }
+    if (sig.use_cksum) {
+      acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 1);
+      if (r < R && (t & 1) == 0 && acc != __ldg(sig.base + (r >> 3)))
+        bad = 1;
+    }
+  }
+  finish_call(pw, bad, out, &g_arrive, fbuf, ibuf);
 }
+
+int grid_of(int R) { return (R + kRows * kBlock - 1) / (kRows * kBlock); }
 
 }  // namespace
 
+extern "C" int abft_dia_spmv_grid(int R) { return grid_of(R); }
+
+// ``part`` and ``flags`` hold abft_dia_spmv_grid(R) entries; ``vals``,
+// ``plane`` are 16-byte aligned.
 extern "C" int abft_dia_spmv_detect(const float* vals, const int* offsets,
                                     int D, int R, const float* x, float* w,
-                                    float* pw_part, int grid,
                                     const uint32_t* plane,
                                     const uint32_t* base, int use_parity,
-                                    int use_cksum, int* trig, int device,
-                                    void* stream) {
-  if (D < 1 || D > ABFT_MAX_D || R % 32 != 0 || grid < 1)
+                                    int use_cksum, float* part, int* flags,
+                                    float* pw, unsigned char* trig,
+                                    int device, void* stream) {
+  if (D < 1 || D > ABFT_MAX_D || R < 32 || R % 32 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -73,9 +120,8 @@ extern "C" int abft_dia_spmv_detect(const float* vals, const int* offsets,
   offs.n = D;
   for (int d = 0; d < D; ++d) offs.off[d] = offsets[d];
   DiaSignals sig{plane, base, use_parity, use_cksum};
-  dia_spmv_detect_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      vals, offs, R, x, w, pw_part, sig, trig);
+  CallOut out{part, flags, pw, trig};
+  dia_spmv_detect_kernel<<<grid_of(R), kBlock, 0, (cudaStream_t)stream>>>(
+      vals, offs, R, x, w, sig, out);
   return (int)cudaGetLastError();
 }
-
-extern "C" int abft_dia_spmv_block(void) { return kBlock; }

@@ -71,6 +71,9 @@ __all__ = [
     "take_clamped",
     "ell_product",
     "flat_product",
+    "flat_row_blocks",
+    "FLAT_TILE",
+    "FLAT_RUN_ROWS",
     "exec_gather_host",
     "combine_impls",
     "dense_tail_plan",
@@ -165,6 +168,11 @@ class MatrixDevice(NamedTuple):
     row_ptr: torch.Tensor = None   # flat: (R+1,) int32 first slot of each
     #                                row, from the clean flat_group (the
     #                                port's addition: kernel E's rows)
+    flat_plan: torch.Tensor = None  # flat: (B, 4) int32 kernel E's row
+    #                                blocks (flat_row_blocks), from row_ptr
+    flat_sync: torch.Tensor = None  # flat: (B,) int32 zeros, kernel E's
+    #                                long-row chunk flags (zero between
+    #                                calls: the kernel clears them)
     dense_td: torch.Tensor = None  # dense-plan tails: (T, S) span-
     #                                densified outlier rows
     dense_tb: torch.Tensor = None  # (T, S) span-densified transpose
@@ -196,7 +204,8 @@ def make_matrix_device(mat, dtype: torch.dtype, device: torch.device):
     the value plane (truncating f32 conversion for float32), the fold
     and its checksum baseline — all from the same words — and, under a
     permutation, the gather plane and ``perm_pos``; for a flat matrix
-    also ``flat_group``, the row pointer and a dense-plan tail's
+    also ``flat_group``, the row pointer, kernel E's row-block plan and
+    a dense-plan tail's
     ``dense_td``/``dense_tb``, like the reference (ops/spmv.py:333-405).
     A split matrix uploads as a (main, tail) pair."""
     if mat.exec_kind == "split":
@@ -227,8 +236,16 @@ def make_matrix_device(mat, dtype: torch.dtype, device: torch.device):
     grp = np.asarray(mat.ell["__flat_group__"], np.int32)
     row_ptr = np.searchsorted(grp[: mat.nnz], np.arange(mat.R + 1),
                               side="left").astype(np.int32)
-    md = md._replace(flat_group=torch.from_numpy(grp).to(device),
-                     row_ptr=torch.from_numpy(row_ptr).to(device))
+    if mat.exec_size != -(-mat.nnz // 8) * 8:
+        # kernel E's blocks check the signals of [0, ceil8(nnz)) only
+        raise ValueError(f"flat planes of {mat.exec_size} slots for "
+                         f"{mat.nnz} entries: expected nnz rounded up to 8")
+    plan = flat_row_blocks(row_ptr)
+    md = md._replace(
+        flat_group=torch.from_numpy(grp).to(device),
+        row_ptr=torch.from_numpy(row_ptr).to(device),
+        flat_plan=torch.from_numpy(plan).to(device),
+        flat_sync=torch.zeros(len(plan), dtype=torch.int32, device=device))
     if mat.dense_plan is not None:
         cfg = _config(mat, mat.mode)
         td, tb = cfg.dense_arrays(wide, values, md.flat_group, perm_pos)
@@ -744,6 +761,41 @@ def flat_product(values: torch.Tensor, gidx: torch.Tensor,
     for o in (16, 8, 4, 2, 1):
         lanes = lanes + lanes[:, lane ^ o]
     return lanes[:, 0].contiguous()
+
+
+# Kernel E's row-block plan (csrc/flat_spmv_detect.cu kTile, kRunRows).
+FLAT_TILE = 2048        # slots of one block's shared-memory tile
+FLAT_RUN_ROWS = 1024    # rows of one run
+
+
+def flat_row_blocks(row_ptr, tile: int = FLAT_TILE,
+                    run_rows: int = FLAT_RUN_ROWS) -> np.ndarray:
+    """Kernel E's thread blocks, ``(B, 4)`` int32, from the CSR row
+    pointer: ``(first row, end row, first slot, end slot)`` for a run of
+    consecutive rows whose slots together fit one tile (greedy, at most
+    ``run_rows`` rows), and ``(row, -1 - (first | last << 1), first slot,
+    end slot)`` for each tile-sized chunk of a row of more than ``tile``
+    slots (a long row: its chunks' blocks hand the row's running lane
+    sums on in order).  Every slot and every row is in exactly one
+    block; the chunks come first, each row's in order, so that they
+    start first.  One searchsorted per block."""
+    ptr = np.asarray(row_ptr, np.int64)
+    R = len(ptr) - 1
+    runs, chunks = [], []
+    r = 0
+    while r < R:
+        end = int(np.searchsorted(ptr, ptr[r] + tile, side="right")) - 1
+        end = min(end, r + run_rows, R)
+        if end > r:
+            runs.append((r, end, ptr[r], ptr[end]))
+            r = end
+            continue
+        for c in range(int(ptr[r]), int(ptr[r + 1]), tile):
+            flags = (c == ptr[r]) | (c + tile >= ptr[r + 1]) << 1
+            chunks.append((r, -1 - flags, c, min(c + tile, ptr[r + 1])))
+        r += 1
+    return np.asarray(chunks + runs, np.int64).reshape(-1, 4).astype(
+        np.int32)
 
 
 class _FlatConfig(_EllConfig):

@@ -37,6 +37,8 @@ import torch
 from ..ecc.codec import ECC_MODES, parity32, widen
 from ..ecc.layout import ECC_COL_MASK
 from .spmv import (
+    FLAT_RUN_ROWS,
+    FLAT_TILE,
     MatrixDevice,
     SpmvImpl,
     SpmvStats,
@@ -51,6 +53,7 @@ from .spmv import (
 )
 
 __all__ = ["DiaSpec", "dia_spec", "dia_fast", "dia_fast_plain",
+           "dia_launcher", "flat_launcher",
            "EllSpec", "ell_spec", "ell_fast", "ell_fast_plain",
            "FlatSpec", "flat_spec", "flat_fast", "flat_fast_plain",
            "make_cuda_spmv", "make_cuda_product", "product_spec",
@@ -241,12 +244,11 @@ def _check_x(x: torch.Tensor, what) -> int:
     return R
 
 
-def _check_cuda_args(md: MatrixDevice, x: torch.Tensor, spec, what):
-    """Validate the kernel arguments of a DIA or ELL product; returns
-    (D or K, R, signal plane, baseline, gather plane or None)."""
-    R = _check_x(x, what)
+def _check_planes(md: MatrixDevice, spec, R, dev, what):
+    """Validate the planes of a DIA or ELL product over R rows on
+    ``dev``; returns (D or K, signal plane, baseline, gather plane or
+    None)."""
     D = len(spec.offsets) if isinstance(spec, DiaSpec) else spec.K
-    dev = x.device
     _check_tensor(what, "values", md.values, torch.float32, (D, R), dev)
     gsrc = None
     if isinstance(spec, EllSpec):
@@ -257,6 +259,14 @@ def _check_cuda_args(md: MatrixDevice, x: torch.Tensor, spec, what):
     if plane is not None:
         _check_tensor(what, "signal plane", plane, torch.int32, (D, R), dev)
         _check_tensor(what, "baseline", base, torch.int32, (R // 8,), dev)
+    return D, plane, base, gsrc
+
+
+def _check_cuda_args(md: MatrixDevice, x: torch.Tensor, spec, what):
+    """Validate x and the planes of a DIA or ELL product; returns (D or
+    K, R, signal plane, baseline, gather plane or None)."""
+    R = _check_x(x, what)
+    D, plane, base, gsrc = _check_planes(md, spec, R, x.device, what)
     return D, R, plane, base, gsrc
 
 
@@ -274,36 +284,74 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _launch_check(x, R, dev, what):
+    """A launcher's per-call check of x: a contiguous float32 vector of
+    the R rows it was made for, on its device."""
+    if (x.device != dev or x.dtype != torch.float32 or x.shape != (R,)
+            or not x.is_contiguous()):
+        raise ValueError(f"{what}: x must be a contiguous float32 tensor "
+                         f"of shape ({R},) on {dev}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def _call_outputs(x):
+    """A call's fresh outputs: w, the 0-d bool trigger, the 0-d pw."""
+    return (torch.empty_like(x),
+            torch.empty((), dtype=torch.bool, device=x.device),
+            torch.empty((), dtype=torch.float32, device=x.device))
+
+
+def _scratch(grid, dev):
+    """(tensor, pw partials pointer, flags pointer) of a launcher's
+    scratch: ``grid`` floats and ``grid`` ints, reused by every call on
+    its stream (the outputs are not)."""
+    t = torch.empty(2 * grid, dtype=torch.int32, device=dev)
+    return t, t.data_ptr(), t.data_ptr() + 4 * grid
+
+
+def dia_launcher(md: MatrixDevice, spec: DiaSpec, dev: torch.device):
+    """Kernel A for ``md`` and ``spec`` on CUDA device ``dev``: checks the
+    planes and resolves the library, grid and scratch once; the returned
+    function launches the kernel on x (one device launch, no host
+    synchronisation) and returns ``(w, trig, pw)``."""
+    from .._build import check, library
+
+    R = md.values.shape[-1] if md.values is not None else -1
+    D, plane, base, _ = _check_planes(md, spec, R, dev, "dia_fast")
+    for name, t in (("values", md.values), ("signal plane", plane)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"dia_fast: {name} must be 16-byte aligned")
+    lib = library("dia_spmv_detect")
+    scratch, part, flags = _scratch(lib.abft_dia_spmv_grid(R), dev)
+    offs, offs_ptr = _offsets_arg(spec.offsets)
+    head = (md.values.data_ptr(), offs_ptr, D, R)
+    sig = (_ptr(plane), _ptr(base), int(spec.use_parity),
+           int(spec.use_cksum), part, flags)
+    fn, index, product = lib.abft_dia_spmv_detect, dev.index, not spec.detect
+
+    def launch(x, _keep=(offs, scratch)):
+        _launch_check(x, R, dev, "dia_fast")
+        w, trig, pw = _call_outputs(x)
+        check(fn(*head, x.data_ptr(), w.data_ptr(), *sig, pw.data_ptr(),
+                 trig.data_ptr(), index,
+                 torch.cuda.current_stream(dev).cuda_stream),
+              "dia_spmv_detect launch")
+        dia_fast.launches += 1
+        if product:
+            dia_fast.product_launches += 1
+        return w, trig, pw
+
+    return launch
+
+
 def dia_fast(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec):
     """Kernel A: ``(w, trig, pw)`` for CUDA tensors; the plain version
     for CPU tensors.  ``trig`` is a 0-d bool tensor, ``pw`` a 0-d float
-    tensor (no host synchronisation)."""
+    tensor (no host synchronisation).  The solvers call ``dia_launcher``
+    once per matrix instead (make_cuda_spmv)."""
     if x.device.type == "cpu":
         return dia_fast_plain(md, x, spec)
-    from .._build import check, library
-
-    D, R, plane, base, _ = _check_cuda_args(md, x, spec, "dia_fast")
-    lib = library("dia_spmv_detect")
-    dev = x.device.index if x.device.index is not None else 0
-    block = lib.abft_dia_spmv_block()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = max(1, min(-(-R // block), 4 * sms))
-    w = torch.empty_like(x)
-    pw_part = torch.empty(grid, dtype=torch.float32, device=x.device)
-    trig = torch.zeros(1, dtype=torch.int32, device=x.device)
-    offs, offs_ptr = _offsets_arg(spec.offsets)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.abft_dia_spmv_detect(
-        md.values.data_ptr(), offs_ptr, D, R, x.data_ptr(), w.data_ptr(),
-        pw_part.data_ptr(), grid, _ptr(plane), _ptr(base),
-        int(spec.use_parity), int(spec.use_cksum), trig.data_ptr(), dev,
-        stream)
-    del offs
-    check(rc, "dia_spmv_detect launch")
-    dia_fast.launches += 1
-    if not spec.detect:
-        dia_fast.product_launches += 1
-    return w, trig[0] != 0, torch.sum(pw_part)
+    return dia_launcher(md, spec, x.device)(x)
 
 
 dia_fast.launches = 0
@@ -365,64 +413,104 @@ def flat_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: FlatSpec):
     return w, signals_plain(md, spec), torch.sum(x * w)
 
 
-def _check_flat_args(md: MatrixDevice, x: torch.Tensor, spec: FlatSpec,
-                     what):
-    """Validate kernel E's arguments; returns (E, R, signal plane,
-    baseline, gather plane)."""
-    R = _check_x(x, what)
-    dev = x.device
+def flat_launcher(md: MatrixDevice, spec: FlatSpec, dev: torch.device):
+    """Kernel E for ``md`` and ``spec`` on CUDA device ``dev``: checks the
+    planes and the row-block plan and resolves the library and scratch
+    once; the returned function launches the kernel on x (one device
+    launch, no host synchronisation) and returns ``(w, trig, pw)``."""
+    from .._build import check, library
+
+    what = "flat_fast"
     E = md.values.shape[0] if md.values is not None else -1
     if E < 8 or E % 8:
         raise ValueError(f"{what}: flat planes must hold a multiple of 8 "
                          f"slots, got {E}")
+    R = md.row_ptr.shape[0] - 1 if md.row_ptr is not None else -1
+    if R < 32 or R % 32:
+        raise ValueError(f"{what}: R must be a positive multiple of 32, "
+                         f"got {R}")
     _check_tensor(what, "values", md.values, torch.float32, (E,), dev)
     gsrc = md.gidx if spec.gather == "gidx" else md.words[spec.gather]
     _check_tensor(what, "gather plane", gsrc, torch.int32, (E,), dev)
     _check_tensor(what, "row_ptr", md.row_ptr, torch.int32, (R + 1,), dev)
+    nblocks = md.flat_plan.shape[0] if md.flat_plan is not None else 0
+    _check_tensor(what, "flat_plan", md.flat_plan, torch.int32,
+                  (nblocks, 4), dev)
+    _check_tensor(what, "flat_sync", md.flat_sync, torch.int32, (nblocks,),
+                  dev)
     plane, base = _signal_planes(md, spec)
     if plane is not None:
         _check_tensor(what, "signal plane", plane, torch.int32, (E,), dev)
         _check_tensor(what, "baseline", base, torch.int32, (E // 8,), dev)
-    return E, R, plane, base, gsrc
+    lib = library("flat_spmv_detect")
+    if (lib.abft_flat_spmv_tile(), lib.abft_flat_spmv_run_rows()) != (
+            FLAT_TILE, FLAT_RUN_ROWS):
+        raise RuntimeError("flat_fast: the kernel's tile differs from "
+                           "ops.spmv.flat_row_blocks'")
+    scratch, part, flags = _scratch(nblocks, dev)
+    carry = torch.empty(32 * nblocks, dtype=torch.float32, device=dev)
+    head = (md.values.data_ptr(), gsrc.data_ptr(), gather_mask(spec),
+            md.row_ptr.data_ptr(), md.flat_plan.data_ptr(), nblocks,
+            carry.data_ptr(), md.flat_sync.data_ptr(), R)
+    sig = (_ptr(plane), _ptr(base), int(spec.use_parity),
+           int(spec.use_cksum), part, flags)
+    fn, index, product = lib.abft_flat_spmv_detect, dev.index, not spec.detect
+
+    def launch(x, _keep=(scratch, carry)):
+        _launch_check(x, R, dev, what)
+        w, trig, pw = _call_outputs(x)
+        check(fn(*head, x.data_ptr(), w.data_ptr(), *sig, pw.data_ptr(),
+                 trig.data_ptr(), index,
+                 torch.cuda.current_stream(dev).cuda_stream),
+              "flat_spmv_detect launch")
+        flat_fast.launches += 1
+        if product:
+            flat_fast.product_launches += 1
+        return w, trig, pw
+
+    return launch
 
 
 def flat_fast(md: MatrixDevice, x: torch.Tensor, spec: FlatSpec):
     """Kernel E: ``(w, trig, pw)`` for CUDA tensors; the plain version
     for CPU tensors.  ``trig`` is a 0-d bool tensor, ``pw`` a 0-d float
-    tensor (no host synchronisation)."""
+    tensor (no host synchronisation).  The solvers call
+    ``flat_launcher`` once per matrix instead (make_cuda_spmv)."""
     if x.device.type == "cpu":
         return flat_fast_plain(md, x, spec)
-    from .._build import check, library
-
-    E, R, plane, base, gsrc = _check_flat_args(md, x, spec, "flat_fast")
-    lib = library("flat_spmv_detect")
-    dev = x.device.index if x.device.index is not None else 0
-    block = lib.abft_flat_spmv_block()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    # One warp per row: enough blocks to give every row its warp, capped
-    # at 8 resident 256-thread blocks per SM.
-    grid = max(1, min(-(-R * 32 // block), 8 * sms))
-    w = torch.empty_like(x)
-    pw_part = torch.empty(grid, dtype=torch.float32, device=x.device)
-    trig = torch.zeros(1, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.abft_flat_spmv_detect(
-        md.values.data_ptr(), gsrc.data_ptr(), gather_mask(spec),
-        md.row_ptr.data_ptr(), R, E, x.data_ptr(), w.data_ptr(),
-        pw_part.data_ptr(), grid, _ptr(plane), _ptr(base),
-        int(spec.use_parity), int(spec.use_cksum), trig.data_ptr(), dev,
-        stream)
-    check(rc, "flat_spmv_detect launch")
-    flat_fast.launches += 1
-    if not spec.detect:
-        flat_fast.product_launches += 1
-    return w, trig[0] != 0, torch.sum(pw_part)
+    return flat_launcher(md, spec, x.device)(x)
 
 
 flat_fast.launches = 0
 flat_fast.product_launches = 0   # the detection-free product's share
 
 _KERNELS = {DiaSpec: dia_fast, EllSpec: ell_fast, FlatSpec: flat_fast}
+# Kernels A and E check their planes and resolve their launch once per
+# matrix device; kernel C's wrapper still does it on every call.
+_LAUNCHERS = {DiaSpec: dia_launcher, FlatSpec: flat_launcher}
+
+
+def _kernel_impl(spec):
+    """``(fast, fast_pw)`` of ``spec``'s kernel: on a CUDA tensor kernels
+    A and E launch through a launcher made for the last ``md`` they were
+    given (a repair hands them a new one); CPU tensors take the plain
+    version."""
+    kernel = _KERNELS[type(spec)]
+    make = _LAUNCHERS.get(type(spec))
+    last = [None, None, None]     # md, device, launcher
+
+    def fast_pw(md, x):
+        if make is None or x.device.type == "cpu":
+            return kernel(md, x, spec)
+        if last[0] is not md or last[1] != x.device:
+            last[:] = md, x.device, make(md, spec, x.device)
+        return last[2](x)
+
+    def fast(md, x):
+        w, trig, _ = fast_pw(md, x)
+        return w, trig
+
+    return fast, fast_pw
 
 
 def make_cuda_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
@@ -437,16 +525,7 @@ def make_cuda_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
         return combine_impls(make_cuda_spmv(mat.main, dtype, mode),
                              make_cuda_spmv(mat.tail, dtype, mode),
                              mat.main.exec_size)
-    spec = fast_spec(mat, mode)
-    kernel = _KERNELS[type(spec)]
-
-    def fast_pw(md, x):
-        return kernel(md, x, spec)
-
-    def fast(md, x):
-        w, trig, _ = kernel(md, x, spec)
-        return w, trig
-
+    fast, fast_pw = _kernel_impl(fast_spec(mat, mode))
     return _wrap_mode(mat, dtype, mode, fast, fast_pw)
 
 
@@ -465,16 +544,7 @@ def make_cuda_product(mat, dtype=torch.float32, mode: str = None
         return combine_impls(make_cuda_product(mat.main, dtype, mode),
                              make_cuda_product(mat.tail, dtype, mode),
                              mat.main.exec_size)
-    spec = product_spec(mat, mode)
-    kernel = _KERNELS[type(spec)]
-
-    def fast_pw(md, x):
-        return kernel(md, x, spec)
-
-    def fast(md, x):
-        w, trig, _ = kernel(md, x, spec)
-        return w, trig
-
+    fast, fast_pw = _kernel_impl(product_spec(mat, mode))
     return SpmvImpl(full=None, fast=fast, fast_pw=fast_pw)
 
 

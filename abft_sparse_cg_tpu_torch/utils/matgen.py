@@ -17,7 +17,8 @@ import numpy as np
 from ..formats.mmio import write_coordinate
 
 __all__ = ["spd_tridiagonal", "spd_laplacian_2d", "spd_wideband",
-           "spd_denseband", "shuffle_labels", "write_mm_triangle"]
+           "spd_denseband", "shuffle_labels", "write_mm_triangle",
+           "row_lengths_assembled"]
 
 
 def spd_denseband(n: int, half: int, coupling: float = -1.0):
@@ -140,3 +141,28 @@ def write_mm_triangle(path: str, rows, cols, vals, n: int):
     either way.
     """
     write_coordinate(path, cols, rows, vals, (n, n), symmetry="symmetric")
+
+
+# Rows of 0, 1, 31, 32, 33, 64, 65, 1000, 2048, 2049 and 4100 slots: the
+# edges of kernel E's row classes (a thread, a warp, a tile of 2048).
+ROW_LENGTH_EDGES = (0, 1, 31, 32, 33, 4100, 2048, 2049, 64, 65, 1000)
+
+
+def row_lengths_assembled(n: int = 8192, seed: int = 0):
+    """An assembled (unsymmetric, not SPD) matrix whose first rows hold
+    ``ROW_LENGTH_EDGES`` entries and the rest 0-39, at sorted random
+    columns with normal values: a product check for the flat layout
+    (``build_protected(..., force_exec="flat")``), never a solve.  The
+    port's addition; it bypasses ``assemble``'s mirroring."""
+    from ..formats.loader import AssembledMatrix
+
+    rng = np.random.default_rng(seed)
+    lengths = np.concatenate([ROW_LENGTH_EDGES,
+                              rng.integers(0, 40, n - len(ROW_LENGTH_EDGES))])
+    rows = np.repeat(np.arange(n), lengths)
+    cols = np.concatenate([np.sort(rng.choice(n, k, replace=False))
+                           for k in lengths])
+    return AssembledMatrix(
+        cols=cols.astype(np.uint32), rows=rows.astype(np.uint32),
+        values=rng.standard_normal(len(cols)), N=n, nnz=len(cols),
+        block_size=n, num_blocks=1)

@@ -7,10 +7,10 @@ JAX is not installed:
     PYTHONPATH=. python -m pytest --noconftest -p no:cacheprovider \\
         -m cuda tests/test_torch_cuda.py
 
-Tolerances: w to 1e-6 relative for kernel A and bit-exact for kernels C
-and E (both use explicitly rounded multiplies and adds in the plain
-version's order), pw and the rr trace to 1e-5 relative (per-block
-partials summed in another order than torch.sum); the split tail's rr
+Tolerances: w bit-exact for kernels A, C and E (explicitly rounded
+multiplies and adds in the plain version's order), pw and the rr trace
+to 1e-5 relative (per-block partials summed in another order than
+torch.sum); the split tail's rr
 trace to 1e-3 above float32's noise floor (its dot products are summed
 in fixed chunks, the plain loop's by torch.sum).
 """
@@ -36,6 +36,7 @@ from abft_sparse_cg_tpu_torch.solver.fused import (
     make_fused_solver,
 )
 from abft_sparse_cg_tpu_torch.utils.matgen import (
+    row_lengths_assembled,
     shuffle_labels,
     spd_tridiagonal,
 )
@@ -65,6 +66,14 @@ def faulted(m, flips, seed, kind="ANY"):
                            echo=lambda s: None)
 
 
+def same_bits(a, b):
+    """Bit-identical, NaN payloads aside."""
+    nan = torch.isnan(b)
+    return (torch.equal(nan, torch.isnan(a))
+            and torch.equal(a[~nan].view(torch.int32),
+                            b[~nan].view(torch.int32)))
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_kernel_a_matches_plain(dev, mode):
     m = dia_matrix(mode)
@@ -79,8 +88,7 @@ def test_kernel_a_matches_plain(dev, mode):
         wk, tk, pk = dia_fast(md, x, spec)
         assert dia_fast.launches == before + 1
         wp, tp, pp = dia_fast_plain(md, x, spec)
-        torch.testing.assert_close(wk, wp, rtol=1e-6, atol=0,
-                                   equal_nan=True)
+        assert same_bits(wk, wp)
         torch.testing.assert_close(pk, pp, rtol=1e-5, atol=0,
                                    equal_nan=True)
         assert bool(tk) == bool(tp)
@@ -239,10 +247,88 @@ def test_kernel_e_matches_plain(dev, mode, shape):
         wk, tk, pk = flat_fast(md, x, spec)
         assert flat_fast.launches == before + 1
         wp, tp, pp = flat_fast_plain(md, x, spec)
-        torch.testing.assert_close(wk, wp, rtol=0, atol=0, equal_nan=True)
+        assert same_bits(wk, wp)
         torch.testing.assert_close(pk, pp, rtol=1e-5, atol=0,
                                    equal_nan=True)
         assert bool(tk) == bool(tp)
+
+
+@pytest.mark.parametrize("shape", ["powerlaw-hubs", "row-lengths"])
+@pytest.mark.parametrize("mode", ["none", "constraints", "sec8", "secded"])
+def test_kernel_e_rows_of_every_length(dev, mode, shape):
+    """Kernel E's row blocks on hub rows (powerlaw-graph at the zoo's
+    size: rows of up to 10,875 slots, past the tile) and on rows of every
+    length class: w bit-identical to the plain version, the trigger
+    equal, pw to 1e-5; clean and faulted, x with -0.0, NaN and inf."""
+    from abft_sparse_cg_tpu_torch.ops.spmv import FLAT_TILE
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
+        flat_fast,
+        flat_fast_plain,
+        flat_spec,
+    )
+    from abft_sparse_cg_tpu_torch.utils.matzoo import zoo_assembled
+
+    if shape == "powerlaw-hubs":
+        m = build_protected("csr", zoo_assembled("powerlaw-graph"), mode,
+                            split="none")
+    else:
+        m = build_protected("csr", row_lengths_assembled(), mode,
+                            force_exec="flat")
+    assert m.exec_kind == "flat"
+    spec = flat_spec(m, mode)
+    rng = np.random.default_rng(5)
+    xs = rng.standard_normal(m.R).astype(np.float32)
+    x = torch.tensor(xs, device=dev)
+    xs[rng.permutation(m.R)[:64]] = -0.0
+    xs[rng.permutation(m.R)[:4]] = np.nan
+    xs[rng.permutation(m.R)[:4]] = np.inf
+    x_odd = torch.tensor(xs, device=dev)
+    for mm in (m, faulted(m, 1, 31), faulted(m, 2, 32)):
+        md = make_matrix_device(mm, torch.float32, dev)
+        assert int(torch.diff(md.row_ptr).max()) > FLAT_TILE
+        for xx in (x, x_odd):
+            wk, tk, pk = flat_fast(md, xx, spec)
+            wp, tp, pp = flat_fast_plain(md, xx, spec)
+            assert same_bits(wk, wp)
+            assert bool(tk) == bool(tp)
+            torch.testing.assert_close(pk, pp, rtol=1e-5, atol=0,
+                                       equal_nan=True)
+
+
+@pytest.mark.parametrize("kernel", ["A", "E"])
+def test_one_launch_per_call_and_repeatable(dev, kernel):
+    """Kernels A and E through the solvers' impls (live and detection-
+    free): one device operation per call in the profiler's list, and
+    repeated calls on one matrix give identical w, pw and trigger (the
+    last-block counter resets itself), clean and faulted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
+        make_cuda_product,
+        make_cuda_spmv,
+    )
+
+    m = (dia_matrix("secded") if kernel == "A"
+         else flat_matrix("secded", "powerlaw"))
+    x = torch.tensor(np.random.default_rng(5).random(m.R),
+                     dtype=torch.float32, device=dev)
+    for mm in (m, faulted(m, 1, 31)):
+        md = make_matrix_device(mm, torch.float32, dev)
+        for impl in (make_cuda_spmv(mm), make_cuda_product(mm)):
+            first = impl.fast_pw(md, x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                outs = [impl.fast_pw(md, x) for _ in range(5)]
+                torch.cuda.synchronize()
+            ops = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+            assert len(ops) == 5, [e.name for e in ops]
+            for w, trig, pw in outs:
+                assert same_bits(w, first[0])
+                assert same_bits(pw.view(1), first[2].view(1))
+                assert bool(trig) == bool(first[1])
 
 
 def bordered(core, k=600, seed=3):
