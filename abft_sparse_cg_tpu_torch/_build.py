@@ -50,6 +50,8 @@ _SIGNATURES = {
     "dia_spmv_detect": {
         "abft_dia_spmv_detect": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
                                  *_CALL, _I, _P],
+        "abft_dia_spmv_detect_halo": [_P, _P, _I, _I, _P, _I, _P, _P, _P,
+                                      _I, _I, *_CALL, _I, _P],
         "abft_dia_spmv_grid": [_I],
     },
     "fused_cg_dia": {
@@ -61,6 +63,9 @@ _SIGNATURES = {
     "ell_spmv_detect": {
         "abft_ell_spmv_detect": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _I, _P,
                                  _P, _I, _I, _P, _I, _P],
+        "abft_ell_spmv_detect_halo": [_P, _P, _U, _P, _I, _I, _P, _I, _I,
+                                      _I, _P, _P, _I, _P, _P, _I, _I, _P,
+                                      _I, _P],
         "abft_ell_spmv_block": [],
     },
     "fused_cg_ell": {

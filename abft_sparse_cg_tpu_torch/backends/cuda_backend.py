@@ -28,6 +28,16 @@ decided divergence for matrices past the TPU's resident envelope (DIA
 ``-b 100``), which changes no output (a clean lazy solve equals the live
 one).
 
+With ``devices=N`` a solve is row-sharded over N shards
+(pallas_backend.py:72-125): solver.cg's loop over the per-shard halo
+forms of kernels A and C inside the kernel envelope
+(parallel.sharded_kernel), on the lazy schedule with a check interval
+(``auto``: 32, as there), and otherwise the single-device per-iteration
+program on the mesh-padded planes, live.  A mesh has one shard per
+card, and shards on distinct cards wait (ROADMAP.md queue 1 item 11):
+chip_smoke.py drives a mesh of four shards on one card through
+parallel.sharded.
+
 ``spmv_once`` runs the cuda SpmvImpl's ``full`` — kernel A, C or E in
 modes none/constraints, the plain check-and-correct oracle in the ECC
 modes, as the reference's ``_wrap_mode`` does.
@@ -45,9 +55,11 @@ import torch
 from ..ops.spmv import not_ported
 from ..ops.spmv_cuda import make_cuda_product, make_cuda_spmv
 from ..solver.cg import make_cg_solver, make_lazy_ci_solver
+from ..parallel.sharded import make_sharded_solver
+from ..parallel.sharded_kernel import supports_shardmap
 from ..solver.fused import make_fused_solver, supports_fused
 from . import registry
-from .torch_backend import TorchBackend
+from .torch_backend import TorchBackend, warn_live_schedule
 
 __all__ = ["CudaBackend"]
 
@@ -86,6 +98,21 @@ class CudaBackend(TorchBackend):
                 spmv, make_cuda_product(mat, dtype, self.mode), ci,
                 max_itrs, conv)
         return make_cg_solver(spmv, max_itrs, conv)
+
+    def _sharded_solver(self, mat, mesh, dtype, max_itrs, conv,
+                        check_interval=None):
+        if dtype != torch.float32:
+            raise not_ported(f"a {dtype} solve on the cuda target")
+        if not supports_shardmap(mat, dtype, mesh.size):
+            warn_live_schedule("cuda (sharded single-device program)",
+                               check_interval)
+            ci = 1
+        elif check_interval == "auto":
+            ci = 32
+        else:
+            ci = _check_interval(check_interval, mat)
+        return make_sharded_solver(mat, mesh, max_itrs, conv, dtype,
+                                   self.mode, check_interval=ci)
 
     def _spmv_full(self, mat, dtype):
         return make_cuda_spmv(mat, dtype, self.mode).full

@@ -1,9 +1,11 @@
 """The ``torch`` target: plain PyTorch SpMV + CG on the CPU.
 
 Counterpart of ``abft_sparse_cg_tpu.backends.jnp_backend`` (:60-351),
-single device, no checkpointing, unpreconditioned or Jacobi (the M^-1
-set-up of jnp_backend.py:188-229).  ``time taken`` is measured on warm
-runs; the first run (which pays every one-time cost, a kernel build
+no checkpointing, unpreconditioned or Jacobi (the M^-1 set-up of
+jnp_backend.py:188-229), on one device or, with ``devices=N``, row-
+sharded over N shards of a mesh (parallel.sharded; jnp_backend.py:
+196-216), all on the CPU for this target.  ``time taken`` is measured
+on warm runs; the first run (which pays every one-time cost, a kernel build
 included on the cuda target) is reported as the compile time.  Like the
 jnp target, it has no lazy ``--check-interval`` schedule: it warns once
 and runs live (``warn_live_schedule``, jnp_backend.py:29-51).
@@ -19,6 +21,12 @@ import torch
 
 from ..device import compute_dtype, target_device
 from ..ops.spmv import make_matrix_device, make_spmv
+from ..parallel.sharded import (
+    _device_put_sharded,
+    default_mesh,
+    make_sharded_solver,
+    mesh_rows,
+)
 from ..solver.cg import make_cg_solver
 from . import registry
 from .base import Backend, HostResult, stats_to_messages
@@ -71,8 +79,25 @@ class TorchBackend(Backend):
         return make_cg_solver(make_spmv(mat, dtype, self.mode), max_itrs,
                               conv)
 
+    def _sharded_solver(self, mat, mesh, dtype, max_itrs, conv,
+                        check_interval=None):
+        warn_live_schedule(self.target, check_interval)
+        return make_sharded_solver(mat, mesh, max_itrs, conv, dtype,
+                                   self.mode)
+
     def _spmv_full(self, mat, dtype):
         return make_spmv(mat, dtype, self.mode).full
+
+    def _mesh(self, devices: int):
+        """The mesh of a ``devices``-shard solve: on a card, one shard per
+        CUDA card (fewer cards than shards is refused with the JAX
+        message, jnp_backend.py:201-205); on the CPU, every shard on it."""
+        if self.device.type == "cuda":
+            found = torch.cuda.device_count()
+            if devices > found:
+                raise ValueError(f"requested {devices} devices, found {found}")
+            return default_mesh(devices)
+        return default_mesh(devices, self.device)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -86,17 +111,31 @@ class TorchBackend(Backend):
     # -- Backend API ------------------------------------------------------
 
     def solve(self, mat, b, max_itrs, conv_threshold, dtype="auto",
-              reps=0, precond="none", check_interval=None) -> HostResult:
+              reps=0, precond="none", check_interval=None,
+              devices=0) -> HostResult:
         """``precond``: "none" or "jacobi" (M^-1 in exec order, zero on
-        pad rows); ``check_interval``: None, an int or "auto"."""
+        pad rows); ``check_interval``: None, an int or "auto";
+        ``devices`` > 1: row-shard the solve over that many shards."""
         dt = compute_dtype(self.target, dtype)
         minv_host = jacobi_minv(mat, precond)
-        minv = (None if minv_host is None
-                else self._exec_vector(mat, minv_host, dt))
-        md = make_matrix_device(mat, dt, self.device)
-        bdev = self._exec_vector(mat, b, dt)
-        solve_fn = self._solver(mat, dt, max_itrs, conv_threshold,
-                                minv is not None, check_interval)
+        r_dev = None
+        if devices and devices > 1:
+            mesh = self._mesh(devices)
+            md, bdev, put_vec = _device_put_sharded(mat, b, mesh, dt)
+            minv = None if minv_host is None else put_vec(minv_host)
+            solve_fn = self._sharded_solver(mat, mesh, dt, max_itrs,
+                                            conv_threshold, check_interval)
+            if mat.exec_kind in ("dia", "ell"):
+                # Flat slots are entry positions, which the mesh padding
+                # never shifts; a split keeps R (sharded.py).
+                r_dev = mesh_rows(mat, mesh.size)
+        else:
+            minv = (None if minv_host is None
+                    else self._exec_vector(mat, minv_host, dt))
+            md = make_matrix_device(mat, dt, self.device)
+            bdev = self._exec_vector(mat, b, dt)
+            solve_fn = self._solver(mat, dt, max_itrs, conv_threshold,
+                                    minv is not None, check_interval)
 
         t0 = time.perf_counter()
         res = solve_fn(md, bdev, minv)
@@ -111,7 +150,7 @@ class TorchBackend(Backend):
         st = res.stats
         msgs, err_index = stats_to_messages(
             mat, st.errcode, st.err_slot, st.first_cor_slot,
-            st.first_cor_bit)
+            st.first_cor_bit, r_dev=r_dev)
         return HostResult(
             x=mat.from_exec_order(res.x.cpu().numpy()[: mat.N]),
             iterations=int(res.iterations),

@@ -18,9 +18,13 @@ and lazy instances of the whole-solve kernels, or the per-iteration
 tier's lazy loop over the detection-free products; ``torch`` runs Jacobi
 and refinement and, like ``-t jnp``, has no lazy schedule (it warns on
 stderr and runs live).  ``--refine`` with ``--checkpoint`` is refused, as
-in the JAX CLI.  Flags of features this package has not ported yet print
-a one-line error and exit 1: --devices, --solver pipelined,
---checkpoint/--checkpoint-every/--resume, --profile and --format coo.
+in the JAX CLI.  ``--devices N`` row-shards the solve over N shards
+(parallel.sharded), with R aligned at build time as cli.py:325-340 does:
+on ``torch`` N shards on the CPU; on ``cuda`` one shard per card, and a
+host with fewer cards exits 1 with the JAX message.  Flags of features
+this package has not ported yet print a one-line error and exit 1:
+--solver pipelined, --checkpoint/--checkpoint-every/--resume, --profile
+and --format coo.
 """
 
 from __future__ import annotations
@@ -277,8 +281,6 @@ def _unported_flag(params):
     """The first flag of ``params`` that selects an unported feature."""
     if params["fmt"] != "csr":
         return "--format coo"
-    if params["devices"]:
-        return "--devices"
     if params["solver"] != "standard":
         return "--solver pipelined"
     if params["checkpoint"] or params["resume"]:
@@ -335,8 +337,19 @@ def _main(params):
     except ValueError as e:
         print(str(e))
         return 1
+    ra = None
+    if params["devices"] and params["devices"] > 1:
+        # Align the padded row count to the mesh at build time so the
+        # sharded tiers stay available for any N (cli.py:325-340): the
+        # kernel tier needs 1024 rows per shard (on cuda, the pallas
+        # target's counterpart), the single-device program 8.
+        import math
+
+        ra = math.lcm((1024 if params["target"] == "cuda" else 8)
+                      * params["devices"], 128)
     try:
-        mat = build_protected(params["fmt"], assembled, params["mode"])
+        mat = build_protected(params["fmt"], assembled, params["mode"],
+                              row_align=ra)
     except ValueError as e:
         # A matrix the build cannot take: one line, exit 1.
         print(str(e))
@@ -364,17 +377,27 @@ def _main(params):
                               params["num_bit_flips"], inj_rng)
 
     kw = dict(dtype=params["dtype"], precond=params["precond"],
-              check_interval=params.get("check_interval"))
-    if params.get("refine"):
-        # Mixed-precision refinement: inner solves on the target plus
-        # binary64 true-residual restarts (backends.base.solve_refined).
-        res = backend.solve_refined(mat, b, params["max_itrs"],
-                                    params["conv_threshold"],
-                                    params["refine"], **kw)
-    else:
-        res = backend.solve(mat, b, params["max_itrs"],
-                            params["conv_threshold"], reps=params["reps"],
-                            **kw)
+              check_interval=params.get("check_interval"),
+              devices=params["devices"])
+    try:
+        if params.get("refine"):
+            # Mixed-precision refinement: inner solves on the target plus
+            # binary64 true-residual restarts (backends.base.
+            # solve_refined).
+            res = backend.solve_refined(mat, b, params["max_itrs"],
+                                        params["conv_threshold"],
+                                        params["refine"], **kw)
+        else:
+            res = backend.solve(mat, b, params["max_itrs"],
+                                params["conv_threshold"],
+                                reps=params["reps"], **kw)
+    except (ValueError, NotImplementedError) as e:
+        if not params["devices"]:
+            raise
+        # More shards than cards, or a mesh this package does not run:
+        # one line, exit 1 (cli.py:420-429).
+        print(f"options unsupported for target '{params['target']}': {e}")
+        return 1
 
     # ABFT event messages print first (reference cg.cpp:97 runs before
     # the rr print at cg.cpp:117), then the per-iteration residuals.

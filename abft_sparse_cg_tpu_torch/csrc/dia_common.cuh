@@ -1,6 +1,7 @@
 // Shared device code of the five kernels (dia_spmv_detect.cu,
 // fused_cg_dia.cu, ell_spmv_detect.cu, fused_cg_ell.cu,
-// flat_spmv_detect.cu): the DIA stencil and banded-ELL row products, the
+// flat_spmv_detect.cu): the DIA stencil and banded-ELL row products (and
+// the banded-ELL gather rule of one shard of a row-sharded solve), the
 // live ABFT signals, fixed-order block and grid reductions, the one-launch
 // epilogue of kernels A and E, and the split tail pass of the fused
 // kernels.
@@ -84,6 +85,34 @@ __device__ __forceinline__ int ell_gather(uint32_t word, uint32_t gmask,
   return min(max(g, 0), R - 1);
 }
 
+// The rule as ell_row takes it: one device's whole x.
+struct GlobalGather {
+  int R;
+  __device__ __forceinline__ int operator()(uint32_t word,
+                                            uint32_t gmask) const {
+    return ell_gather(word, gmask, R);
+  }
+};
+
+// The halo form of the rule, for one shard of a row-sharded solve
+// (kernel C's halo entry): x is the shard's x_ext of n = R_loc + 2H rows
+// (the neighbour shards' edge rows on each side), the global index g comes
+// from the rule above with the global row count R, and the read is
+// x_ext[g - base + H] (shift = H - base).  A valid index lands inside the
+// window (H is the band rounded up to 128); a corrupted one may not, and
+// its position is clamped into [0, n), as the TPU kernel clamps it into
+// its window (spmv_pallas.py:704-707).  There the read differs from the
+// single-device kernel's x[g]: a decided divergence (ROADMAP.md queue 3).
+struct HaloGather {
+  int R;
+  int shift;
+  int n;
+  __device__ __forceinline__ int operator()(uint32_t word,
+                                            uint32_t gmask) const {
+    return min(max(ell_gather(word, gmask, R) + shift, 0), n - 1);
+  }
+};
+
 // w[r] = sum over k < ell_len[r] of vals[k, r] * x[g(k, r)]; slot k of
 // row r lives at k * R + r (transposed ELL), so the 32 rows of a warp
 // read each slot as one coalesced 128-byte line.  Offsets are 64-bit:
@@ -96,14 +125,17 @@ __device__ __forceinline__ int ell_gather(uint32_t word, uint32_t gmask,
 // returned (one slot in flight per thread, at the 32 registers that
 // full occupancy allows), and kernel D's mode-none solve was markedly
 // slower (PERF.md §6).
+//
+// ``gat`` maps a slot's gather word to its position in x (GlobalGather, or
+// HaloGather for a shard); ell_row(..., R, x, r) is the single-device form.
 #define ABFT_ELL_BATCH 8
-template <bool kCoherent>
+template <bool kCoherent, class Gather>
 __device__ __forceinline__ float ell_row(const float* __restrict__ vals,
                                          const uint32_t* __restrict__ gsrc,
                                          uint32_t gmask,
                                          const int* __restrict__ ell_len,
                                          int K, int R, const float* x,
-                                         int r) {
+                                         int r, const Gather& gat) {
   const int n = min(__ldg(ell_len + r), K);
   float w = 0.0f;
   int k = 0;
@@ -113,7 +145,7 @@ __device__ __forceinline__ float ell_row(const float* __restrict__ vals,
     for (int j = 0; j < ABFT_ELL_BATCH; ++j) {
       const size_t o = (size_t)(k + j) * R + r;
       v[j] = __ldg(vals + o);
-      xv[j] = load_f<kCoherent>(x + ell_gather(__ldg(gsrc + o), gmask, R));
+      xv[j] = load_f<kCoherent>(x + gat(__ldg(gsrc + o), gmask));
     }
 #pragma unroll
     for (int j = 0; j < ABFT_ELL_BATCH; ++j)
@@ -121,10 +153,21 @@ __device__ __forceinline__ float ell_row(const float* __restrict__ vals,
   }
   for (; k < n; ++k) {
     const size_t o = (size_t)k * R + r;
-    const int g = ell_gather(__ldg(gsrc + o), gmask, R);
+    const int g = gat(__ldg(gsrc + o), gmask);
     w = __fadd_rn(w, __fmul_rn(__ldg(vals + o), load_f<kCoherent>(x + g)));
   }
   return w;
+}
+
+template <bool kCoherent>
+__device__ __forceinline__ float ell_row(const float* __restrict__ vals,
+                                         const uint32_t* __restrict__ gsrc,
+                                         uint32_t gmask,
+                                         const int* __restrict__ ell_len,
+                                         int K, int R, const float* x,
+                                         int r) {
+  return ell_row<kCoherent>(vals, gsrc, gmask, ell_len, K, R, x, r,
+                            GlobalGather{R});
 }
 
 // Signals of row r; nonzero if they fired.  Must be called by all 32

@@ -30,6 +30,15 @@
 // caller used to fill the trigger and reduce the partials in two more
 // device operations.
 //
+// The halo form (abft_dia_spmv_detect_halo) is one shard of a row-sharded
+// solve: it replaces the same TPU kernel's halo=H variant (_make_dia_fast
+// :331, halo branch :475-479), which parallel/sharded_kernel.py runs per
+// shard.  x is the shard's x_ext of R + 2H rows, the neighbour shards'
+// edge rows on each side (zero at the global ends), and row r reads
+// x_ext[H + r + off_d] where the single-device form reads x[r + off_d]
+// with zero outside [0, R).  Everything else is the same code, so a
+// shard's w equals the single-device kernel's w on those rows bit for bit.
+//
 // Interface: plain C, called through ctypes (abft_sparse_cg_tpu_torch/
 // _build.py).  Launches on the caller's stream, allocates nothing, and
 // returns the cudaError_t of the launch.
@@ -43,11 +52,16 @@ constexpr int kRows = 4;   // rows per thread
 
 __device__ unsigned int g_arrive;   // finish_call's counter
 
+// x[c] of row c's neighbour: zero outside [0, R), or, in the halo form
+// (x pointing at x_ext + H), the exchanged neighbour row.
+template <bool kHalo>
 __device__ __forceinline__ float x_at(const float* __restrict__ x, int c,
                                       int R) {
+  if (kHalo) return __ldg(x + c);
   return (c >= 0 && c < R) ? __ldg(x + c) : 0.0f;
 }
 
+template <bool kHalo>
 __global__ void __launch_bounds__(kBlock)
 dia_spmv_detect_kernel(const float* __restrict__ vals, DiaOffsets offs,
                        int R, const float* __restrict__ x,
@@ -64,10 +78,10 @@ dia_spmv_detect_kernel(const float* __restrict__ vals, DiaOffsets offs,
       const float4 v = __ldg(
           reinterpret_cast<const float4*>(vals + (size_t)d * R + r));
       const int c = r + offs.off[d];
-      a0 = __fadd_rn(a0, __fmul_rn(v.x, x_at(x, c, R)));
-      a1 = __fadd_rn(a1, __fmul_rn(v.y, x_at(x, c + 1, R)));
-      a2 = __fadd_rn(a2, __fmul_rn(v.z, x_at(x, c + 2, R)));
-      a3 = __fadd_rn(a3, __fmul_rn(v.w, x_at(x, c + 3, R)));
+      a0 = __fadd_rn(a0, __fmul_rn(v.x, x_at<kHalo>(x, c, R)));
+      a1 = __fadd_rn(a1, __fmul_rn(v.y, x_at<kHalo>(x, c + 1, R)));
+      a2 = __fadd_rn(a2, __fmul_rn(v.z, x_at<kHalo>(x, c + 2, R)));
+      a3 = __fadd_rn(a3, __fmul_rn(v.w, x_at<kHalo>(x, c + 3, R)));
     }
     *reinterpret_cast<float4*>(w + r) = make_float4(a0, a1, a2, a3);
     pw = __fadd_rn(pw, __fmul_rn(__ldg(x + r), a0));
@@ -99,6 +113,25 @@ dia_spmv_detect_kernel(const float* __restrict__ vals, DiaOffsets offs,
 
 int grid_of(int R) { return (R + kRows * kBlock - 1) / (kRows * kBlock); }
 
+template <bool kHalo>
+int launch(const float* vals, const int* offsets, int D, int R,
+           const float* x, float* w, const uint32_t* plane,
+           const uint32_t* base, int use_parity, int use_cksum, float* part,
+           int* flags, float* pw, unsigned char* trig, int device,
+           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  DiaOffsets offs;
+  offs.n = D;
+  for (int d = 0; d < D; ++d) offs.off[d] = offsets[d];
+  DiaSignals sig{plane, base, use_parity, use_cksum};
+  CallOut out{part, flags, pw, trig};
+  dia_spmv_detect_kernel<kHalo>
+      <<<grid_of(R), kBlock, 0, (cudaStream_t)stream>>>(vals, offs, R, x, w,
+                                                        sig, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int abft_dia_spmv_grid(int R) { return grid_of(R); }
@@ -114,14 +147,25 @@ extern "C" int abft_dia_spmv_detect(const float* vals, const int* offsets,
                                     int device, void* stream) {
   if (D < 1 || D > ABFT_MAX_D || R < 32 || R % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  DiaOffsets offs;
-  offs.n = D;
-  for (int d = 0; d < D; ++d) offs.off[d] = offsets[d];
-  DiaSignals sig{plane, base, use_parity, use_cksum};
-  CallOut out{part, flags, pw, trig};
-  dia_spmv_detect_kernel<<<grid_of(R), kBlock, 0, (cudaStream_t)stream>>>(
-      vals, offs, R, x, w, sig, out);
-  return (int)cudaGetLastError();
+  return launch<false>(vals, offsets, D, R, x, w, plane, base, use_parity,
+                       use_cksum, part, flags, pw, trig, device, stream);
+}
+
+// The halo form: ``x_ext`` holds R + 2H rows and H >= max |offset|.
+extern "C" int abft_dia_spmv_detect_halo(const float* vals,
+                                         const int* offsets, int D, int R,
+                                         const float* x_ext, int H, float* w,
+                                         const uint32_t* plane,
+                                         const uint32_t* base,
+                                         int use_parity, int use_cksum,
+                                         float* part, int* flags, float* pw,
+                                         unsigned char* trig, int device,
+                                         void* stream) {
+  if (D < 1 || D > ABFT_MAX_D || R < 32 || R % 32 != 0 || H < 0)
+    return (int)cudaErrorInvalidValue;
+  for (int d = 0; d < D; ++d)
+    if (offsets[d] < -H || offsets[d] > H) return (int)cudaErrorInvalidValue;
+  return launch<true>(vals, offsets, D, R, x_ext + H, w, plane, base,
+                      use_parity, use_cksum, part, flags, pw, trig, device,
+                      stream);
 }

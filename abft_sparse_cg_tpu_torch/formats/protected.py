@@ -271,6 +271,7 @@ def _group_structure(group, gidx, N, nnz, presorted):
 def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
                     force_exec: str = None, reorder: str = "auto",
                     split: str = "auto", force_perm: np.ndarray = None,
+                    row_align: int = None,
                     _attach_unstr: bool = True, _part: bool = False):
     """Encode + lay out a protected matrix (JAX build, protected.py:331).
 
@@ -282,7 +283,10 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
     JAX build does; "none" = never.  ``force_perm`` imposes an exec-space
     permutation (a split's part builds); ``_part`` marks such a build,
     ``_attach_unstr=False`` a candidate whose attach step waits for its
-    adoption.
+    adoption.  ``row_align`` pads the execution row count R up to a
+    multiple of itself (a multiple of 128), as a row-sharded solve over
+    N shards needs (parallel.sharded): the extra rows are zero
+    codewords, and the layout heuristics still judge the unpadded R.
     """
     if fmt not in FORMATS:
         raise ValueError(f"unknown format: {fmt!r}")
@@ -293,6 +297,12 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
     N, nnz = assembled.N, assembled.nnz
     R0 = -(-N // _SUBLANE) * _SUBLANE
     R = R0
+    if row_align:
+        if row_align % _SUBLANE:
+            raise ValueError(
+                f"row_align ({row_align}) must be a multiple of "
+                f"{_SUBLANE}")
+        R = -(-R0 // row_align) * row_align
 
     # CSR row pointer over the canonical (row, col) order.
     counts = np.bincount(rows, minlength=N)
@@ -376,7 +386,7 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
             from .split import try_split
 
             comp = try_split(fmt, assembled, mode, layout, planes, row_ptr,
-                             reorder)
+                             reorder, row_align=row_align)
             if comp is not None:
                 return comp
         # FLAT: 1-D planes in exec-sorted canonical order, padded to a
@@ -406,7 +416,7 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
             from .split import try_band_split
 
             comp = try_band_split(fmt, assembled, mode, layout, planes,
-                                  row_ptr, reorder)
+                                  row_ptr, reorder, row_align=row_align)
             if comp is not None:
                 return comp
         if (force_exec is None and force_perm is None and not _part
@@ -420,7 +430,7 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
             if benes_beats_rolled(nnz, N, band):
                 cand = build_protected(fmt, assembled, mode,
                                        force_exec="flat", reorder=reorder,
-                                       split="none")
+                                       split="none", row_align=row_align)
                 if cand.unstr_attached:
                     return cand
         if force_exec is None and force_perm is None and not _part and (
@@ -432,7 +442,8 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
             # K = 1): it is rebuilt flat.
             return build_protected(fmt, assembled, mode,
                                    force_exec="flat", reorder=reorder,
-                                   split="none", force_perm=force_perm)
+                                   split="none", force_perm=force_perm,
+                                   row_align=row_align)
         exec_kind = "ell"
         # Transposed ELL: slot k of row r at flat slot k * R + r.
         ell_slot = within * R + group

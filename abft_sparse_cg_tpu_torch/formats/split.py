@@ -183,7 +183,8 @@ def _composite(fmt, assembled, mode, layout, planes, row_ptr, main, tail,
     )
 
 
-def try_band_split(fmt, assembled, mode, layout, planes, row_ptr, reorder):
+def try_band_split(fmt, assembled, mode, layout, planes, row_ptr, reorder,
+                   row_align=None):
     """Band decomposition A = M + T for matrices whose (post-RCM)
     bandwidth exceeds the banded kernels' window cap (split.py:210):
     ``main`` = entries within a cut bandwidth, ``tail`` = the
@@ -239,13 +240,13 @@ def try_band_split(fmt, assembled, mode, layout, planes, row_ptr, reorder):
 
     main = build_protected(fmt, _sub_assembled(assembled, ~tail_mask), mode,
                            reorder="none", split="none", force_perm=perm,
-                           _part=True)
+                           row_align=row_align, _part=True)
     if main.exec_kind not in ("dia", "ell") or main.band > cut:
         return None
     tail = build_protected(fmt, _sub_assembled(assembled, tail_mask), mode,
                            reorder="none", split="none", force_perm=perm,
-                           force_exec="flat", _attach_unstr=False,
-                           _part=True)
+                           force_exec="flat", row_align=row_align,
+                           _attach_unstr=False, _part=True)
     if tail.R != main.R:
         return None
     return _composite(fmt, assembled, mode, layout, planes, row_ptr, main,
@@ -261,7 +262,8 @@ def _sub_assembled(a: AssembledMatrix, mask: np.ndarray) -> AssembledMatrix:
     )
 
 
-def try_split(fmt, assembled, mode, layout, planes, row_ptr, reorder):
+def try_split(fmt, assembled, mode, layout, planes, row_ptr, reorder,
+              row_align=None):
     """The bordered decomposition (split.py:336); None if it does not
     pay."""
     from .protected import build_protected
@@ -286,14 +288,15 @@ def try_split(fmt, assembled, mode, layout, planes, row_ptr, reorder):
         return None
 
     main = build_protected(fmt, _sub_assembled(assembled, ~tail_mask), mode,
-                           reorder=reorder, split="none", _part=True)
+                           reorder=reorder, split="none",
+                           row_align=row_align, _part=True)
     if main.exec_kind == "flat":
         return None  # the core is not banded either; flat alone is simpler
 
     tail = build_protected(fmt, _sub_assembled(assembled, tail_mask), mode,
                            reorder="none", split="none",
-                           force_perm=main.perm, _attach_unstr=False,
-                           _part=True)
+                           force_perm=main.perm, row_align=row_align,
+                           _attach_unstr=False, _part=True)
     if tail.R != main.R:
         return None
     if tail.exec_kind == "flat":

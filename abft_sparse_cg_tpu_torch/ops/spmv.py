@@ -69,6 +69,7 @@ __all__ = [
     "make_constraints_check",
     "not_ported",
     "take_clamped",
+    "window_positions",
     "ell_product",
     "flat_product",
     "flat_row_blocks",
@@ -501,14 +502,24 @@ def make_spmv(mat, dtype=torch.float32, mode: str = None) -> SpmvImpl:
 # DIA: stencil over (D, R) planes
 # --------------------------------------------------------------------------
 
-def dia_product(values: torch.Tensor, offsets, x: torch.Tensor):
+def dia_product(values: torch.Tensor, offsets, x: torch.Tensor,
+                halo: int = None):
     """w[r] = sum_d values[d, r] * x[r + off_d], zero outside [0, R),
-    summed in diagonal order d = 0..D-1 (the reference's order)."""
-    R = x.shape[0]
-    pad_lo = max(0, -min(offsets))
-    pad_hi = max(0, max(offsets))
-    xp = F.pad(x, (pad_lo, pad_hi)) if (pad_lo or pad_hi) else x
-    w = torch.zeros_like(x)
+    summed in diagonal order d = 0..D-1 (the reference's order).
+    ``halo`` H: the per-shard form, x is a shard's x_ext of R + 2H rows
+    (parallel.sharded_kernel.halo_exchange) and row r reads
+    x_ext[H + r + off_d]."""
+    R = values.shape[-1]
+    if halo is None:
+        pad_lo = max(0, -min(offsets))
+        pad_hi = max(0, max(offsets))
+        xp = F.pad(x, (pad_lo, pad_hi)) if (pad_lo or pad_hi) else x
+    else:
+        if x.shape[0] != R + 2 * halo or max(map(abs, offsets)) > halo:
+            raise ValueError(f"dia_product: x of {x.shape[0]} rows for "
+                             f"{R} rows, halo {halo}, offsets {offsets}")
+        pad_lo, xp = halo, x
+    w = x.new_zeros(R)
     for d, off in enumerate(offsets):
         s = pad_lo + off
         w = w + values[d] * xp[s:s + R]
@@ -578,12 +589,26 @@ def take_clamped(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return a[idx]
 
 
+def window_positions(g: torch.Tensor, rows: int, base: int, halo: int,
+                     n: int) -> torch.Tensor:
+    """Positions in one shard's x_ext (n = R_loc + 2 * halo rows) of the
+    global gather indices ``g``: the global rule first (a negative index
+    wraps once by ``rows``, then clamps into [0, rows)), then g - base +
+    halo, clamped into [0, n).  Every valid index lands inside; a
+    corrupted one may not and is clamped into the window, as the TPU
+    kernel clamps it (spmv_pallas.py:704-707) — where the single-device
+    product reads x[g] (a decided divergence, ROADMAP.md queue 3)."""
+    g = g.to(torch.int64)
+    g = torch.where(g < 0, g + rows, g).clamp_(0, rows - 1)
+    return (g - base + halo).clamp_(0, n - 1)
+
+
 def ell_product(values: torch.Tensor, gidx: torch.Tensor,
                 ell_len: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """w[r] = sum over k < ell_len[r] of values[k, r] * x[gidx[k, r]],
     summed in slot order k = 0..K-1, one rounding per multiply and per
     add (the kernels' order, so their w is bit-identical)."""
-    w = torch.zeros_like(x)
+    w = x.new_zeros(values.shape[-1])
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     for k in range(values.shape[0]):
         xk = take_clamped(x, gidx[k])

@@ -9,7 +9,13 @@ trigger, in one launch (csrc/dia_spmv_detect.cu, csrc/ell_spmv_detect.cu,
 csrc/flat_spmv_detect.cu).  ``dia_fast_plain``, ``ell_fast_plain`` and
 ``flat_fast_plain`` beside them are the same functions in plain
 PyTorch: the CPU tests run them, and chip_smoke.py holds each kernel
-against its plain version on the card.  ``make_cuda_product`` is the
+against its plain version on the card.  ``dia_fast_halo`` and
+``ell_fast_halo`` are the per-shard forms of kernels A and C that a
+row-sharded solve runs (parallel.sharded_kernel; spmv_pallas.py's
+``halo=`` and ``with_base=`` variants): x is the shard's x_ext, its rows
+with the neighbour shards' H edge rows on each side, and ``halo=H`` (and
+``base``, the shard's first row) in the plain versions give the same
+functions.  ``make_cuda_product`` is the
 detection-free product of the lazy ``--check-interval`` schedule's
 unchecked iterations (spmv_pallas.py:202-235): the same kernels with no
 signal plane, the gather masking of the true mode kept.
@@ -50,11 +56,13 @@ from .spmv import (
     make_constraints_check,
     make_spmv,
     not_ported,
+    window_positions,
 )
 
 __all__ = ["DiaSpec", "dia_spec", "dia_fast", "dia_fast_plain",
-           "dia_launcher", "flat_launcher",
+           "dia_fast_halo", "dia_launcher", "flat_launcher",
            "EllSpec", "ell_spec", "ell_fast", "ell_fast_plain",
+           "ell_fast_halo",
            "FlatSpec", "flat_spec", "flat_fast", "flat_fast_plain",
            "make_cuda_spmv", "make_cuda_product", "product_spec",
            "stream_words", "use_fold"]
@@ -128,7 +136,8 @@ class EllSpec(NamedTuple):
     active: the pre-derived exec-space plane) or the index of the word
     plane holding the gather index; ``mask_ecc``: mask the ECC byte off
     that word (the ECC modes, spmv_pallas.py:610-612); ``plane`` as in
-    DiaSpec."""
+    DiaSpec; ``rows``: the matrix's R, the row count of the gather rule
+    (a shard's halo form gathers by the global rule from a window)."""
 
     K: int
     use_parity: bool
@@ -137,6 +146,7 @@ class EllSpec(NamedTuple):
     gather: object
     mask_ecc: bool
     detect: bool = True
+    rows: int = 0
 
 
 def _gather_source(mat, mode) -> dict:
@@ -155,7 +165,7 @@ def ell_spec(mat, mode) -> EllSpec:
     if mat.exec_kind != "ell":
         raise ValueError(f"ell_spec: a {mat.exec_kind!r} matrix")
     return EllSpec(mat.K, *_signal_plane(mode, mat),
-                   **_gather_source(mat, mode))
+                   **_gather_source(mat, mode), rows=mat.R)
 
 
 class FlatSpec(NamedTuple):
@@ -215,10 +225,19 @@ def signals_plain(md: MatrixDevice, spec) -> torch.Tensor:
     return trig
 
 
-def dia_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec):
-    """Plain version of kernel A: (w, trig, pw)."""
-    w = dia_product(md.values, spec.offsets, x)
-    return w, signals_plain(md, spec), torch.sum(x * w)
+def _rows_of(x, halo, R):
+    """The shard's own rows of an x_ext (x itself without a halo)."""
+    return x if halo is None else x[halo:halo + R]
+
+
+def dia_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec,
+                   halo: int = None):
+    """Plain version of kernel A: (w, trig, pw).  ``halo`` H: its per-
+    shard form, x = the shard's x_ext of R + 2H rows (ops.spmv.
+    dia_product), pw over the shard's own rows."""
+    w = dia_product(md.values, spec.offsets, x, halo)
+    xs = _rows_of(x, halo, w.shape[0])
+    return w, signals_plain(md, spec), torch.sum(xs * w)
 
 
 def _check_tensor(what, name, t, dtype, shape, device):
@@ -294,9 +313,10 @@ def _launch_check(x, R, dev, what):
                          f"{tuple(x.shape)} on {x.device}")
 
 
-def _call_outputs(x):
-    """A call's fresh outputs: w, the 0-d bool trigger, the 0-d pw."""
-    return (torch.empty_like(x),
+def _call_outputs(x, rows=None):
+    """A call's fresh outputs: w (of ``rows`` rows, default x's), the
+    0-d bool trigger, the 0-d pw."""
+    return (torch.empty_like(x) if rows is None else x.new_empty(rows),
             torch.empty((), dtype=torch.bool, device=x.device),
             torch.empty((), dtype=torch.float32, device=x.device))
 
@@ -309,36 +329,48 @@ def _scratch(grid, dev):
     return t, t.data_ptr(), t.data_ptr() + 4 * grid
 
 
-def dia_launcher(md: MatrixDevice, spec: DiaSpec, dev: torch.device):
+def dia_launcher(md: MatrixDevice, spec: DiaSpec, dev: torch.device,
+                 halo: int = None):
     """Kernel A for ``md`` and ``spec`` on CUDA device ``dev``: checks the
     planes and resolves the library, grid and scratch once; the returned
     function launches the kernel on x (one device launch, no host
-    synchronisation) and returns ``(w, trig, pw)``."""
+    synchronisation) and returns ``(w, trig, pw)``.  ``halo`` H: the
+    per-shard form (``dia_fast_halo``), x is the shard's x_ext of R + 2H
+    rows."""
     from .._build import check, library
 
+    what = "dia_fast" if halo is None else "dia_fast_halo"
     R = md.values.shape[-1] if md.values is not None else -1
-    D, plane, base, _ = _check_planes(md, spec, R, dev, "dia_fast")
+    D, plane, base, _ = _check_planes(md, spec, R, dev, what)
     for name, t in (("values", md.values), ("signal plane", plane)):
         if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"dia_fast: {name} must be 16-byte aligned")
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    if halo is not None and max(map(abs, spec.offsets)) > halo:
+        raise ValueError(f"{what}: halo {halo} under the offsets "
+                         f"{spec.offsets}")
     lib = library("dia_spmv_detect")
     scratch, part, flags = _scratch(lib.abft_dia_spmv_grid(R), dev)
     offs, offs_ptr = _offsets_arg(spec.offsets)
-    head = (md.values.data_ptr(), offs_ptr, D, R)
     sig = (_ptr(plane), _ptr(base), int(spec.use_parity),
            int(spec.use_cksum), part, flags)
-    fn, index, product = lib.abft_dia_spmv_detect, dev.index, not spec.detect
+    head = (md.values.data_ptr(), offs_ptr, D, R)
+    if halo is None:
+        fn, counter, rows, mid = lib.abft_dia_spmv_detect, dia_fast, R, ()
+    else:
+        fn, counter = lib.abft_dia_spmv_detect_halo, dia_fast_halo
+        rows, mid = R + 2 * halo, (halo,)
+    index, product = dev.index, not spec.detect
 
     def launch(x, _keep=(offs, scratch)):
-        _launch_check(x, R, dev, "dia_fast")
-        w, trig, pw = _call_outputs(x)
-        check(fn(*head, x.data_ptr(), w.data_ptr(), *sig, pw.data_ptr(),
-                 trig.data_ptr(), index,
+        _launch_check(x, rows, dev, what)
+        w, trig, pw = _call_outputs(x, R)
+        check(fn(*head, x.data_ptr(), *mid, w.data_ptr(), *sig,
+                 pw.data_ptr(), trig.data_ptr(), index,
                  torch.cuda.current_stream(dev).cuda_stream),
-              "dia_spmv_detect launch")
-        dia_fast.launches += 1
+              f"{what} launch")
+        counter.launches += 1
         if product:
-            dia_fast.product_launches += 1
+            counter.product_launches += 1
         return w, trig, pw
 
     return launch
@@ -358,6 +390,22 @@ dia_fast.launches = 0
 dia_fast.product_launches = 0   # the detection-free product's share
 
 
+def dia_fast_halo(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec,
+                  halo: int):
+    """Kernel A's per-shard form (the TPU kernel's ``halo=`` variant):
+    ``md`` holds one shard's R rows, x is its x_ext of R + 2 * ``halo``
+    rows; ``(w, trig, pw)`` as ``dia_fast``, pw over the shard's rows.
+    The plain version for CPU tensors.  A sharded solve calls
+    ``dia_launcher(md, spec, dev, halo)`` once per shard instead."""
+    if x.device.type == "cpu":
+        return dia_fast_plain(md, x, spec, halo)
+    return dia_launcher(md, spec, x.device, halo)(x)
+
+
+dia_fast_halo.launches = 0
+dia_fast_halo.product_launches = 0
+
+
 def ell_gather_plane(md: MatrixDevice, spec) -> torch.Tensor:
     """The gather indices kernel C (EllSpec) or E (FlatSpec) reads, before
     the clamp: the masked col word or the gidx plane."""
@@ -365,10 +413,64 @@ def ell_gather_plane(md: MatrixDevice, spec) -> torch.Tensor:
     return g & int(ECC_COL_MASK) if spec.mask_ecc else g
 
 
-def ell_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: EllSpec):
-    """Plain version of kernel C: (w, trig, pw)."""
-    w = ell_product(md.values, ell_gather_plane(md, spec), md.ell_len, x)
-    return w, signals_plain(md, spec), torch.sum(x * w)
+def ell_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: EllSpec,
+                   halo: int = None, base: int = 0):
+    """Plain version of kernel C: (w, trig, pw).  ``halo`` H: its per-
+    shard form, x = the shard's x_ext of R_loc + 2H rows, ``base`` the
+    shard's first row; each global gather index reads the window
+    (ops.spmv.window_positions), pw over the shard's own rows."""
+    g = ell_gather_plane(md, spec)
+    if halo is not None:
+        g = window_positions(g, spec.rows, base, halo, x.shape[0])
+    w = ell_product(md.values, g, md.ell_len, x)
+    xs = _rows_of(x, halo, w.shape[0])
+    return w, signals_plain(md, spec), torch.sum(xs * w)
+
+
+def _ell_launch(md: MatrixDevice, x: torch.Tensor, spec: EllSpec,
+                halo=None, base=0):
+    """One launch of kernel C (``halo`` None) or of its halo form, with
+    the planes checked on every call; ``(w, trig, pw)``."""
+    from .._build import check, library
+
+    what = "ell_fast" if halo is None else "ell_fast_halo"
+    if x.device.type != "cuda" or x.dim() != 1:
+        raise ValueError(f"{what}: x must be a 1-D CUDA tensor, got "
+                         f"{tuple(x.shape)} on {x.device}")
+    R = x.shape[0] if halo is None else x.shape[0] - 2 * halo
+    if R < 32 or R % 32:
+        raise ValueError(f"{what}: R must be a positive multiple of 32, "
+                         f"got {R}")
+    _check_tensor(what, "x", x, torch.float32, (x.shape[0],), x.device)
+    K, plane, ck, gsrc = _check_planes(md, spec, R, x.device, what)
+    lib = library("ell_spmv_detect")
+    dev = x.device.index if x.device.index is not None else 0
+    block = lib.abft_ell_spmv_block()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = max(1, min(-(-R // block), 4 * sms))
+    w = x.new_empty(R)
+    pw_part = torch.empty(grid, dtype=torch.float32, device=x.device)
+    trig = torch.zeros(1, dtype=torch.int32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    head = (md.values.data_ptr(), gsrc.data_ptr(), gather_mask(spec),
+            md.ell_len.data_ptr(), K, R, x.data_ptr())
+    tail = (w.data_ptr(), pw_part.data_ptr(), grid, _ptr(plane), _ptr(ck),
+            int(spec.use_parity), int(spec.use_cksum), trig.data_ptr(), dev,
+            stream)
+    if halo is None:
+        rc, counter = lib.abft_ell_spmv_detect(*head, *tail), ell_fast
+    else:
+        if not 0 < spec.rows < 2 ** 31 or not 0 <= base < spec.rows:
+            raise ValueError(f"{what}: base {base} outside the "
+                             f"{spec.rows} rows of the matrix")
+        rc = lib.abft_ell_spmv_detect_halo(*head, halo, spec.rows, base,
+                                           *tail)
+        counter = ell_fast_halo
+    check(rc, f"{what} launch")
+    counter.launches += 1
+    if not spec.detect:
+        counter.product_launches += 1
+    return w, trig[0] != 0, torch.sum(pw_part)
 
 
 def ell_fast(md: MatrixDevice, x: torch.Tensor, spec: EllSpec):
@@ -377,33 +479,27 @@ def ell_fast(md: MatrixDevice, x: torch.Tensor, spec: EllSpec):
     tensor (no host synchronisation)."""
     if x.device.type == "cpu":
         return ell_fast_plain(md, x, spec)
-    from .._build import check, library
-
-    K, R, plane, base, gsrc = _check_cuda_args(md, x, spec, "ell_fast")
-    lib = library("ell_spmv_detect")
-    dev = x.device.index if x.device.index is not None else 0
-    block = lib.abft_ell_spmv_block()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = max(1, min(-(-R // block), 4 * sms))
-    w = torch.empty_like(x)
-    pw_part = torch.empty(grid, dtype=torch.float32, device=x.device)
-    trig = torch.zeros(1, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.abft_ell_spmv_detect(
-        md.values.data_ptr(), gsrc.data_ptr(), gather_mask(spec),
-        md.ell_len.data_ptr(), K, R, x.data_ptr(), w.data_ptr(),
-        pw_part.data_ptr(), grid, _ptr(plane), _ptr(base),
-        int(spec.use_parity), int(spec.use_cksum), trig.data_ptr(), dev,
-        stream)
-    check(rc, "ell_spmv_detect launch")
-    ell_fast.launches += 1
-    if not spec.detect:
-        ell_fast.product_launches += 1
-    return w, trig[0] != 0, torch.sum(pw_part)
+    return _ell_launch(md, x, spec)
 
 
 ell_fast.launches = 0
 ell_fast.product_launches = 0   # the detection-free product's share
+
+
+def ell_fast_halo(md: MatrixDevice, x: torch.Tensor, spec: EllSpec,
+                  halo: int, base: int):
+    """Kernel C's per-shard form (the TPU kernel's ``halo=True,
+    with_base=True`` variant): ``md`` holds one shard's R_loc rows of the
+    planes as built (global gather indices), x is its x_ext of R_loc + 2
+    * ``halo`` rows, ``base`` its first global row; ``(w, trig, pw)`` as
+    ``ell_fast``.  The plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return ell_fast_plain(md, x, spec, halo, base)
+    return _ell_launch(md, x, spec, halo, base)
+
+
+ell_fast_halo.launches = 0
+ell_fast_halo.product_launches = 0
 
 
 def flat_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: FlatSpec):

@@ -25,7 +25,12 @@ CUDA kernel against its plain PyTorch version on the card:
   - the solver options on these paths: -p jacobi and --check-interval K
     (the Jacobi and lazy instances of kernels B and D, the per-iteration
     tier's lazy loop over the detection-free products of C and E) and
-    --refine 2.
+    --refine 2;
+  - the row-sharded solve (parallel/: ``solve_sharded``,
+    ``make_shardmap_spmv`` under solver.cg's loops) on a mesh of 4 shards
+    on the one card, DIA -b 10, dense-radius-3d -b 10 (row_align 4096)
+    and arrowhead -b 10: the halo forms of kernels A and C per shard (the
+    CLI's --devices N, like the JAX one, needs N cards).
 
 Phases:
 
@@ -45,14 +50,14 @@ Phases:
   8. DIA times: interleaved batches, median and spread, build excluded;
      kernel A (as the solvers call it: a launcher made once per matrix)
      against its plain version, the bare ``A @ x`` of a
-     torch.sparse_csr_tensor (computes less: no checks) and its bound,
-     then a torch.profiler window over 50 warm calls of each of kernel A
-     and A @ x: device time per call by kernel, device operations per
-     call, the device's busy share (here and in phases 14, 21 and 26);
+     torch.sparse_csr_tensor (computes less: no checks) and its bound
+     (phase 31 traces them);
   9. the ELL matrices, each mode built once: dense-radius-3d -b 4,
      blockdiag-random -b 2, and stencil27-shuffled -b 2 forced to ELL
      under its RCM permutation (the gidx plane); dense-radius-3d -b 10
-     in modes none and secded for the timed path;
+     in every mode, R aligned to 4096 rows (1,664 zero rows past its
+     219,520: four shards of 1024-row multiples), for the timed path
+     and the sharded phases;
  10. kernel C vs its plain version on the three ELL shapes, every mode,
      clean and with injected 1- and 2-bit faults (and an index flip in
      none/constraints): w bit-exact, pw within 1e-5;
@@ -119,11 +124,33 @@ Phases:
      Jacobi over unpreconditioned on DIA -b 10 and -b 100, dense-
      radius-3d -b 10 and powerlaw-graph -b 10 (slope, GB/s), each new
      instance against its plain loop and the products per call;
- 27. powerlaw-graph -b 100 (HBM-bound), if its host build takes under a
+ 27. the halo forms of kernels A and C on 4 shards of the card (DIA -b
+     10: R_loc 204,800, H 128; dense-radius-3d -b 10 at row_align 4096:
+     R_loc 55,296, H 1,664), every mode, clean and with a fault in a halo
+     row (the last row of shard 1): w bit-exact to the plain versions
+     and, concatenated, to the single-device kernels' w; the trigger on
+     the faulted row's shard only;
+ 28. the sharded main path: ``solve_sharded`` and ``make_shardmap_spmv``
+     under make_cg_solver / make_lazy_ci_solver on DIA -b 10 (clean, a
+     halo-row fault, lazy CI 4, Jacobi on the scaled diagonal), dense-
+     radius-3d -b 10 (live, lazy CI 4) and arrowhead -b 10 (clean,
+     injected), each against the single-device cuda solve and the f64
+     oracle's trajectory bound, a lazy x equal to the live one bit for
+     bit; the halo kernels' launch counts reset before and read after;
+ 29. sharded times: per sharded SpMV (4 shards and the exchange) against
+     the single-device kernels and ``A @ x``; one shard's halo kernel
+     call against its plain version, the shard's ``A @ x_ext`` and its
+     bound; sharded solves at DIA -b 10 and -b 100 against kernel B and
+     the per-iteration tier;
+ 30. powerlaw-graph -b 100 (HBM-bound), if its host build takes under a
      minute and the run is early enough;
- 28. torch.profiler windows over warm -b 10 solves (DIA, ELL, flat,
-     split): device time per solve by kernel and the device's idle
-     share.
+ 31. torch.profiler windows, each group in a fresh worker process
+     (``--profile-worker dia|ell PICKLE``, the matrix handed over in a
+     temporary pickle; one long process lost most device
+     events of its later windows): kernels A and C per call, their
+     products, ``A @ x``, the sharded SpMV, and solves of kernels B and
+     D (live, lazy CI 4, Jacobi) and the sharded tier — device time per
+     call by kernel, device operations per call, the busy share.
 
 Any failed check raises, so the script exits non-zero.  The last three
 lines are the card line from nvidia-smi, one JSON object describing the
@@ -144,6 +171,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -250,6 +278,29 @@ def pw_rel(pk, pp):
     return abs(pk - pp) / abs(pp)
 
 
+def _csr(values, cols, valid, ncols):
+    """A (R, ncols) float32 torch.sparse_csr_tensor of the valid slots of
+    a (D, R) value plane whose slot (d, r) sits in column cols[d, r]."""
+    import torch
+
+    R = values.shape[1]
+    valid_t = valid.T
+    crow = torch.zeros(R + 1, dtype=torch.int64, device=values.device)
+    crow[1:] = torch.cumsum(valid_t.sum(dim=1), 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # "beta" notices
+        a = torch.sparse_csr_tensor(crow, cols.T[valid_t],
+                                    values.T[valid_t], size=(R, ncols))
+    return a, int(crow[-1])
+
+
+def _occupied(md):
+    occupied = md.words[0] != 0
+    for w in md.words[1:]:
+        occupied = occupied | (w != 0)
+    return occupied
+
+
 def csr_yardstick(md, spec):
     """The same matrix as a torch.sparse_csr_tensor (float32, exec
     order): the bare ``A @ x`` yardstick.  It computes less than the
@@ -275,84 +326,36 @@ def csr_yardstick(md, spec):
     if hasattr(spec, "offsets"):
         offs = torch.tensor(spec.offsets, device=values.device)[:, None]
         cols = torch.arange(R, device=values.device)[None, :] + offs
-        occupied = md.words[0] != 0
-        for w in md.words[1:]:
-            occupied = occupied | (w != 0)
-        valid = (cols >= 0) & (cols < R) & occupied
+        valid = (cols >= 0) & (cols < R) & _occupied(md)
     else:
         from abft_sparse_cg_tpu_torch.ops.spmv_cuda import ell_gather_plane
 
         cols = ell_gather_plane(md, spec).to(torch.int64)
         valid = slot < md.ell_len[None, :].to(torch.int64)
-    valid_t = valid.T
-    counts = valid_t.sum(dim=1)
-    crow = torch.zeros(R + 1, dtype=torch.int64, device=values.device)
-    crow[1:] = torch.cumsum(counts, 0)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)  # "beta" notices
-        a = torch.sparse_csr_tensor(crow, cols.T[valid_t],
-                                    values.T[valid_t], size=(R, R))
-    return a, int(crow[-1])
+    return _csr(values, cols, valid, R)
 
 
-def profile_solves(mats, dev, card, label, solves=10):
-    """A torch.profiler window over ``solves`` warm solves per mode, on
-    the tier the cuda target picks (whole-solve kernel or per-iteration
-    loop): device time per solve by kernel, the device's busy and idle
-    shares of the window (the profiler's own host overhead stretches the
-    window, so the idle share is an upper bound)."""
-    import numpy as np
+def shard_yardstick(md, spec, halo, base):
+    """One shard's rows as a (R_loc, R_loc + 2 * halo) torch.sparse_csr_
+    tensor over its x_ext: the bare ``A @ x_ext`` beside a halo kernel's
+    call (columns where the halo forms read, ops.spmv.window_positions)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
-    from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device
+    from abft_sparse_cg_tpu_torch.ops.spmv import window_positions
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import ell_gather_plane
 
-    for mode in ("none", "secded"):
-        m = mats[mode]
-        solve = CudaBackend(mode)._solver(m, torch.float32, 1000, CONV)
-        md = make_matrix_device(m, torch.float32, dev)
-        b = torch.zeros(m.R, dtype=torch.float32, device=dev)
-        b[: m.N] = torch.tensor(np.random.default_rng(11).random(m.N),
-                                dtype=torch.float32)
-        its = solve(md, b).iterations
-        for _ in range(3):
-            solve(md, b)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(solves):
-                solve(md, b)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / solves
-        events = list(prof.events())
-        gpu = sorted((e.time_range.start, e.time_range.end, e.name)
-                     for e in events if e.device_type == DeviceType.CUDA)
-        print(f"{label} {mode} ({its} it), {solves} solves under the "
-              f"profiler: {wall:.4f} ms per solve (host clock) [{card}]")
-        if not gpu:
-            print("  no device events traced: device times not measured")
-            continue
-        by_name = {}
-        for t0_, t1_, name in gpu:
-            by_name[name] = by_name.get(name, 0.0) + (t1_ - t0_)
-        busy, cur0, cur1 = 0.0, None, None
-        for t0_, t1_, _ in gpu:
-            if cur1 is None or t0_ > cur1:
-                busy += 0.0 if cur1 is None else cur1 - cur0
-                cur0, cur1 = t0_, t1_
-            else:
-                cur1 = max(cur1, t1_)
-        busy += cur1 - cur0
-        span = (max(e.time_range.end for e in events)
-                - min(e.time_range.start for e in events))
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-            print(f"  {us / solves / 1e3:.4f} ms/solve  {name[:90]}")
-        print(f"  device busy {busy / solves / 1e3:.4f} ms/solve; idle "
-              f"{(1 - busy / span) * 100:.1f}% of the {span / 1e3:.3f} ms "
-              f"window [{card}]")
+    values = md.values
+    D, R = values.shape
+    if hasattr(spec, "offsets"):
+        offs = torch.tensor(spec.offsets, device=values.device)[:, None]
+        cols = torch.arange(R, device=values.device)[None, :] + offs + halo
+        valid = _occupied(md)
+    else:
+        cols = window_positions(ell_gather_plane(md, spec), spec.rows, base,
+                                halo, R + 2 * halo)
+        slot = torch.arange(D, device=values.device)[:, None]
+        valid = slot < md.ell_len[None, :].to(torch.int64)
+    return _csr(values, cols, valid, R + 2 * halo)[0]
 
 
 def call_profile(fn, label, card, reps=50):
@@ -456,7 +459,7 @@ def run_tests_classes(main_csr, base):
 
 
 def trajectory(m, b, label, oracle_mat=None, oracle_dev="cpu", conv=1e-6,
-               floor=1e-8):
+               floor=1e-8, res=None, precond=False):
     """The f32 cuda trajectory against the port's f64 plain solve (on
     ``oracle_mat``, the same matrix built in another mode, if given; on
     ``oracle_dev``: the plain version runs on the card too), both run to
@@ -465,21 +468,31 @@ def trajectory(m, b, label, oracle_mat=None, oracle_dev="cpu", conv=1e-6,
     iteration counts within max(1, n / 20) (tests/test_zoo_parity.py's
     rule).  A higher floor marks a matrix on which float32 CG itself
     leaves the float64 trajectory there: the counts are then printed,
-    not held."""
+    not held.  ``res``: the f32 solve to hold (rr_trace, iterations,
+    failed), else the cuda target's; ``precond``: both Jacobi PCG."""
     import numpy as np
     import torch
 
     from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
+    from abft_sparse_cg_tpu_torch.backends.torch_backend import jacobi_minv
     from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device, make_spmv
     from abft_sparse_cg_tpu_torch.solver.cg import make_cg_solver
 
-    res = CudaBackend(m.mode).solve(m, b, 500, conv, dtype="f32", reps=1)
+    pre = "jacobi" if precond else "none"
+    if res is None:
+        res = CudaBackend(m.mode).solve(m, b, 500, conv, dtype="f32",
+                                        reps=1, precond=pre)
     f64, odev = torch.float64, torch.device(oracle_dev)
-    bexec = torch.zeros(m.R, dtype=f64, device=odev)
-    bexec[: m.N] = torch.tensor(m.to_exec_order(b), dtype=f64)
+
+    def exec_vec(v):
+        out = torch.zeros(m.R, dtype=f64, device=odev)
+        out[: m.N] = torch.tensor(m.to_exec_order(v), dtype=f64)
+        return out
+
+    minv = exec_vec(jacobi_minv(m, pre)) if precond else None
     om = m if oracle_mat is None else oracle_mat
     ora = make_cg_solver(make_spmv(om, f64, om.mode), 500, conv)(
-        make_matrix_device(om, f64, odev), bexec)
+        make_matrix_device(om, f64, odev), exec_vec(b), minv)
     require(not res.failed and ora.stats.errcode == 0
             and res.iterations < 500, "trajectory solves failed")
     if floor <= 1e-8:
@@ -499,6 +512,76 @@ def trajectory(m, b, label, oracle_mat=None, oracle_dev="cpu", conv=1e-6,
           f"to rr < {conv:g})")
 
 
+def profile_worker(group, path):
+    """Phase 31's torch.profiler windows of one group, in this fresh
+    process, which does nothing else first: ``dia`` (the bundled matrix
+    at -b 10) or ``ell`` (dense-radius-3d -b 10, row_align 4096), secded,
+    the matrix the main process built, read from the pickle at
+    ``path``.
+    Windows of warm calls of the kernel (A or C) as the solvers call it,
+    its detection-free product, ``A @ x``, the sharded SpMV on 4 shards of
+    the card, and warm solves: the whole-solve kernel (B or D) live, lazy
+    CI 4 and Jacobi, and the sharded solve.  Prints one JSON line, per
+    window call_profile's numbers and the three largest kernels.  (In one
+    long process the later windows lost most device events: PERF.md §6.)"""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from abft_sparse_cg_tpu_torch import _build
+    from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
+    from abft_sparse_cg_tpu_torch.backends.torch_backend import jacobi_minv
+    from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
+        fast_spec, make_cuda_product, make_cuda_spmv)
+    from abft_sparse_cg_tpu_torch.parallel.sharded import (
+        _device_put_sharded, default_mesh, make_sharded_solver)
+    from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
+        make_shardmap_spmv)
+
+    _build.build()
+    dev, f32 = torch.device("cuda", 0), torch.float32
+    with open(path, "rb") as f:
+        m = pickle.load(f)
+    spmv, solve = ("A", "B") if group == "dia" else ("C", "D")
+    b = np.random.default_rng(11).random(m.N)
+    md = make_matrix_device(m, f32, dev)
+    mesh = default_mesh(4, dev)
+    smd, bd, put = _device_put_sharded(m, b, mesh, f32)
+    minv = put(jacobi_minv(m, "jacobi"))
+    live = make_cuda_spmv(m, f32, "secded").fast_pw
+    prod = make_cuda_product(m, f32, "secded").fast_pw
+    sharded = make_shardmap_spmv(m, mesh).fast_pw
+    a_csr, _ = csr_yardstick(md, fast_spec(m, "secded"))
+    xcol = bd[:, None]
+    be = CudaBackend("secded")
+    s_live = be._solver(m, f32, 1000, CONV)
+    s_lazy = be._solver(m, f32, 1000, CONV, False, 4)
+    s_jac = be._solver(m, f32, 1000, CONV, True)
+    s_sh = make_sharded_solver(m, mesh, 1000, CONV, f32)
+    windows = {
+        f"{spmv} secded call": (lambda: live(md, bd), 50),
+        f"{spmv} product call": (lambda: prod(md, bd), 50),
+        "A @ x": (lambda: a_csr @ xcol, 50),
+        "sharded SpMV, 4 shards": (lambda: sharded(smd, bd), 50),
+        f"{solve} secded solve": (lambda: s_live(md, bd), 10),
+        f"{solve} lazy CI 4 solve": (lambda: s_lazy(md, bd), 10),
+        f"{solve} Jacobi solve": (lambda: s_jac(md, bd, minv), 10),
+        "sharded solve, 4 shards": (lambda: s_sh(smd, bd), 10),
+    }
+    out = {}
+    for label, (fn, reps) in windows.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            w = call_profile(fn, label, "", reps)
+        if w is not None:
+            top = sorted(w["by_name"].items(), key=lambda kv: -kv[1])[:3]
+            w["by_name"] = dict(top)
+        out[label] = w
+    print(json.dumps(out))
+
+
 def main():
     import torch
 
@@ -514,10 +597,10 @@ def main():
     from abft_sparse_cg_tpu_torch.inject import inject_bitflips
     from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device, make_spmv
     from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
-        dia_fast, dia_fast_plain, dia_launcher, dia_spec, ell_fast,
-        ell_fast_plain, ell_spec, flat_fast, flat_fast_plain, flat_launcher,
-        flat_spec)
-    from abft_sparse_cg_tpu_torch.solver.cg import init_state
+        dia_fast, dia_fast_halo, dia_fast_plain, dia_launcher, dia_spec,
+        ell_fast, ell_fast_halo, ell_fast_plain, ell_spec, flat_fast,
+        flat_fast_plain, flat_launcher, flat_spec, make_cuda_spmv)
+    from abft_sparse_cg_tpu_torch.solver.cg import init_state, make_cg_solver
     from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
     from abft_sparse_cg_tpu_torch.solver.fused import (
         fused_cg_dia, fused_cg_dia_plain, fused_cg_ell, fused_cg_ell_plain,
@@ -529,9 +612,10 @@ def main():
 
     def reset_launches():
         for fn in (dia_fast, fused_cg_dia, ell_fast, fused_cg_ell,
-                   flat_fast):
+                   flat_fast, dia_fast_halo, ell_fast_halo):
             fn.launches = 0
-        for fn in (dia_fast, ell_fast, flat_fast):
+        for fn in (dia_fast, ell_fast, flat_fast, dia_fast_halo,
+                   ell_fast_halo):
             fn.product_launches = 0
         fused_cg_dia.tail_launches = fused_cg_ell.tail_launches = 0
         fused_cg_dia.instances.clear()
@@ -767,7 +851,7 @@ def main():
               f"{(med['secded'] / med['none'] - 1) * 100:+.1f}% [{card}]")
         return med, its
 
-    solve_table("-b 10", mats, 7, 10, dia_iter_bytes)
+    solve_table("-b 10", mats, 5, 10, dia_iter_bytes)
 
     def layer_times(mm, a_, label, reps=3):
         """Host build, upload and (plain) classify of a faulted copy."""
@@ -800,8 +884,7 @@ def main():
         """Per-call device time (CUDA events, interleaved) of a kernel as
         the solvers call it (kernels A and E through a launcher made once
         per matrix), its plain version and the bare A @ x, beside the
-        bound; then a profiler window over the kernel's and A @ x's warm
-        calls."""
+        bound (phase 31 traces them in fresh processes)."""
         a_csr, nnz = csr_yardstick(md_, spec_)
         xcol = xd_[:, None]
         if kernel in launchers:
@@ -812,7 +895,7 @@ def main():
         t = interleave({"plain": lambda: plain(md_, xd_, spec_),
                         "kernel": call,
                         "A @ x": lambda: a_csr @ xcol}, 20,
-                       timer=event_ms)
+                       batches=5, timer=event_ms)
         med = {n: statistics.median(v) for n, v in t.items()}
         bms, by = bound(nbytes, flops)
         print(f"{label}, per call (CUDA events): kernel "
@@ -821,8 +904,6 @@ def main():
               f"{spread(t['A @ x'])}; bound {bms:.4f} ms ({by}: "
               f"{nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP) = "
               f"{bms / med['kernel'] * 100:.1f}% of the bound [{card}]")
-        call_profile(call, f"{label} kernel", card)
-        call_profile(lambda: a_csr @ xcol, f"{label} A @ x", card)
         return med, bms, by
 
     m = mats["secded"]
@@ -895,12 +976,14 @@ def main():
               f"{mm.R}, band {mm.band}, permuted "
               f"{mm.perm is not None}; 6 builds in "
               f"{time.perf_counter() - t0:.1f} s")
-    # The timed ELL path: dense-radius-3d -b 10 in modes none and secded.
+    # The timed ELL path: dense-radius-3d -b 10, every mode, built with
+    # R aligned to 4096 rows (4 shards of 1024-row multiples: the sharded
+    # kernel tier of phases 27-29; 1,664 zero rows past the 219,520).
     t0 = time.perf_counter()
     a_ell = zoo_assembled("dense-radius-3d", 10)
-    ell = parallel_builds(a_ell, ("none", "secded"))
-    print(f"dense-radius-3d -b 10: 2 builds in "
-          f"{time.perf_counter() - t0:.1f} s")
+    ell = parallel_builds(a_ell, MODES, row_align=4096)
+    print(f"dense-radius-3d -b 10 (row_align 4096, R {ell['none'].R}): 6 "
+          f"builds in {time.perf_counter() - t0:.1f} s")
     require(ell["secded"].K == 175 and ell["secded"].perm is None
             and ell["secded"].band == 1627,
             "dense-radius-3d -b 10: K 175, band 1627, no permutation")
@@ -997,7 +1080,7 @@ def main():
     # ---- 14. ELL times ----------------------------------------------------
     phase(f"14. ELL times on {card} (warm, build excluded)")
     device_state(card)
-    solve_table("dense-radius-3d -b 10", ell, 7, 10, ell_iter_bytes)
+    solve_table("dense-radius-3d -b 10", ell, 5, 10, ell_iter_bytes)
     layer_times(ell["secded"], a_ell, "dense-radius-3d -b 10", reps=1)
     m = ell["secded"]
     R, K = m.R, m.K
@@ -1310,9 +1393,9 @@ def main():
     layer_times(pl["secded"], flat["powerlaw-graph"][0],
                 "powerlaw-graph -b 10", reps=1)
     solve_table("band+random-1pct -b 10 (per-iteration tier)",
-                splits["band+random-1pct"][1], 5, 3, split_iter_bytes)
+                splits["band+random-1pct"][1], 3, 3, split_iter_bytes)
     solve_table("arrowhead -b 10 (kernel B, split tail)",
-                splits["arrowhead"][1], 5, 5, split_iter_bytes)
+                splits["arrowhead"][1], 3, 5, split_iter_bytes)
     med_e = {}
     for name in ("powerlaw-graph", "dense-radius-k729"):
         for mode in ("none", "secded"):
@@ -1766,7 +1849,7 @@ def main():
 
     opt_times = {}
     for label, mats_, batches, reps, nb_fn, sig_fn in (
-            ("DIA -b 10", mats, 7, 10, dia_iter_bytes, dia_sig),
+            ("DIA -b 10", mats, 3, 10, dia_iter_bytes, dia_sig),
             ("DIA -b 100", mats100, 3, 3, dia_iter_bytes, dia_sig),
             ("dense-radius-3d -b 10", ell, 3, 3, ell_iter_bytes, ell_sig),
             ("powerlaw-graph -b 10", flat["powerlaw-graph"][1], 3, 2,
@@ -1908,10 +1991,272 @@ def main():
              "max_abs_err": max(prod_errs[key]), "ms": med["kernel"],
              "plain_ms": med["plain"], "bound_ms": bms, "bound_by": by,
              "library_ms": med["A @ x"]})
+    # ---- 27. kernels A and C per shard: the halo forms ----------------------
+    phase("27. kernels A and C per shard (halo forms) vs their plain "
+          "versions and the single-device kernels: 4 shards on one card, "
+          "DIA -b 10 and dense-radius-3d -b 10 (row_align 4096), every "
+          "mode, clean and a fault in a halo row")
+    from abft_sparse_cg_tpu_torch.parallel.sharded import (
+        _device_put_sharded, default_mesh, make_sharded_solver, shard_rows,
+        solve_sharded)
+    from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
+        _halo, halo_exchange, make_shardmap_spmv, supports_shardmap)
+
+    NS = 4
+    mesh = default_mesh(NS, dev)
+    halo_errs = {"dia": [], "ell": []}
+    halo_of = {}
+
+    def halo_row_fault(mm):
+        """``mm`` with a bit of the col word flipped in the last row of
+        shard 1, the first row of shard 2's left halo (every detecting
+        mode covers the col word; in the ECC modes the gather masks
+        it)."""
+        row = 2 * (mm.R // NS) - 1
+        slot = int(np.flatnonzero(mm.ell_slot % mm.R == row)[0])
+        planes = {k: v.copy() for k, v in mm.planes.items()}
+        planes["col"][slot] ^= np.uint32(1 << 2)
+        return mm.with_planes(planes)
+
+    for layout, per in (("dia", mats), ("ell", ell)):
+        for mode in MODES:
+            m0 = per[mode]
+            require(supports_shardmap(m0, f32, NS),
+                    f"{layout} {mode}: in the kernel tier's envelope")
+            H, R_loc = _halo(m0), m0.R // NS
+            halo_of[layout] = (H, R_loc)
+            spec = (dia_spec if layout == "dia" else ell_spec)(m0, mode)
+            single = dia_fast if layout == "dia" else ell_fast
+            kern = dia_fast_halo if layout == "dia" else ell_fast_halo
+            plain = dia_fast_plain if layout == "dia" else ell_fast_plain
+            xs = torch.tensor(np.random.default_rng(3).standard_normal(m0.R),
+                              dtype=f32, device=dev)
+            ext = halo_exchange(xs, mesh, H)
+            variants = [("clean", m0)]
+            if mode != "none":
+                variants.append(("halo-row fault", halo_row_fault(m0)))
+            for label, mm in variants:
+                mdh = make_matrix_device(mm, f32, dev)
+                shards = shard_rows(mdh, mesh)
+                ws, fired = [], []
+                for s in range(NS):
+                    args = (H,) if layout == "dia" else (H, s * R_loc)
+                    wk, tk, pk = kern(shards[s], ext[s], spec, *args)
+                    wp, tp, pp = plain(shards[s], ext[s], spec, *args)
+                    torch.cuda.synchronize()
+                    tag = f"{layout} {mode} {label} shard {s}"
+                    require(same_w(wk, wp), f"{tag}: w not bit-exact")
+                    require(bool(tk) == bool(tp), f"{tag}: trig {bool(tk)} "
+                            f"vs plain {bool(tp)}")
+                    prel = pw_rel(pk, pp)
+                    require(prel <= 1e-5, f"{tag}: pw rel err {prel:.2e}")
+                    fin = torch.isfinite(wp)
+                    halo_errs[layout].append(float((wk - wp)[fin].abs()
+                                                   .max()))
+                    ws.append(wk)
+                    fired.append(bool(tk))
+                w1, t1, _ = single(mdh, xs, spec)
+                torch.cuda.synchronize()
+                require(same_w(torch.cat(ws), w1),
+                        f"{layout} {mode} {label}: the shards' w differs "
+                        "from the single-device kernel's")
+                want = ([False] * NS if label == "clean"
+                        else [False, True, False, False])
+                require(fired == want and bool(t1) == any(want),
+                        f"{layout} {mode} {label}: shard triggers {fired}, "
+                        f"single-device {bool(t1)}")
+                print(f"{layout} {mode:11s} {label:14s} (H {H}, R_loc "
+                      f"{R_loc}): 4 shards bit-exact to plain and, "
+                      f"concatenated, to the single-device kernel; "
+                      f"triggers {fired}")
+                del mdh, shards
+
+    # ---- 28. the sharded main path ---------------------------------------
+    phase("28. the sharded main path on a 4-shard mesh of one card: "
+          "solve_sharded, and make_shardmap_spmv under make_cg_solver / "
+          "make_lazy_ci_solver, vs the single-device cuda solve and the "
+          "f64 oracle; launch counts reset before and read after")
+
+    def cg_host(res):
+        """A sharded CGResult as trajectory() reads a HostResult."""
+        return types.SimpleNamespace(rr_trace=res.rr_trace.cpu().numpy(),
+                                     iterations=res.iterations,
+                                     failed=res.stats.errcode != 0)
+
+    def sharded_case(label, mm, b_, conv=1e-6, ci=1, precond=False,
+                     oracle=None):
+        """One sharded solve of ``mm`` through the kernel tier against the
+        single-device cuda solve (iterations within max(1, n / 20), x
+        within 1e-4 relative) and the f64 oracle's trajectory bound."""
+        require(supports_shardmap(mm, f32, NS), f"{label}: envelope")
+        mdsh, bsh, put = _device_put_sharded(mm, b_, mesh, f32)
+        minv = put(jacobi_minv(mm, "jacobi")) if precond else None
+        if ci == 1 and not precond:
+            res = solve_sharded(mm, b_, 500, conv, mesh=mesh)
+        else:
+            res = make_sharded_solver(mm, mesh, 500, conv, f32,
+                                      check_interval=ci)(mdsh, bsh, minv)
+        one = CudaBackend(mm.mode).solve(
+            mm, b_, 500, conv, dtype="f32", reps=1,
+            precond="jacobi" if precond else "none")
+        require(res.stats.errcode == 0 and not one.failed,
+                f"{label}: sharded stats {tuple(res.stats)}, single "
+                f"errcode {one.errcode}")
+        require(abs(res.iterations - one.iterations)
+                <= max(1, one.iterations // 20),
+                f"{label}: {res.iterations} vs {one.iterations} iterations")
+        xs_ = mm.from_exec_order(res.x.cpu().numpy()[: mm.N])
+        xrel = float(np.abs(xs_ - one.x).max() / np.abs(one.x).max())
+        require(xrel <= 1e-4, f"{label}: x {xrel:.2e} from the single-"
+                "device solve")
+        print(f"{label}: sharded {res.iterations} it, stats "
+              f"{tuple(res.stats)}; single-device {one.iterations} it; x "
+              f"within {xrel:.2e} (rel)")
+        if res.stats.corrected_count == 0 and oracle is not False:
+            trajectory(mm, b_, f"{label} (sharded)", oracle_mat=oracle,
+                       oracle_dev=dev, conv=conv, res=cg_host(res),
+                       precond=precond)
+        return res
+
+    for fn in (dia_fast_halo, ell_fast_halo):
+        fn.launches = fn.product_launches = 0
+    mdia, mell = mats["secded"], ell["secded"]
+    marrow = splits["arrowhead"][1]["secded"]
+    b_dia = np.random.default_rng(11).random(mdia.N)
+    b_ell = np.random.default_rng(11).random(mell.N)
+    b_arr = np.random.default_rng(11).random(marrow.N)
+    live_dia = sharded_case("DIA -b 10 secded", mdia, b_dia)
+    fixed = sharded_case("DIA -b 10 secded, a fault in a halo row",
+                         halo_row_fault(mdia), b_dia)
+    require(fixed.stats.corrected_count == 1
+            and torch.equal(fixed.x, live_dia.x),
+            "DIA halo-row fault: corrected once, x equal to the clean solve")
+    lazy = sharded_case("DIA -b 10 secded, lazy CI 4", mdia, b_dia, ci=4)
+    require(torch.equal(lazy.x, live_dia.x),
+            "DIA lazy CI 4: x differs from the live sharded solve")
+    sharded_case("DIA -b 10 scaled diagonal secded, Jacobi", mv,
+                 np.random.default_rng(11).random(mv.N), precond=True)
+    live_ell = sharded_case("dense-radius-3d -b 10 secded", mell, b_ell,
+                            oracle=ell["none"])
+    lazy = sharded_case("dense-radius-3d -b 10 secded, lazy CI 4", mell,
+                        b_ell, ci=4, oracle=False)
+    require(torch.equal(lazy.x, live_ell.x),
+            "ELL lazy CI 4: x differs from the live sharded solve")
+    sharded_case("arrowhead -b 10 secded", marrow, b_arr)
+    arr_fault = inject_bitflips(marrow, "ANY", 1, np.random.default_rng(12),
+                                echo=lambda s: None)
+    r_arr = sharded_case("arrowhead -b 10 secded, injected", arr_fault,
+                         b_arr)
+    require(r_arr.stats.corrected_count == 1,
+            "arrowhead injected: one correction")
+    halo_launches = {"dia_spmv_detect (halo)": dia_fast_halo.launches,
+                     "ell_spmv_detect (halo)": ell_fast_halo.launches}
+    for name, n in halo_launches.items():
+        print(f"{name}: {n} launches")
+        require(n > 0, f"{name} was not launched on the sharded path")
+
+    # ---- 29. sharded times -------------------------------------------------
+    phase(f"29. sharded times on {card}: per sharded SpMV (4 shards and "
+          "the exchange) and per shard call against the single-device "
+          "kernels and A @ x; sharded solves against kernel B and the "
+          "per-iteration tier")
+    device_state(card)
+    halo_rows = []
+    for layout, mm in (("dia", mdia), ("ell", mell)):
+        H, R_loc = halo_of[layout]
+        spec = (dia_spec if layout == "dia" else ell_spec)(mm, "secded")
+        mdsh, xsh, _ = _device_put_sharded(
+            mm, np.random.default_rng(3).random(mm.N), mesh, f32)
+        sh = make_shardmap_spmv(mm, mesh).fast_pw
+        one = make_cuda_spmv(mm, f32, "secded").fast_pw
+        a_csr, _ = csr_yardstick(mdsh.md, spec)
+        xcol = xsh[:, None]
+        t = interleave({"sharded": lambda: sh(mdsh, xsh),
+                        "single": lambda: one(mdsh.md, xsh),
+                        "A @ x": lambda: a_csr @ xcol}, 20, batches=5,
+                       timer=event_ms)
+        med = {n: statistics.median(v) for n, v in t.items()}
+        print(f"{layout} secded -b 10, per SpMV (CUDA events): sharded "
+              f"{spread(t['sharded'])}; single-device kernel "
+              f"{spread(t['single'])}; A @ x {spread(t['A @ x'])} [{card}]")
+        # One shard's call (shard 1: halos on both sides).
+        md1 = mdsh.shards[1]
+        ext1 = halo_exchange(xsh, mesh, H)[1]
+        args = (H,) if layout == "dia" else (H, R_loc)
+        if layout == "dia":
+            call = dia_launcher(md1, spec, dev, H)
+            kern = (lambda: call(ext1))
+            plainf = (lambda: dia_fast_plain(md1, ext1, spec, H))
+            D = len(mm.dia_offsets)
+            nbytes = 4 * (2 * D * R_loc + 2 * R_loc + R_loc // 8) + 8 * H
+            flops = 2 * D * R_loc
+        else:
+            kern = (lambda: ell_fast_halo(md1, ext1, spec, H, R_loc))
+            plainf = (lambda: ell_fast_plain(md1, ext1, spec, H, R_loc))
+            nnz1 = int(md1.ell_len.sum())
+            nbytes = (8 * nnz1 + 4 * mm.K * R_loc + R_loc // 2 + 4 * R_loc
+                      + 8 * R_loc + 8 * H)
+            flops = 2 * nnz1
+        s_csr = shard_yardstick(md1, spec, H, R_loc)
+        ecol = ext1[:, None]
+        ts = interleave({"kernel": kern, "plain": plainf,
+                         "A @ x": lambda: s_csr @ ecol}, 20, batches=5,
+                        timer=event_ms)
+        meds = {n: statistics.median(v) for n, v in ts.items()}
+        bms, by = bound(nbytes, flops)
+        print(f"{layout} halo kernel, shard 1 of 4 (R_loc {R_loc}, H {H}), "
+              f"per call: kernel {spread(ts['kernel'])}; plain "
+              f"{spread(ts['plain'])}; the shard's A @ x_ext "
+              f"{spread(ts['A @ x'])}; bound {bms:.4f} ms ({by}: "
+              f"{nbytes / 1e6:.2f} MB) = {bms / meds['kernel'] * 100:.1f}% "
+              f"of the bound [{card}]")
+        name = f"{'dia' if layout == 'dia' else 'ell'}_spmv_detect (halo)"
+        halo_rows.append(
+            {"name": name, "route": "cuda",
+             "source": f"abft_sparse_cg_tpu_torch/csrc/"
+                       f"{'dia' if layout == 'dia' else 'ell'}"
+                       f"_spmv_detect.cu",
+             "replaces": ("abft_sparse_cg_tpu/ops/spmv_pallas.py:519"
+                          if layout == "dia" else
+                          "abft_sparse_cg_tpu/ops/spmv_pallas.py:846"),
+             "launches": halo_launches[name],
+             "max_abs_err": max(halo_errs[layout]), "ms": meds["kernel"],
+             "plain_ms": meds["plain"], "bound_ms": bms, "bound_by": by,
+             "library_ms": meds["A @ x"]})
+        del mdsh, sh, a_csr
+    kernels += halo_rows
+
+    def solve_fns(mm):
+        """Warm solves of ``mm`` secded: the sharded kernel tier (4
+        shards), the cuda target's single-device tier (kernel B) and the
+        per-iteration tier over kernel A."""
+        b_ = np.random.default_rng(11).random(mm.N)
+        mdsh, bsh, _ = _device_put_sharded(mm, b_, mesh, f32)
+        sh = make_sharded_solver(mm, mesh, 1000, CONV, f32)
+        whole = CudaBackend("secded")._solver(mm, f32, 1000, CONV)
+        per_it = make_cg_solver(make_cuda_spmv(mm, f32, "secded"), 1000,
+                                CONV)
+        its = {"sharded": sh(mdsh, bsh).iterations,
+               "kernel B": whole(mdsh.md, bsh).iterations,
+               "per-iteration": per_it(mdsh.md, bsh).iterations}
+        return ({"sharded": lambda: sh(mdsh, bsh),
+                 "kernel B": lambda: whole(mdsh.md, bsh),
+                 "per-iteration": lambda: per_it(mdsh.md, bsh)}, its)
+
+    for label, mm, reps, batches in (("DIA -b 10", mdia, 5, 5),
+                                     ("DIA -b 100", mats100["secded"], 2,
+                                      3)):
+        fns, its = solve_fns(mm)
+        t = interleave(fns, reps, batches)
+        print(f"{label} secded solves (host clock, iterations "
+              f"{its}): " + "; ".join(f"{n} {spread(v)}"
+                                      for n, v in t.items())
+              + f" [{card}]")
+        del fns
     del mats100
 
-    # ---- 27. powerlaw-graph -b 100 (HBM-bound), if its build is quick ------
-    phase("27. powerlaw-graph -b 100, none and secded")
+    # ---- 30. powerlaw-graph -b 100 (HBM-bound), if its build is quick ------
+    phase("30. powerlaw-graph -b 100, none and secded")
     if time.perf_counter() - t_start > 660:
         print("skipped: the run is past 660 s (the 1200 s limit)")
     else:
@@ -1930,14 +2275,35 @@ def main():
                   "does not route flat")
         del a100, p100
 
-    # ---- 28. profile (last: the profiler may disturb later timings) --------
-    phase(f"28. torch.profiler over warm -b 10 solves on {card}")
+    # ---- 31. profile (last: the profiler may disturb later timings) --------
+    phase(f"31. torch.profiler windows over warm calls and solves on {card}, "
+          "each group in a fresh worker process")
     device_state(card)
-    profile_solves(mats, dev, card, "DIA -b 10")
-    profile_solves(ell, dev, card, "ELL dense-radius-3d -b 10")
-    profile_solves(pl, dev, card, "flat powerlaw-graph -b 10", solves=5)
-    profile_solves(splits["arrowhead"][1], dev, card,
-                   "split arrowhead -b 10")
+    import pickle
+
+    for group, mm in (("dia", mats["secded"]), ("ell", ell["secded"])):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{group}.pickle")
+            with open(path, "wb") as f:
+                pickle.dump(mm, f, protocol=pickle.HIGHEST_PROTOCOL)
+            p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--profile-worker", group, path],
+                               capture_output=True, text=True, timeout=400)
+        require(p.returncode == 0, f"profile worker {group}: exit "
+                f"{p.returncode}\n{p.stderr[-3000:]}")
+        windows = json.loads(p.stdout.strip().splitlines()[-1])
+        print(f"worker {group} ({time.perf_counter() - t0:.0f} s):")
+        for label, w in windows.items():
+            if w is None:
+                print(f"  {label}: no device events traced: device time not "
+                      "measured")
+                continue
+            print(f"  {label}: device {w['ms']:.4f} ms per call in "
+                  f"{w['ops']:.2f} device operations; busy "
+                  f"{w['busy'] * 100:.1f}% of the window [{card}]")
+            for name, ms in w["by_name"].items():
+                print(f"    {ms:.4f} ms/call  {name[:80]}")
     print(f"[all phases done at {time.perf_counter() - t_start:.0f} s]")
 
     print()
@@ -1948,4 +2314,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--profile-worker"]:
+        profile_worker(*sys.argv[2:4])
+    else:
+        main()

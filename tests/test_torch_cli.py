@@ -151,7 +151,7 @@ def test_cuda_target_without_card(mtx, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--devices", "2"], ["--solver", "pipelined"],
+    ["--solver", "pipelined"],
     ["--checkpoint", "snap.npz"], ["--resume"], ["--profile", "trace"],
     ["--format", "coo"]], ids=lambda f: f[0])
 def test_unported_flags_fail_with_one_line(mtx, flags, capsys):
@@ -159,6 +159,50 @@ def test_unported_flags_fail_with_one_line(mtx, flags, capsys):
                        capsys)
     assert code == 1
     assert out.strip().count("\n") == 0 and "not ported" in out
+
+
+# The run_tests classes, each -x kind.
+FAULT_RUNS = [["-m", "none"], ["-m", "secded", "-x"], ["-m", "sed", "-x"],
+              ["-m", "secded", "-x", "2"], ["-m", "sec7", "-x", "VALUE"],
+              ["-m", "constraints", "-x", "INDEX"], ["-m", "sec8", "-x", "3"]]
+
+
+@pytest.mark.parametrize("flags", FAULT_RUNS, ids=lambda f: "_".join(f))
+def test_devices_f64_stdout_identical_to_jnp(mtx, flags, capsys):
+    """``--devices 8`` (row-sharded over 8 shards: the port's on the CPU,
+    JAX's on the 8-device virtual mesh) in float64: stdout equal line
+    for line, clean and in every -x class."""
+    argv = ["-f", mtx, "-b", "4", "--seed", "5", "--dtype", "f64",
+            "--devices", "8", *flags]
+    jcode, jout, _ = run(jcli.main_csr, argv + ["-t", "jnp"], capsys)
+    tcode, tout, _ = run(cli.main_csr, argv + ["-t", "torch"], capsys)
+    assert tcode == jcode
+    assert contract_lines(tout) == contract_lines(jout)
+    assert "iteration" in tout or jcode == 1
+
+
+def test_cuda_devices_past_the_cards_fail_with_one_line(mtx, capsys,
+                                                        monkeypatch):
+    """``-t cuda --devices N`` on a host with fewer than N cards: exit 1
+    with the JAX CLI's message (jnp_backend.py:201-205)."""
+    from abft_sparse_cg_tpu_torch.backends import registry
+    from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
+
+    monkeypatch.setattr(registry, "_REGISTRY", registry._REGISTRY + [
+        ("cuda", "secded", lambda: CudaBackend("secded"))])
+    cards = torch.cuda.device_count()
+    code, out, _ = run(cli.main_csr, ["-f", mtx, "-t", "cuda", "-m",
+                                      "secded", "--devices",
+                                      str(cards + 2)], capsys)
+    assert code == 1
+    assert out.splitlines()[-1] == (
+        f"options unsupported for target 'cuda': requested {cards + 2} "
+        f"devices, found {cards}")
+    jcode, jout, _ = run(jcli.main_csr, ["-f", mtx, "-t", "jnp", "-m",
+                                         "secded", "--devices", "9"], capsys)
+    assert jcode == 1 and jout.splitlines()[-1] == (
+        "options unsupported for target 'jnp': requested 9 devices, "
+        "found 8")
 
 
 def test_refine_with_checkpoint_is_refused(mtx, capsys):
@@ -237,7 +281,10 @@ LAYOUT_RUNS = [(lay, flags) for lay in ("flat", "band-split",
                                         "bordered-split")
                for flags in (["-m", "none"], ["-m", "secded", "-x"],
                              ["-m", "sed", "-x"], ["-m", "secded", "-x", "2"],
-                             ["-m", "constraints", "-x", "INDEX"])]
+                             ["-m", "constraints", "-x", "INDEX"])] + [
+    (lay, [*flags, "--devices", "8"]) for lay in ("flat", "band-split",
+                                                  "bordered-split")
+    for flags in (["-m", "secded", "-x"], ["-m", "sed", "-x"])]
 
 
 @pytest.mark.parametrize("layout,flags", LAYOUT_RUNS,
@@ -246,7 +293,8 @@ LAYOUT_RUNS = [(lay, flags) for lay in ("flat", "band-split",
 def test_layouts_f64_stdout_identical_to_jnp(layout_mtx, layout, flags,
                                              capsys):
     """The flat and split layouts on -t torch in float64: stdout equal to
-    -t jnp line for line, clean and in the run_tests -x classes."""
+    -t jnp line for line, clean and in the run_tests -x classes, and
+    row-sharded over 8 shards."""
     argv = ["-f", layout_mtx[layout], "-b", "1", "--seed", "3", "--dtype",
             "f64", *flags]
     jcode, jout, _ = run(jcli.main_csr, argv + ["-t", "jnp"], capsys)

@@ -573,3 +573,141 @@ def test_per_iteration_lazy(dev, shape):
                      check_interval=4)
     assert fixed.corrected_count == 1 and not fixed.failed
     np.testing.assert_array_equal(fixed.x, live.x)
+
+
+# ---- the row-sharded kernel tier (parallel/) --------------------------------
+
+def sharded_matrix(mode, layout, n=4):
+    """A DIA or banded-ELL matrix (dense-radius-3d, band 221) of R a
+    multiple of 1024 * n rows, in the kernel tier's envelope."""
+    from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
+        supports_shardmap,
+    )
+
+    if layout == "dia":
+        m = dia_matrix(mode, n=8192, blocks=2)
+    else:
+        rows, cols, vals, N = dense_radius_3d(side=16)
+        m = build_protected("csr", assemble(cols, rows, vals, N, 2), mode,
+                            row_align=1024 * n)
+    assert m.exec_kind == layout and supports_shardmap(m, torch.float32, n)
+    return m
+
+
+def halo_fault(m, n, seed=0):
+    """``m`` with a 1-bit flip in the last row of shard 1 (the first halo
+    row of shard 2), in the col word every detecting mode covers."""
+    row = 2 * (m.R // n) - 1
+    slot = np.flatnonzero(m.ell_slot % m.R == row)[seed]
+    planes = {k: v.copy() for k, v in m.planes.items()}
+    planes["col"][slot] ^= np.uint32(1 << 2)
+    return m.with_planes(planes)
+
+
+@pytest.mark.parametrize("layout", ["dia", "ell"])
+@pytest.mark.parametrize("mode", MODES)
+def test_halo_kernels_match_plain_and_single_device(dev, mode, layout):
+    """Kernels A's and C's halo forms on 4 shards of one card: w bit-exact
+    to their plain versions and, concatenated, to the single-device
+    kernel's w; the trigger equal, on the faulted row's shard only; pw to
+    1e-5.  Clean and with a fault in a halo row."""
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
+        dia_fast_halo,
+        ell_fast_halo,
+    )
+    from abft_sparse_cg_tpu_torch.parallel.sharded import (
+        default_mesh,
+        shard_rows,
+    )
+    from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
+        _halo,
+        halo_exchange,
+    )
+
+    n = 4
+    m0 = sharded_matrix(mode, layout, n)
+    R_loc, H = m0.R // n, _halo(m0)
+    spec = (dia_spec if layout == "dia" else ell_spec)(m0, mode)
+    single = dia_fast if layout == "dia" else ell_fast
+    halo_fn = dia_fast_halo if layout == "dia" else ell_fast_halo
+    mesh = default_mesh(n, dev)
+    x = torch.tensor(np.random.default_rng(5).standard_normal(m0.R),
+                     dtype=torch.float32, device=dev)
+    for m in (m0, halo_fault(m0, n)) if mode != "none" else (m0,):
+        md = make_matrix_device(m, torch.float32, dev)
+        shards = shard_rows(md, mesh)
+        ext = halo_exchange(x, mesh, H)
+        before = halo_fn.launches
+        outs = []
+        for s in range(n):
+            args = (H,) if layout == "dia" else (H, s * R_loc)
+            wk, tk, pk = halo_fn(shards[s], ext[s], spec, *args)
+            cpu = shard_rows(make_matrix_device(m, torch.float32, CPU),
+                             default_mesh(n, CPU))[s]
+            wp, tp, pp = halo_fn(cpu, ext[s].cpu(), spec, *args)
+            assert same_bits(wk.cpu(), wp), s
+            assert bool(tk) == bool(tp), s
+            torch.testing.assert_close(pk.cpu(), pp, rtol=1e-5, atol=0)
+            assert not bool(tk) or s == 1
+            outs.append(wk)
+        assert halo_fn.launches == before + n
+        w1, t1, _ = single(md, x, spec)
+        assert same_bits(torch.cat(outs), w1)
+
+
+@pytest.mark.parametrize("layout", ["dia", "ell"])
+def test_sharded_back_to_back_repeat(dev, layout):
+    """All shard launches go on one stream, one after another: a sharded
+    SpMV repeated 100 times back to back gives the same w, trigger and pw
+    every time (kernel A's block counter, one per library, resets)."""
+    from abft_sparse_cg_tpu_torch.parallel.sharded import (
+        _device_put_sharded,
+        default_mesh,
+    )
+    from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
+        make_shardmap_spmv,
+    )
+
+    m = sharded_matrix("secded", layout)
+    mesh = default_mesh(4, dev)
+    b = np.random.default_rng(7).random(m.N)
+    md, x, _ = _device_put_sharded(m, b, mesh, torch.float32)
+    impl = make_shardmap_spmv(m, mesh)
+    w0, t0, p0 = impl.fast_pw(md, x)
+    torch.cuda.synchronize()
+    outs = [impl.fast_pw(md, x) for _ in range(100)]
+    torch.cuda.synchronize()
+    for w, t, p in outs:
+        assert same_bits(w, w0) and bool(t) == bool(t0) == False  # noqa: E712
+        assert same_bits(p.view(1), p0.view(1))
+
+
+@pytest.mark.parametrize("layout", ["dia", "ell"])
+def test_sharded_solve_on_one_card(dev, layout):
+    """solve_sharded on a 4-shard mesh of one card: the single-device
+    cuda solve's iterations, x within 2e-5; a fault in a halo row is
+    corrected once and the result equals the clean solve; a clean lazy
+    (CI 4) solve equals the live one bit for bit."""
+    from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
+    from abft_sparse_cg_tpu_torch.parallel.sharded import (
+        _device_put_sharded,
+        default_mesh,
+        make_sharded_solver,
+        solve_sharded,
+    )
+
+    m = sharded_matrix("secded", layout)
+    mesh = default_mesh(4, dev)
+    b = np.random.default_rng(7).random(m.N)
+    ref = CudaBackend("secded").solve(m, b, 300, 1e-5, dtype="f32", reps=1)
+    live = solve_sharded(m, b, 300, 1e-5, mesh=mesh)
+    assert live.stats.errcode == 0 and live.iterations == ref.iterations
+    np.testing.assert_allclose(live.x.cpu().numpy()[: m.N],
+                               m.to_exec_order(ref.x), rtol=2e-5, atol=1e-7)
+    fixed = solve_sharded(halo_fault(m, 4), b, 300, 1e-5, mesh=mesh)
+    assert fixed.stats.corrected_count == 1
+    assert torch.equal(fixed.x, live.x)
+    md, bdev, _ = _device_put_sharded(m, b, mesh, torch.float32)
+    lazy = make_sharded_solver(m, mesh, 300, 1e-5, torch.float32,
+                               check_interval=4)(md, bdev)
+    assert torch.equal(lazy.x, live.x)

@@ -85,6 +85,29 @@ def test_build_protected_byte_identical(shape, mode):
     assert_same_build(jm, tm)
 
 
+# Every route, row-aligned as ``--devices 8`` aligns it (cuda: 8192 rows,
+# torch: 128) and at a width no build pads to by itself.
+ALIGN_CASES = [(f, a) for f in ("tridiagonal", "dense-radius-3d",
+                                "shuffled-ell") for a in (8192, 384)]
+
+
+@pytest.mark.parametrize("mode", ["none", "constraints", "secded"])
+@pytest.mark.parametrize("shape,align", ALIGN_CASES,
+                         ids=[f"{f}-{a}" for f, a in ALIGN_CASES])
+def test_row_align_builds_byte_identical(shape, align, mode):
+    make, kw, kind = SHAPES[shape]
+    jm, tm = both_builds(make(), mode, row_align=align, **kw)
+    assert tm.exec_kind == kind and tm.R % align == 0
+    assert_same_build(jm, tm)
+
+
+def test_row_align_must_be_a_multiple_of_128():
+    rows, cols, vals, n = matgen.spd_tridiagonal(256)
+    with pytest.raises(ValueError, match="row_align"):
+        build_protected("csr", assemble(cols, rows, vals, n, 1), "secded",
+                        row_align=1000)
+
+
 def assert_same_routing(jm, tm):
     """Byte-identical builds of any layout: planes, slot maps, checksums,
     __flat_group__, the dense plan, whether the Benes plan attaches, and
@@ -134,6 +157,21 @@ def _pairs(n, seed=0):
 # k729 (343k entries) in one plain and one ECC mode, the rest in all six.
 ROUTE_CASES = [(f, m) for f in ROUTES for m in MODES
                if f != "k729" or m in ("none", "secded")]
+
+
+ALIGNED_ROUTES = [(f, m) for f in ROUTES if f != "k729"
+                  for m in ("none", "secded")]
+
+
+@pytest.mark.parametrize("family,mode", ALIGNED_ROUTES,
+                         ids=[f"{f}-{m}" for f, m in ALIGNED_ROUTES])
+def test_flat_and_split_row_align_byte_identical(family, mode):
+    """row_align on the flat and split routes (cli.py:325-340 passes it
+    to every part of a split)."""
+    make, kw, kind = ROUTES[family]
+    jm, tm = both_builds(make(), mode, row_align=8192, **kw)
+    assert tm.exec_kind == kind and tm.R % 8192 == 0
+    assert_same_routing(jm, tm)
 
 
 @pytest.mark.parametrize("family,mode", ROUTE_CASES,
@@ -372,7 +410,8 @@ def test_port_imports_nothing_of_the_jax_package():
         "             or k.startswith('abft_sparse_cg_tpu.'))\n"
         "assert not bad, bad\n"
         "new = ('formats.split', 'ops.spmv_unstructured', 'ops.spmv_cuda',\n"
-        "       'solver.fused', 'backends.cuda_backend')\n"
+        "       'solver.fused', 'backends.cuda_backend', 'parallel.sharded',\n"
+        "       'parallel.sharded_kernel')\n"
         "assert all(p.__name__ + '.' + n in sys.modules for n in new)\n"
         "print('ok', len([k for k in sys.modules\n"
         "                 if k.startswith(p.__name__)]))\n"
