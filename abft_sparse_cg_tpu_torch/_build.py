@@ -42,8 +42,8 @@ _TAIL = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I]
 # partials, the x/r/p snapshot, the check interval, the snapshot's
 # itr and rr/rz outputs.
 _OPTS = [_P, _P, _P, _P, _P, _I, _P, _P]
-# One launch per SpMV call (kernels A and E): the pw partials and signal
-# flags (scratch), the 0-d pw and trigger.
+# One launch per SpMV call (kernels A, C and E): the pw partials and
+# signal flags (scratch), the 0-d pw and trigger.
 _CALL = [_P, _P, _P, _P]
 # source name -> {C function: argtypes}
 _SIGNATURES = {
@@ -61,12 +61,15 @@ _SIGNATURES = {
                               _F, *_TAIL, *_OPTS, _I, _P],
     },
     "ell_spmv_detect": {
-        "abft_ell_spmv_detect": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _I, _P,
-                                 _P, _I, _I, _P, _I, _P],
+        "abft_ell_spmv_detect": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _P,
+                                 _I, _I, *_CALL, _I, _I, _P],
         "abft_ell_spmv_detect_halo": [_P, _P, _U, _P, _I, _I, _P, _I, _I,
-                                      _I, _P, _P, _I, _P, _P, _I, _I, _P,
+                                      _I, _P, _P, _P, _I, _I, *_CALL, _I,
                                       _I, _P],
-        "abft_ell_spmv_block": [],
+        "abft_ell_spmv_occupancy": [_I, _I, _P, _P],
+        "abft_ell_spmv_tile": [],
+        "abft_ell_spmv_slab": [],
+        "abft_ell_spmv_stages": [],
     },
     "fused_cg_ell": {
         "abft_fused_ell_grid": [_I, _I, _I, _I, _P],

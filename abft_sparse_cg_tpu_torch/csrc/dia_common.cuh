@@ -3,7 +3,7 @@
 // flat_spmv_detect.cu): the DIA stencil and banded-ELL row products (and
 // the banded-ELL gather rule of one shard of a row-sharded solve), the
 // live ABFT signals, fixed-order block and grid reductions, the one-launch
-// epilogue of kernels A and E, and the split tail pass of the fused
+// epilogue of kernels A, C and E, and the split tail pass of the fused
 // kernels.
 //
 // Arithmetic order.  The row products sum the diagonals (d = 0..D-1) or
@@ -228,8 +228,8 @@ __device__ __forceinline__ float ell_row_signals(
   return w;
 }
 
-// Signals of one slot j of a flat (E,) plane (E % 8 == 0), for kernel E
-// and the split tail of kernels B and D; nonzero if they fired.  Every
+// Signals of one slot j of a flat (E,) plane (E % 8 == 0), for the split
+// tail of kernels B and D; nonzero if they fired.  Every
 // lane of a warp must call it, on 32 consecutive j starting at a multiple
 // of 32; j may run past E (up to E rounded up to 32), where the word
 // reads as zero and no block is compared.  The checksum covers each exact
@@ -244,23 +244,6 @@ __device__ __forceinline__ int flat_signals(const DiaSignals& s, int E,
     acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 2);
     acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 4);
     if ((j & 7) == 0 && j < E && acc != __ldg(s.base + (j >> 3))) bad = 1;
-  }
-  return bad;
-}
-
-// flat_signals with the slot's word ``v`` and, where j % 8 == 0, its
-// block's baseline ``b`` already loaded (kernel E issues the loads of
-// several slots before their checks); the same rules.
-__device__ __forceinline__ int flat_signals_of(const DiaSignals& s, int E,
-                                               int j, uint32_t v,
-                                               uint32_t b) {
-  int bad = s.use_parity ? (__popc(v) & 1) : 0;
-  if (s.use_cksum) {
-    uint32_t acc = v;
-    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 1);
-    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 2);
-    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 4);
-    if ((j & 7) == 0 && j < E && acc != b) bad = 1;
   }
   return bad;
 }
@@ -303,7 +286,7 @@ __device__ __forceinline__ int block_any(int v, int* buf) {
   return any;
 }
 
-// ---- One launch per SpMV call (kernels A and E) ---------------------------
+// ---- One launch per SpMV call (kernels A, C and E) ------------------------
 //
 // Every block but block 0 writes its pw partial and its signal flag and
 // counts itself in with a release add, and is done.  Block 0, after its

@@ -616,6 +616,28 @@ def ell_product(values: torch.Tensor, gidx: torch.Tensor,
     return w
 
 
+# Kernel C's schedule (csrc/ell_spmv_detect.cu kRows, kSlab, kStages).
+ELL_TILE_ROWS = 128     # rows of one tile = threads of one block
+ELL_SLAB = 4            # slots of one staged slab
+ELL_STAGES = 4          # slabs in a block's shared-memory ring
+
+
+def ell_grid(R: int, sms: int, per_sm: int) -> int:
+    """Kernel C's grid: the card's resident blocks (``per_sm`` on each of
+    ``sms`` SMs, from the occupancy query), at most one per warp of the
+    R rows."""
+    return max(1, min(sms * per_sm, R // 32))
+
+
+def ell_block_rows(R: int, grid: int) -> np.ndarray:
+    """``(grid, 2)`` int64 rows ``[lo, hi)`` of kernel C's blocks: block b
+    takes the contiguous whole warps [b W / G, (b + 1) W / G) of the W =
+    R / 32 warps of rows, in tiles of ELL_TILE_ROWS rows."""
+    W = R // 32
+    edges = W * np.arange(grid + 1, dtype=np.int64) // grid * 32
+    return np.stack([edges[:-1], edges[1:]], 1)
+
+
 class _EllConfig:
     def __init__(self, fmt, layout, N, ecc_mode=True):
         self.fmt = fmt

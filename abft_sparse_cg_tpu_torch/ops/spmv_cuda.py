@@ -43,6 +43,9 @@ import torch
 from ..ecc.codec import ECC_MODES, parity32, widen
 from ..ecc.layout import ECC_COL_MASK
 from .spmv import (
+    ELL_SLAB,
+    ELL_STAGES,
+    ELL_TILE_ROWS,
     FLAT_RUN_ROWS,
     FLAT_TILE,
     MatrixDevice,
@@ -51,6 +54,7 @@ from .spmv import (
     _fold_blocks,
     combine_impls,
     dia_product,
+    ell_grid,
     ell_product,
     flat_product,
     make_constraints_check,
@@ -60,7 +64,7 @@ from .spmv import (
 )
 
 __all__ = ["DiaSpec", "dia_spec", "dia_fast", "dia_fast_plain",
-           "dia_fast_halo", "dia_launcher", "flat_launcher",
+           "dia_fast_halo", "dia_launcher", "ell_launcher", "flat_launcher",
            "EllSpec", "ell_spec", "ell_fast", "ell_fast_plain",
            "ell_fast_halo",
            "FlatSpec", "flat_spec", "flat_fast", "flat_fast_plain",
@@ -289,6 +293,9 @@ def _check_cuda_args(md: MatrixDevice, x: torch.Tensor, spec, what):
     return D, R, plane, base, gsrc
 
 
+_ELL_MAX_K = 512   # csrc/dia_common.cuh ABFT_MAX_K
+
+
 def gather_mask(spec: EllSpec) -> int:
     """The AND-mask applied to the gather word before the clamp."""
     return int(ECC_COL_MASK) if spec.mask_ecc else 0xFFFFFFFF
@@ -334,7 +341,8 @@ def dia_launcher(md: MatrixDevice, spec: DiaSpec, dev: torch.device,
     """Kernel A for ``md`` and ``spec`` on CUDA device ``dev``: checks the
     planes and resolves the library, grid and scratch once; the returned
     function launches the kernel on x (one device launch, no host
-    synchronisation) and returns ``(w, trig, pw)``.  ``halo`` H: the
+    synchronisation) and returns ``(w, trig, pw)``.  Like the other
+    launchers it holds ``md``: the kernel reads its planes by address.  ``halo`` H: the
     per-shard form (``dia_fast_halo``), x is the shard's x_ext of R + 2H
     rows."""
     from .._build import check, library
@@ -361,7 +369,7 @@ def dia_launcher(md: MatrixDevice, spec: DiaSpec, dev: torch.device,
         rows, mid = R + 2 * halo, (halo,)
     index, product = dev.index, not spec.detect
 
-    def launch(x, _keep=(offs, scratch)):
+    def launch(x, _keep=(md, offs, scratch)):
         _launch_check(x, rows, dev, what)
         w, trig, pw = _call_outputs(x, R)
         check(fn(*head, x.data_ptr(), *mid, w.data_ptr(), *sig,
@@ -427,59 +435,81 @@ def ell_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: EllSpec,
     return w, signals_plain(md, spec), torch.sum(xs * w)
 
 
-def _ell_launch(md: MatrixDevice, x: torch.Tensor, spec: EllSpec,
-                halo=None, base=0):
-    """One launch of kernel C (``halo`` None) or of its halo form, with
-    the planes checked on every call; ``(w, trig, pw)``."""
+def ell_launcher(md: MatrixDevice, spec: EllSpec, dev: torch.device,
+                 halo: int = None, base: int = 0):
+    """Kernel C for ``md`` and ``spec`` on CUDA device ``dev``: checks the
+    planes and their alignment, K, R and the halo window once, and
+    resolves the library, the grid (the card's resident blocks, ops.spmv.
+    ell_grid) and the scratch once; the returned function launches the
+    kernel on x (one device launch, no host synchronisation) and returns
+    ``(w, trig, pw)``.  ``halo`` H: the per-shard form
+    (``ell_fast_halo``), x is the shard's x_ext of R + 2H rows and
+    ``base`` the shard's first global row."""
     from .._build import check, library
 
     what = "ell_fast" if halo is None else "ell_fast_halo"
-    if x.device.type != "cuda" or x.dim() != 1:
-        raise ValueError(f"{what}: x must be a 1-D CUDA tensor, got "
-                         f"{tuple(x.shape)} on {x.device}")
-    R = x.shape[0] if halo is None else x.shape[0] - 2 * halo
+    R = md.values.shape[-1] if md.values is not None else -1
     if R < 32 or R % 32:
         raise ValueError(f"{what}: R must be a positive multiple of 32, "
                          f"got {R}")
-    _check_tensor(what, "x", x, torch.float32, (x.shape[0],), x.device)
-    K, plane, ck, gsrc = _check_planes(md, spec, R, x.device, what)
+    K, plane, ck, gsrc = _check_planes(md, spec, R, dev, what)
+    if not 1 <= K <= _ELL_MAX_K:
+        raise ValueError(f"{what}: K {K} outside [1, {_ELL_MAX_K}]")
+    for name, t in (("values", md.values), ("gather plane", gsrc),
+                    ("signal plane", plane)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    if halo is not None and (halo < 0 or not 0 < spec.rows < 2 ** 31
+                             or not 0 <= base < spec.rows):
+        raise ValueError(f"{what}: halo {halo}, base {base} outside the "
+                         f"{spec.rows} rows of the matrix")
     lib = library("ell_spmv_detect")
-    dev = x.device.index if x.device.index is not None else 0
-    block = lib.abft_ell_spmv_block()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = max(1, min(-(-R // block), 4 * sms))
-    w = x.new_empty(R)
-    pw_part = torch.empty(grid, dtype=torch.float32, device=x.device)
-    trig = torch.zeros(1, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if (lib.abft_ell_spmv_tile(), lib.abft_ell_spmv_slab(),
+            lib.abft_ell_spmv_stages()) != (ELL_TILE_ROWS, ELL_SLAB,
+                                            ELL_STAGES):
+        raise RuntimeError("ell_fast: the kernel's schedule differs from "
+                           "ops.spmv's ELL_* constants")
+    index = dev.index
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    check(lib.abft_ell_spmv_occupancy(
+        index, int(halo is not None), ctypes.addressof(per_sm),
+        ctypes.addressof(sms)), f"{what} occupancy")
+    grid = ell_grid(R, sms.value, per_sm.value)
+    scratch, part, flags = _scratch(grid, dev)
     head = (md.values.data_ptr(), gsrc.data_ptr(), gather_mask(spec),
-            md.ell_len.data_ptr(), K, R, x.data_ptr())
-    tail = (w.data_ptr(), pw_part.data_ptr(), grid, _ptr(plane), _ptr(ck),
-            int(spec.use_parity), int(spec.use_cksum), trig.data_ptr(), dev,
-            stream)
+            md.ell_len.data_ptr(), K, R)
+    sig = (_ptr(plane), _ptr(ck), int(spec.use_parity),
+           int(spec.use_cksum), part, flags)
     if halo is None:
-        rc, counter = lib.abft_ell_spmv_detect(*head, *tail), ell_fast
+        fn, counter, rows, mid = lib.abft_ell_spmv_detect, ell_fast, R, ()
     else:
-        if not 0 < spec.rows < 2 ** 31 or not 0 <= base < spec.rows:
-            raise ValueError(f"{what}: base {base} outside the "
-                             f"{spec.rows} rows of the matrix")
-        rc = lib.abft_ell_spmv_detect_halo(*head, halo, spec.rows, base,
-                                           *tail)
-        counter = ell_fast_halo
-    check(rc, f"{what} launch")
-    counter.launches += 1
-    if not spec.detect:
-        counter.product_launches += 1
-    return w, trig[0] != 0, torch.sum(pw_part)
+        fn, counter = lib.abft_ell_spmv_detect_halo, ell_fast_halo
+        rows, mid = R + 2 * halo, (halo, spec.rows, base)
+    product = not spec.detect
+
+    def launch(x, _keep=(md, scratch)):
+        _launch_check(x, rows, dev, what)
+        w, trig, pw = _call_outputs(x, R)
+        check(fn(*head, x.data_ptr(), *mid, w.data_ptr(), *sig,
+                 pw.data_ptr(), trig.data_ptr(), grid, index,
+                 torch.cuda.current_stream(dev).cuda_stream),
+              f"{what} launch")
+        counter.launches += 1
+        if product:
+            counter.product_launches += 1
+        return w, trig, pw
+
+    return launch
 
 
 def ell_fast(md: MatrixDevice, x: torch.Tensor, spec: EllSpec):
     """Kernel C: ``(w, trig, pw)`` for CUDA tensors; the plain version
     for CPU tensors.  ``trig`` is a 0-d bool tensor, ``pw`` a 0-d float
-    tensor (no host synchronisation)."""
+    tensor (no host synchronisation).  The solvers call ``ell_launcher``
+    once per matrix instead (make_cuda_spmv)."""
     if x.device.type == "cpu":
         return ell_fast_plain(md, x, spec)
-    return _ell_launch(md, x, spec)
+    return ell_launcher(md, spec, x.device)(x)
 
 
 ell_fast.launches = 0
@@ -492,10 +522,12 @@ def ell_fast_halo(md: MatrixDevice, x: torch.Tensor, spec: EllSpec,
     with_base=True`` variant): ``md`` holds one shard's R_loc rows of the
     planes as built (global gather indices), x is its x_ext of R_loc + 2
     * ``halo`` rows, ``base`` its first global row; ``(w, trig, pw)`` as
-    ``ell_fast``.  The plain version for CPU tensors."""
+    ``ell_fast``.  The plain version for CPU tensors.  A sharded solve
+    calls ``ell_launcher(md, spec, dev, halo, base)`` once per shard
+    instead."""
     if x.device.type == "cpu":
         return ell_fast_plain(md, x, spec, halo, base)
-    return _ell_launch(md, x, spec, halo, base)
+    return ell_launcher(md, spec, x.device, halo, base)(x)
 
 
 ell_fast_halo.launches = 0
@@ -552,7 +584,7 @@ def flat_launcher(md: MatrixDevice, spec: FlatSpec, dev: torch.device):
            int(spec.use_cksum), part, flags)
     fn, index, product = lib.abft_flat_spmv_detect, dev.index, not spec.detect
 
-    def launch(x, _keep=(scratch, carry)):
+    def launch(x, _keep=(md, scratch, carry)):
         _launch_check(x, R, dev, what)
         w, trig, pw = _call_outputs(x)
         check(fn(*head, x.data_ptr(), w.data_ptr(), *sig, pw.data_ptr(),
@@ -581,22 +613,28 @@ flat_fast.launches = 0
 flat_fast.product_launches = 0   # the detection-free product's share
 
 _KERNELS = {DiaSpec: dia_fast, EllSpec: ell_fast, FlatSpec: flat_fast}
-# Kernels A and E check their planes and resolve their launch once per
-# matrix device; kernel C's wrapper still does it on every call.
-_LAUNCHERS = {DiaSpec: dia_launcher, FlatSpec: flat_launcher}
+# Every kernel checks its planes and resolves its library, grid and
+# scratch once per matrix device, so a call is its x check and one
+# launch.  What bounds kernel C on the card is its bytes: ~421 MB per
+# secded call at dense-radius-3d -b 10 (0.126 ms at 3.35 TB/s), staged
+# through shared memory with cp.async so that the loads in flight do not
+# depend on registers, on a grid of the card's resident blocks; its
+# measured times against that bound are in PERF.md §6.
+_LAUNCHERS = {DiaSpec: dia_launcher, EllSpec: ell_launcher,
+              FlatSpec: flat_launcher}
 
 
 def _kernel_impl(spec):
-    """``(fast, fast_pw)`` of ``spec``'s kernel: on a CUDA tensor kernels
-    A and E launch through a launcher made for the last ``md`` they were
-    given (a repair hands them a new one); CPU tensors take the plain
+    """``(fast, fast_pw)`` of ``spec``'s kernel: on a CUDA tensor the
+    kernel launches through a launcher made for the last ``md`` it was
+    given (a repair hands it a new one); CPU tensors take the plain
     version."""
     kernel = _KERNELS[type(spec)]
-    make = _LAUNCHERS.get(type(spec))
+    make = _LAUNCHERS[type(spec)]
     last = [None, None, None]     # md, device, launcher
 
     def fast_pw(md, x):
-        if make is None or x.device.type == "cpu":
+        if x.device.type == "cpu":
             return kernel(md, x, spec)
         if last[0] is not md or last[1] != x.device:
             last[:] = md, x.device, make(md, spec, x.device)

@@ -14,9 +14,10 @@ kernels per shard.  Here one process drives every shard of a mesh
     global ends, as the two ``lax.ppermute`` edges do
     (sharded_kernel.py:173-175 of the JAX package).  It is the one place
     that shards on distinct cards would replace with peer copies;
-  - kernel A's halo form (``dia_fast_halo``, a launcher resolved once per
-    shard) or kernel C's halo form (``ell_fast_halo``, the shard's first
-    row as ``base``) computes the shard's w, trigger and pw;
+  - kernel A's halo form (``dia_fast_halo``) or kernel C's halo form
+    (``ell_fast_halo``, the shard's first row as ``base``), each through a
+    launcher resolved once per shard, computes the shard's w, trigger and
+    pw in one device launch;
   - the trigger is the OR over shards and pw the sum over shards in shard
     order, as the ``lax.psum``s (:190-191);
   - classify, correct and scrub run on the whole planes, as JAX's GSPMD
@@ -24,9 +25,9 @@ kernels per shard.  Here one process drives every shard of a mesh
     planes before the loop resumes.
 
 All shard launches go on the current stream of the first shard's device,
-one after another: kernel A's one-launch epilogue counts blocks with one
-counter per library (csrc/dia_common.cuh::finish_call), so two of its
-launches must never run at once.
+one after another: the one-launch epilogue of kernels A and C counts
+blocks with one counter per library (csrc/dia_common.cuh::finish_call),
+so two launches of one kernel must never run at once.
 """
 
 from __future__ import annotations
@@ -41,10 +42,12 @@ from ..ops.spmv import (
     make_spmv,
 )
 from ..ops.spmv_cuda import (
+    _ELL_MAX_K,
     dia_fast_halo,
     dia_launcher,
     dia_spec,
     ell_fast_halo,
+    ell_launcher,
     ell_spec,
     make_cuda_product,
     make_cuda_spmv,
@@ -53,8 +56,6 @@ from ..ops.spmv_cuda import (
 from .sharded import ShardedDevice, shard_rows
 
 __all__ = ["supports_shardmap", "make_shardmap_spmv", "halo_exchange"]
-
-_KERNEL_C_MAX_K = 512   # csrc/dia_common.cuh ABFT_MAX_K
 
 
 def _halo(mat) -> int:
@@ -84,7 +85,7 @@ def supports_shardmap(mat, dtype, ndev: int) -> bool:
     if mat.R % (1024 * ndev):
         return False
     R_loc = mat.R // ndev
-    if mat.exec_kind == "ell" and not 1 <= mat.K <= _KERNEL_C_MAX_K:
+    if mat.exec_kind == "ell" and not 1 <= mat.K <= _ELL_MAX_K:
         return False
     return _halo(mat) <= R_loc
 
@@ -106,14 +107,15 @@ def halo_exchange(x: torch.Tensor, mesh, halo: int) -> list:
 
 def _shard_kernels(smd: ShardedDevice, spec, halo: int, is_dia: bool,
                    R_loc: int) -> list:
-    """One callable x_ext -> (w, trig, pw) per shard of ``smd``: kernel
-    A's launcher resolved for the shard (the plain version on the CPU),
-    or kernel C's halo form with the shard's first row."""
+    """One callable x_ext -> (w, trig, pw) per shard of ``smd``: the
+    launcher of kernel A's or C's halo form (C's with the shard's first
+    row), resolved once for the shard; the plain versions on the CPU."""
     fns = []
     for s, md in enumerate(smd.shards):
         dev = md.values.device
-        if is_dia and dev.type == "cuda":
-            fns.append(dia_launcher(md, spec, dev, halo))
+        if dev.type == "cuda":
+            fns.append(dia_launcher(md, spec, dev, halo) if is_dia
+                       else ell_launcher(md, spec, dev, halo, s * R_loc))
         elif is_dia:
             fns.append(lambda x, m=md: dia_fast_halo(m, x, spec, halo))
         else:

@@ -36,7 +36,8 @@ Phases:
 
   1. device and card (name, power limit);
   2. build the kernels from abft_sparse_cg_tpu_torch/csrc (one nvcc per
-     source, all started together);
+     source, all started together); kernel C's grid from the card's
+     occupancy (at least 2 resident blocks per SM, both forms);
   3. kernel A vs its plain version, every mode, clean and with injected
      1- and 2-bit faults: w bit-exact, pw within 1e-5;
   4. kernel B vs its plain loop: a clean and a faulted secded solve;
@@ -58,9 +59,11 @@ Phases:
      in every mode, R aligned to 4096 rows (1,664 zero rows past its
      219,520: four shards of 1024-row multiples), for the timed path
      and the sharded phases;
- 10. kernel C vs its plain version on the three ELL shapes, every mode,
-     clean and with injected 1- and 2-bit faults (and an index flip in
-     none/constraints): w bit-exact, pw within 1e-5;
+ 10. kernel C vs its plain version on the three ELL shapes and the four
+     edges of its schedule (R = 32, K = 1, K = 13, whole tiles of empty
+     rows; built in phase 9), every mode, clean and with injected 1- and
+     2-bit faults (and an index flip in none/constraints): w bit-exact,
+     pw within 1e-5;
  11. kernel D vs its plain loop: a clean and a faulted secded solve on
      dense-radius-3d -b 10;
  12. the ELL main path: the four run_tests classes through main_csr with
@@ -78,7 +81,8 @@ Phases:
      and band+random-1pct -b 10 (split); the host builds of
      one matrix's modes run in parallel threads, here and in phases 8,
      9 and 20;
- 16. kernel E vs its plain version on the four flat shapes, every
+ 16. kernel E vs its plain version on the five flat shapes (a tiny one:
+     a plan of one entry), every
      mode, clean and faulted: w bit-exact, pw within 1e-5, the trigger
      each mode's signals must give;
  17. kernel B with the split tail vs its plain loop on arrowhead -b 10
@@ -95,7 +99,9 @@ Phases:
  21. flat and split times: per-iteration and split-tail solves with
      slope and GB/s, kernel E per call against its plain version,
      ``A @ x`` and its bound, the secded-over-none price of kernel E's
-     per-call signals, the split tail against its plain loop;
+     per-call signals, kernel C at the band split's main part (K 9, R
+     819,200) against plain, ``A @ x`` and its bound, the split tail
+     against its plain loop;
  22. the lazy (CI 4) and Jacobi instances of kernels B and D (and of the
      split tail) against their plain loops, secded, on DIA -b 10,
      dense-radius-3d -b 10 and arrowhead -b 10: clean (a lazy x equal
@@ -111,7 +117,8 @@ Phases:
      kernel: live, lazy CI 32 and Jacobi against the plain loop;
  24. the detection-free products of kernels A, C and E (no signal
      plane, the mode's gather masking kept) against their plain
-     versions on the phase 3, 10 and 16 shapes, then a per-iteration
+     versions on the phase 3, 10 and 16 shapes (C's edges included),
+     then a per-iteration
      lazy solve on powerlaw-graph -b 10 equal to the live one;
  25. the solver options on the main paths: the run_tests classes
      through main_csr -t cuda -b 10 --seed 11 with --check-interval 4,
@@ -150,7 +157,8 @@ Phases:
      events of its later windows): kernels A and C per call, their
      products, ``A @ x``, the sharded SpMV, and solves of kernels B and
      D (live, lazy CI 4, Jacobi) and the sharded tier — device time per
-     call by kernel, device operations per call, the busy share.
+     call by kernel, device operations per call, the busy share; each
+     group also times its halo kernel on shard 1 of 4 alone.
 
 Any failed check raises, so the script exits non-zero.  The last three
 lines are the card line from nvidia-smi, one JSON object describing the
@@ -161,6 +169,7 @@ result.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -219,6 +228,57 @@ def parallel_builds(asm, modes, **kw):
         futs = {mode: ex.submit(build_protected, "csr", asm, mode, **kw)
                 for mode in modes}
         return {mode: f.result() for mode, f in futs.items()}
+
+
+def ell_edge_cases():
+    """Kernel C's schedule at its edges, as {name: (assembled matrix,
+    build options)}: R = 32 (a tridiagonal of 20 rows; its planes are cut
+    to 32 rows on the card, ``cut_rows``), K = 1 (a diagonal), K = 13 (13
+    diagonals: not a multiple of the 8-slot slab) and whole tiles of
+    empty rows (two tridiagonal blocks 1,000 rows apart, R aligned to
+    4096).  Each is forced to the ELL layout."""
+    import numpy as np
+
+    from abft_sparse_cg_tpu_torch.formats import assemble
+    from abft_sparse_cg_tpu_torch.utils.matgen import spd_tridiagonal
+
+    cat = np.concatenate
+    r, c, v, n = spd_tridiagonal(20)
+    out = {"ell-edge R 32": (assemble(c, r, v, n, 1), {})}
+    i = np.arange(4096)
+    out["ell-edge K 1"] = (assemble(i, i, np.full(4096, 2.0), 4096, 1), {})
+    i = np.arange(4000)
+    rows, cols, vals = [i], [i], [np.full(4000, 20.0)]
+    for d in range(1, 7):
+        rows.append(i[d:])
+        cols.append(i[:-d])
+        vals.append(-np.ones(4000 - d) / d)
+    out["ell-edge K 13"] = (assemble(cat(cols), cat(rows), cat(vals), 4000,
+                                     1), {})
+    r, c, v, _ = spd_tridiagonal(500)
+    out["ell-edge empty tiles"] = (
+        assemble(cat([c, c + 1500]), cat([r, r + 1500]), cat([v, v]), 2000,
+                 1), {"row_align": 4096})
+    return out
+
+
+ROW_CUT = {"ell-edge R 32": 32}
+
+
+def cut_rows(md, name):
+    """``md`` cut to the first ROW_CUT[name] rows (contiguous copies), or
+    as it is."""
+    R = ROW_CUT.get(name)
+    if R is None:
+        return md
+
+    def cut(t, per=1):
+        return None if t is None else t[..., : R // per].contiguous()
+
+    return md._replace(words=tuple(cut(w) for w in md.words),
+                       cksum=cut(md.cksum, 8), values=cut(md.values),
+                       fold=cut(md.fold), fold_ck=cut(md.fold_ck, 8),
+                       ell_len=cut(md.ell_len), gidx=cut(md.gidx))
 
 
 def host_ms(fn, reps):
@@ -535,11 +595,12 @@ def profile_worker(group, path):
     from abft_sparse_cg_tpu_torch.backends.torch_backend import jacobi_minv
     from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device
     from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
-        fast_spec, make_cuda_product, make_cuda_spmv)
+        dia_launcher, ell_launcher, fast_spec, make_cuda_product,
+        make_cuda_spmv)
     from abft_sparse_cg_tpu_torch.parallel.sharded import (
         _device_put_sharded, default_mesh, make_sharded_solver)
     from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
-        make_shardmap_spmv)
+        _halo, halo_exchange, make_shardmap_spmv)
 
     _build.build()
     dev, f32 = torch.device("cuda", 0), torch.float32
@@ -554,7 +615,12 @@ def profile_worker(group, path):
     live = make_cuda_spmv(m, f32, "secded").fast_pw
     prod = make_cuda_product(m, f32, "secded").fast_pw
     sharded = make_shardmap_spmv(m, mesh).fast_pw
-    a_csr, _ = csr_yardstick(md, fast_spec(m, "secded"))
+    H = _halo(m)
+    ext1 = halo_exchange(bd, mesh, H)[1]
+    spec = fast_spec(m, "secded")
+    shard1 = (dia_launcher(smd.shards[1], spec, dev, H) if group == "dia"
+              else ell_launcher(smd.shards[1], spec, dev, H, m.R // 4))
+    a_csr, _ = csr_yardstick(md, spec)
     xcol = bd[:, None]
     be = CudaBackend("secded")
     s_live = be._solver(m, f32, 1000, CONV)
@@ -566,6 +632,7 @@ def profile_worker(group, path):
         f"{spmv} product call": (lambda: prod(md, bd), 50),
         "A @ x": (lambda: a_csr @ xcol, 50),
         "sharded SpMV, 4 shards": (lambda: sharded(smd, bd), 50),
+        f"{spmv} halo, shard 1 of 4": (lambda: shard1(ext1), 50),
         f"{solve} secded solve": (lambda: s_live(md, bd), 10),
         f"{solve} lazy CI 4 solve": (lambda: s_lazy(md, bd), 10),
         f"{solve} Jacobi solve": (lambda: s_jac(md, bd, minv), 10),
@@ -598,8 +665,9 @@ def main():
     from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device, make_spmv
     from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
         dia_fast, dia_fast_halo, dia_fast_plain, dia_launcher, dia_spec,
-        ell_fast, ell_fast_halo, ell_fast_plain, ell_spec, flat_fast,
-        flat_fast_plain, flat_launcher, flat_spec, make_cuda_spmv)
+        ell_fast, ell_fast_halo, ell_fast_plain, ell_launcher, ell_spec,
+        flat_fast, flat_fast_plain, flat_launcher, flat_spec,
+        make_cuda_spmv)
     from abft_sparse_cg_tpu_torch.solver.cg import init_state, make_cg_solver
     from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
     from abft_sparse_cg_tpu_torch.solver.fused import (
@@ -647,6 +715,24 @@ def main():
               f"{'lazy' if lazy else 'live'} {fused_grid(0, lay, tail, pre, lazy)}"
               for lay in ("dia", "ell") for tail in (False, True)
               for pre in (False, True) for lazy in (False, True)))
+
+    # Kernels C and E size their grids by the card (occupancy x SMs).
+    from abft_sparse_cg_tpu_torch.ops.spmv import ell_grid
+
+    occ = {}
+    for halo in (0, 1):
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+        _build.check(_build.library("ell_spmv_detect").abft_ell_spmv_occupancy(
+            0, halo, ctypes.addressof(per_sm), ctypes.addressof(sms)),
+            "kernel C occupancy")
+        occ[halo] = (per_sm.value, sms.value)
+        require(per_sm.value >= 2, f"kernel C (halo {halo}): "
+                f"{per_sm.value} resident blocks per SM, expected >= 2")
+    print(f"kernel C: {occ[0][0]} resident blocks per SM ({occ[1][0]} in "
+          f"the halo form) on {occ[0][1]} SMs: "
+          f"{ell_grid(221184, occ[0][1], occ[0][0])} blocks for R 221,184, "
+          f"{ell_grid(55296, occ[1][1], occ[1][0])} for a shard of 55,296 "
+          "rows")
 
     if not os.path.exists(MATRIX):
         subprocess.run([sys.executable,
@@ -878,12 +964,13 @@ def main():
                 dia_iter_bytes)
     del a100   # mats100 serves phases 23 and 26 too
 
-    launchers = {dia_fast: dia_launcher, flat_fast: flat_launcher}
+    launchers = {dia_fast: dia_launcher, ell_fast: ell_launcher,
+                 flat_fast: flat_launcher}
 
     def kernel_times(kernel, plain, md_, spec_, xd_, label, nbytes, flops):
         """Per-call device time (CUDA events, interleaved) of a kernel as
-        the solvers call it (kernels A and E through a launcher made once
-        per matrix), its plain version and the bare A @ x, beside the
+        the solvers call it (through a launcher made once per matrix),
+        its plain version and the bare A @ x, beside the
         bound (phase 31 traces them in fresh processes)."""
         a_csr, nnz = csr_yardstick(md_, spec_)
         xcol = xd_[:, None]
@@ -976,6 +1063,15 @@ def main():
               f"{mm.R}, band {mm.band}, permuted "
               f"{mm.perm is not None}; 6 builds in "
               f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, (asm, kw) in ell_edge_cases().items():
+        per = parallel_builds(asm, MODES, force_exec="ell", **kw)
+        mm = per["secded"]
+        shapes[name] = (asm, per)
+        print(f"{name}: K {mm.K}, R {ROW_CUT.get(name, mm.R)}, N {mm.N}, "
+              f"empty rows {int(np.sum(np.asarray(mm.ell_len) == 0))}")
+    print(f"kernel C's edge shapes: 4 x 6 builds in "
+          f"{time.perf_counter() - t0:.1f} s")
     # The timed ELL path: dense-radius-3d -b 10, every mode, built with
     # R aligned to 4096 rows (4 shards of 1024-row multiples: the sharded
     # kernel tier of phases 27-29; 1,664 zero rows past the 219,520).
@@ -991,14 +1087,14 @@ def main():
             "stencil27-shuffled: RCM permutation active")
 
     # ---- 10. kernel C vs plain --------------------------------------------
-    phase("10. kernel C (ell_spmv_detect) vs plain, three shapes, every "
-          "mode")
+    phase("10. kernel C (ell_spmv_detect) vs plain, three shapes and the "
+          "schedule's edges, every mode")
     c_errs = []
     for name, (_, per) in shapes.items():
         for mode in MODES:
             m = per[mode]
             spec = ell_spec(m, mode)
-            xc = torch.zeros(m.R, dtype=f32, device=dev)
+            xc = torch.zeros(ROW_CUT.get(name, m.R), dtype=f32, device=dev)
             xc[: m.N] = torch.tensor(np.random.default_rng(3).random(m.N),
                                      dtype=f32)
             variants = [("clean", m)]
@@ -1011,7 +1107,7 @@ def main():
                     m, "INDEX", 1, np.random.default_rng(23),
                     echo=lambda s: None)))
             for label, mm in variants:
-                mdc = make_matrix_device(mm, f32, dev)
+                mdc = cut_rows(make_matrix_device(mm, f32, dev), name)
                 wk, tk, pk = ell_fast(mdc, xc, spec)
                 wp, tp, pp = ell_fast_plain(mdc, xc, spec)
                 torch.cuda.synchronize()
@@ -1171,6 +1267,13 @@ def main():
           f"slots, then 0-39): N {mm.N}, nnz {mm.nnz}, E {mm.exec_size}, "
           f"permuted {mm.perm is not None}; 6 builds in "
           f"{time.perf_counter() - t0:.1f} s")
+    # Kernel E on a plan of one entry: a tridiagonal of 200 rows.
+    from abft_sparse_cg_tpu_torch.formats import assemble
+    from abft_sparse_cg_tpu_torch.utils.matgen import spd_tridiagonal
+
+    flat["tiny"] = (None, parallel_builds(
+        assemble(*(lambda r, c, v, n: (c, r, v, n, 1))(*spd_tridiagonal(200))),
+        MODES, force_exec="flat"))
     splits = {}
     for name, main_kind, dense in (("arrowhead", "dia", True),
                                    ("band+random-1pct", "ell", False)):
@@ -1190,7 +1293,7 @@ def main():
               f"builds in {time.perf_counter() - t0:.1f} s")
 
     # ---- 16. kernel E vs plain --------------------------------------------
-    phase("16. kernel E (flat_spmv_detect) vs plain, four flat shapes, "
+    phase("16. kernel E (flat_spmv_detect) vs plain, five flat shapes, "
           "every mode")
     e_errs = []
     for name, (_, per) in flat.items():
@@ -1413,6 +1516,19 @@ def main():
         print(f"kernel E secded over none, {name} -b 10 (the price of "
               f"computing the flat signals on every call): "
               f"{(med_e[name, 'secded'][0]['kernel'] / med_e[name, 'none'][0]['kernel'] - 1) * 100:+.1f}% [{card}]")
+    # Kernel C at the band split's main part, the shape the per-iteration
+    # tier launches live on band+random-1pct -b 10 (K 9, R 819,200).
+    mm = splits["band+random-1pct"][1]["secded"].main
+    mdb = make_matrix_device(mm, f32, dev)
+    xb = torch.zeros(mm.R, dtype=f32, device=dev)
+    xb[: mm.N] = torch.tensor(np.random.default_rng(3).random(mm.N),
+                              dtype=f32)
+    med_cb = kernel_times(
+        ell_fast, ell_fast_plain, mdb, ell_spec(mm, "secded"), xb,
+        f"kernel C secded band+random-1pct -b 10 main part (K {mm.K}, R "
+        f"{mm.R})", 8 * mm.nnz + 4 * mm.K * mm.R + mm.R // 2 + 12 * mm.R,
+        2 * mm.nnz)
+    del mdb, xb
     ta = interleave({"plain": loop_fn(fused_cg_dia_plain, mda[0], spec_a,
                                       bda, tail_a),
                      "kernel": loop_fn(fused_cg_dia, mda[0], spec_a, bda,
@@ -1439,6 +1555,13 @@ def main():
          "max_abs_err": max(e_errs), "ms": med["kernel"],
          "plain_ms": med["plain"], "bound_ms": bms, "bound_by": by,
          "library_ms": med["A @ x"]},
+        {"name": "ell_spmv_detect (band+random-1pct main)", "route": "cuda",
+         "source": "abft_sparse_cg_tpu_torch/csrc/ell_spmv_detect.cu",
+         "replaces": "abft_sparse_cg_tpu/ops/spmv_pallas.py:846",
+         "launches": path_launches["band+random-1pct"]["ell_spmv_detect"],
+         "max_abs_err": max(c_errs), "ms": med_cb[0]["kernel"],
+         "plain_ms": med_cb[0]["plain"], "bound_ms": med_cb[1],
+         "bound_by": med_cb[2], "library_ms": med_cb[0]["A @ x"]},
         {"name": "fused_cg_dia (split tail)", "route": "cuda",
          "source": "abft_sparse_cg_tpu_torch/csrc/dia_common.cuh",
          "replaces": "abft_sparse_cg_tpu/solver/fused.py:977",
@@ -1651,13 +1774,13 @@ def main():
         for mode in ("constraints", "sec8", "secded"):
             m = per[mode]
             spec = product_spec(m, mode)
-            xp_ = torch.zeros(m.R, dtype=f32, device=dev)
+            xp_ = torch.zeros(ROW_CUT.get(name, m.R), dtype=f32, device=dev)
             xp_[: m.N] = torch.tensor(np.random.default_rng(3).random(m.N),
                                       dtype=f32)
             for label, mm in (("clean", m), ("1-bit", inject_bitflips(
                     m, "ANY", 1, np.random.default_rng(21),
                     echo=lambda s: None))):
-                mdp = make_matrix_device(mm, f32, dev)
+                mdp = cut_rows(make_matrix_device(mm, f32, dev), name)
                 before = kern.product_launches
                 wk, tk, pk = kern(mdp, xp_, spec)
                 wp, tp, pp = plain(mdp, xp_, spec)
@@ -2191,7 +2314,8 @@ def main():
             nbytes = 4 * (2 * D * R_loc + 2 * R_loc + R_loc // 8) + 8 * H
             flops = 2 * D * R_loc
         else:
-            kern = (lambda: ell_fast_halo(md1, ext1, spec, H, R_loc))
+            call = ell_launcher(md1, spec, dev, H, R_loc)
+            kern = (lambda: call(ext1))
             plainf = (lambda: ell_fast_plain(md1, ext1, spec, H, R_loc))
             nnz1 = int(md1.ell_len.sum())
             nbytes = (8 * nnz1 + 4 * mm.K * R_loc + R_loc // 2 + 4 * R_loc

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Per-call times of kernels A and E (and their detection-free products)
-in one or two checkouts of the PyTorch/CUDA port, in turns on one card.
+"""Per-call times of kernels A, C and E (and their detection-free products
+and C's halo form) in one or two checkouts of the PyTorch/CUDA port, in
+turns on one card.
 
     python3 scripts/torch_spmv_ab.py A_DIR [B_DIR] [--rounds 1]
 
@@ -10,14 +11,18 @@ build directory, excluded from the times).  With two checkouts the turns
 run A, B, B, A per round, so that a drift of the card or host falls on
 both; with one, A once per round.
 
-A worker builds the bundled matrix at -b 10 (DIA: kernel A) and the zoo's
-powerlaw-graph -b 10 (flat: kernel E) in mode secded, and times what the
-solvers call: ``make_cuda_spmv(m).fast_pw`` (live detection) and
-``make_cuda_product(m).fast_pw`` (the lazy schedule's product), beside
-the bare ``A @ x`` of a torch.sparse_csr_tensor of the same matrix (w
-only, no checks; the port never calls it); and, on band+random-1pct -b
-10 secded, kernel E on the band split's flat tail and the split's whole
-product (kernels C and E):
+A worker builds the bundled matrix at -b 10 (DIA: kernel A), the zoo's
+powerlaw-graph -b 10 (flat: kernel E) and dense-radius-3d -b 10 (ELL:
+kernel C, R aligned to 4096 rows as the sharded tier needs) in mode
+secded, and times what the solvers call: ``make_cuda_spmv(m).fast_pw``
+(live detection) and ``make_cuda_product(m).fast_pw`` (the lazy
+schedule's product), beside the bare ``A @ x`` of a
+torch.sparse_csr_tensor of the same matrix (w only, no checks; the port
+never calls it); on band+random-1pct -b 10 secded, kernel C on the band
+split's ELL main part (live and the detection-free product) and kernel E
+on its flat tail, and the split's whole product; on dense-radius-3d, kernel C's halo form on shard 1 of 4
+(through ``ell_launcher`` where the tree has it, else ``ell_fast_halo``)
+beside that shard's ``A @ x_ext``, and the 4-shard sharded SpMV:
 
   - per call by CUDA events, 20 back-to-back calls per batch, batches in
     turns (host gaps between launches count);
@@ -26,8 +31,9 @@ product (kernels C and E):
     busy share of the window (the profiler's host overhead stretches the
     window, so the share is a lower bound);
   - the flat path's solves (powerlaw-graph and band+random-1pct -b 10,
-    none and secded, the per-iteration tier), by host clock, batches of
-    3 solves in turns.
+    none and secded, the per-iteration tier) and the sharded dense-
+    radius-3d -b 10 secded solve (4 shards of the card), by host clock,
+    batches of 3 solves in turns.
 
 Prints each number per tree (medians over its turns), B over A, and the
 card's name and power limit as ``nvidia-smi`` gives them.  The worker
@@ -47,7 +53,8 @@ import time
 
 CONV = 1e-3
 SOLVES = ("powerlaw-graph none", "powerlaw-graph secded",
-          "band+random-1pct none", "band+random-1pct secded")
+          "band+random-1pct none", "band+random-1pct secded",
+          "dense-radius-3d sharded secded")
 
 
 def smoke_helpers():
@@ -76,8 +83,13 @@ def worker(root, batches):
     from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
     from abft_sparse_cg_tpu_torch.formats import build_protected, load_matrix
     from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device
+    from abft_sparse_cg_tpu_torch.ops import spmv_cuda
     from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
         fast_spec, make_cuda_product, make_cuda_spmv)
+    from abft_sparse_cg_tpu_torch.parallel.sharded import (
+        _device_put_sharded, default_mesh, make_sharded_solver)
+    from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
+        _halo, halo_exchange, make_shardmap_spmv)
     from abft_sparse_cg_tpu_torch.utils.matzoo import zoo_assembled
 
     if not torch.cuda.is_available():
@@ -93,11 +105,15 @@ def worker(root, batches):
             stdout=subprocess.DEVNULL)
     asm = {"dia": load_matrix(path, 10),
            "powerlaw-graph": zoo_assembled("powerlaw-graph", 10),
-           "band+random-1pct": zoo_assembled("band+random-1pct", 10)}
-    want = [("dia", "secded")] + [(n, mode) for n in asm if n != "dia"
-                                  for mode in ("none", "secded")]
+           "band+random-1pct": zoo_assembled("band+random-1pct", 10),
+           "dense-radius-3d": zoo_assembled("dense-radius-3d", 10)}
+    want = [("dia", "secded"), ("dense-radius-3d", "secded")] + [
+        (n, mode) for n in ("powerlaw-graph", "band+random-1pct")
+        for mode in ("none", "secded")]
     with ThreadPoolExecutor(max_workers=len(want)) as ex:
-        futs = {k: ex.submit(build_protected, "csr", asm[k[0]], k[1])
+        futs = {k: ex.submit(build_protected, "csr", asm[k[0]], k[1],
+                             row_align=(4096 if k[0] == "dense-radius-3d"
+                                        else None))
                 for k in want}
         mats = {k: f.result() for k, f in futs.items()}
 
@@ -108,7 +124,8 @@ def worker(root, batches):
         return x
 
     fns, yard = {}, {}
-    for key, layout in (("A", "dia"), ("E", "powerlaw-graph")):
+    for key, layout in (("A", "dia"), ("C", "dense-radius-3d"),
+                        ("E", "powerlaw-graph")):
         m = mats[layout, "secded"]
         md, x = make_matrix_device(m, f32, dev), xvec(m)
         live = make_cuda_spmv(m, f32, "secded").fast_pw
@@ -125,8 +142,33 @@ def worker(root, batches):
     md, x = make_matrix_device(m, f32, dev), xvec(m)
     tail = make_cuda_spmv(m.tail, f32, "secded").fast_pw
     split = make_cuda_spmv(m, f32, "secded").fast_pw
+    main = make_cuda_spmv(m.main, f32, "secded").fast_pw
     fns["E tail secded"] = (lambda f=tail, a=md[1], b=x: f(a, b))
+    main_p = make_cuda_product(m.main, f32, "secded").fast_pw
+    fns["C main secded"] = (lambda f=main, a=md[0], b=x: f(a, b))
+    fns["C main product"] = (lambda f=main_p, a=md[0], b=x: f(a, b))
     fns["C+E split secded"] = (lambda f=split, a=md, b=x: f(a, b))
+    a_csr, _ = sm.csr_yardstick(md[0], fast_spec(m.main, "secded"))
+    yard["C main A @ x"] = (lambda a=a_csr, b=x[:, None]: a @ b)
+    # Kernel C's halo form on shard 1 of 4, and the sharded SpMV.
+    m = mats["dense-radius-3d", "secded"]
+    mesh = default_mesh(4, dev)
+    smd, xs, _ = _device_put_sharded(
+        m, np.random.default_rng(3).random(m.N), mesh, f32)
+    H, R_loc = _halo(m), m.R // 4
+    spec = fast_spec(m, "secded")
+    ext1 = halo_exchange(xs, mesh, H)[1]
+    md1 = smd.shards[1]
+    if hasattr(spmv_cuda, "ell_launcher"):
+        one = spmv_cuda.ell_launcher(md1, spec, dev, H, R_loc)
+        fns["C halo shard 1"] = (lambda f=one, e=ext1: f(e))
+    else:
+        fns["C halo shard 1"] = (lambda e=ext1: spmv_cuda.ell_fast_halo(
+            md1, e, spec, H, R_loc))
+    s_csr = sm.shard_yardstick(md1, spec, H, R_loc)
+    yard["C halo A @ x_ext"] = (lambda a=s_csr, b=ext1[:, None]: a @ b)
+    sh = make_shardmap_spmv(m, mesh).fast_pw
+    fns["ELL sharded SpMV"] = (lambda f=sh, a=smd, b=xs: f(a, b))
 
     timed = {**fns, **yard}
     names = list(timed)
@@ -140,7 +182,14 @@ def worker(root, batches):
         prof = {n: sm.call_profile(timed[n], n, "") for n in names}
 
     solves, its = {}, {}
-    for label in SOLVES:
+    m = mats["dense-radius-3d", "secded"]
+    bb = np.random.default_rng(11).random(m.N)
+    smd, bsh, _ = _device_put_sharded(m, bb, mesh, f32)
+    s_sh = make_sharded_solver(m, mesh, 1000, CONV, f32)
+    its["dense-radius-3d sharded secded"] = s_sh(smd, bsh).iterations
+    solves["dense-radius-3d sharded secded"] = (
+        lambda s=s_sh, a=smd, b=bsh: s(a, b))
+    for label in SOLVES[:4]:
         name, mode = label.rsplit(" ", 1)
         m = mats[name, mode]
         md = make_matrix_device(m, f32, dev)

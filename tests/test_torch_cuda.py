@@ -295,40 +295,153 @@ def test_kernel_e_rows_of_every_length(dev, mode, shape):
                                        equal_nan=True)
 
 
-@pytest.mark.parametrize("kernel", ["A", "E"])
-def test_one_launch_per_call_and_repeatable(dev, kernel):
-    """Kernels A and E through the solvers' impls (live and detection-
-    free): one device operation per call in the profiler's list, and
-    repeated calls on one matrix give identical w, pw and trigger (the
-    last-block counter resets itself), clean and faulted."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def one_launch_calls(kernel, dev):
+    """[(m, [call, call])] per matrix (clean, faulted): the solvers' impls
+    of kernel A, C or E (live, detection-free) on x, or kernel C's halo
+    form as the sharded tier resolves it for shard 1 of 4 (live and
+    detection-free launchers on the shard's x_ext)."""
     from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
+        ell_launcher,
         make_cuda_product,
         make_cuda_spmv,
+        product_spec,
     )
 
-    m = (dia_matrix("secded") if kernel == "A"
-         else flat_matrix("secded", "powerlaw"))
+    out = []
+    if kernel == "C halo":
+        from abft_sparse_cg_tpu_torch.parallel.sharded import (
+            default_mesh,
+            shard_rows,
+        )
+        from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
+            _halo,
+            halo_exchange,
+        )
+
+        m0 = sharded_matrix("secded", "ell", 4)
+        R_loc, H = m0.R // 4, _halo(m0)
+        mesh = default_mesh(4, dev)
+        x = torch.tensor(np.random.default_rng(5).random(m0.R),
+                         dtype=torch.float32, device=dev)
+        ext1 = halo_exchange(x, mesh, H)[1]
+        for m in (m0, halo_fault(m0, 4)):
+            md1 = shard_rows(make_matrix_device(m, torch.float32, dev),
+                             mesh)[1]
+            fns = [ell_launcher(md1, spec, dev, H, R_loc)
+                   for spec in (ell_spec(m, "secded"),
+                                product_spec(m, "secded"))]
+            out.append((m, [lambda f=f: f(ext1) for f in fns]))
+        return out
+    m = {"A": lambda: dia_matrix("secded"),
+         "C": lambda: ell_matrix("secded"),
+         "E": lambda: flat_matrix("secded", "powerlaw")}[kernel]()
     x = torch.tensor(np.random.default_rng(5).random(m.R),
                      dtype=torch.float32, device=dev)
     for mm in (m, faulted(m, 1, 31)):
         md = make_matrix_device(mm, torch.float32, dev)
-        for impl in (make_cuda_spmv(mm), make_cuda_product(mm)):
-            first = impl.fast_pw(md, x)
+        out.append((mm, [lambda f=impl.fast_pw, a=md: f(a, x) for impl in
+                         (make_cuda_spmv(mm), make_cuda_product(mm))]))
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["A", "C", "C halo", "E"])
+def test_one_launch_per_call_and_repeatable(dev, kernel):
+    """Kernels A, C (and C's halo form on a shard) and E as the solvers
+    call them (live and detection-free): one device operation per call in
+    the profiler's list, and 100 back-to-back calls on one matrix give
+    identical w, pw and trigger (the block counter and, in E, the chunk
+    flags reset themselves), clean and faulted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _, calls in one_launch_calls(kernel, dev):
+        for call in calls:
+            first = call()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                outs = [impl.fast_pw(md, x) for _ in range(5)]
+                outs = [call() for _ in range(5)]
                 torch.cuda.synchronize()
             ops = [e for e in prof.events()
                    if e.device_type == DeviceType.CUDA]
             assert len(ops) == 5, [e.name for e in ops]
+            outs += [call() for _ in range(100)]
+            torch.cuda.synchronize()
             for w, trig, pw in outs:
                 assert same_bits(w, first[0])
                 assert same_bits(pw.view(1), first[2].view(1))
                 assert bool(trig) == bool(first[1])
+
+
+def rows_of(md, R):
+    """``md`` cut to its first R rows (contiguous copies): a banded-ELL
+    matrix of R = 32 rows, below what the build pads to."""
+    def cut(t, per=1):
+        return None if t is None else t[..., : R // per].contiguous()
+
+    return md._replace(words=tuple(cut(w) for w in md.words),
+                       cksum=cut(md.cksum, 8), values=cut(md.values),
+                       fold=cut(md.fold), fold_ck=cut(md.fold_ck, 8),
+                       ell_len=cut(md.ell_len), gidx=cut(md.gidx))
+
+
+def ell_edge_matrix(mode, case):
+    """Kernel C's ragged edges: R = 32 (a tridiagonal matrix of 20 rows,
+    cut to 32), K = 1 (a diagonal), K = 13 (13 diagonals: not a multiple
+    of the 8-slot slab), and whole tiles of empty rows (two tridiagonal
+    blocks with 1,000 empty rows between them, R aligned to 4096)."""
+    if case == "R32":
+        rows, cols, vals, n = spd_tridiagonal(20)
+        return build_protected("csr", assemble(cols, rows, vals, n, 1),
+                               mode, force_exec="ell")
+    if case == "K1":
+        i = np.arange(4096)
+        return build_protected("csr", assemble(i, i, np.full(4096, 2.0),
+                                               4096, 1), mode,
+                               force_exec="ell")
+    if case == "K13":
+        n = 4000
+        i = np.arange(n)
+        rows, cols, vals = [i], [i], [np.full(n, 20.0)]
+        for d in range(1, 7):
+            rows.append(i[d:])
+            cols.append(i[:-d])
+            vals.append(-np.ones(n - d) / d)
+        m = build_protected("csr", assemble(
+            np.concatenate(cols), np.concatenate(rows),
+            np.concatenate(vals), n, 1), mode, force_exec="ell")
+        assert m.K == 13
+        return m
+    r1, c1, v1, _ = spd_tridiagonal(500)
+    rows, cols = np.concatenate([r1, r1 + 1500]), np.concatenate([c1, c1 + 1500])
+    return build_protected("csr", assemble(cols, rows, np.concatenate([v1, v1]),
+                                           2000, 1), mode, force_exec="ell",
+                           row_align=4096)
+
+
+@pytest.mark.parametrize("case", ["R32", "K1", "K13", "empty-tiles"])
+@pytest.mark.parametrize("mode", ["none", "constraints", "sec8", "secded"])
+def test_kernel_c_ragged_edges(dev, mode, case):
+    """Kernel C and its detection-free product at the edges of its
+    schedule: w bit-exact to the plain version, the trigger equal, pw to
+    1e-5; clean and faulted."""
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import product_spec
+
+    m = ell_edge_matrix(mode, case)
+    assert m.exec_kind == "ell"
+    R = 32 if case == "R32" else m.R
+    x = torch.tensor(np.random.default_rng(5).standard_normal(R),
+                     dtype=torch.float32, device=dev)
+    for mm in (m, faulted(m, 1, 31)):
+        md = make_matrix_device(mm, torch.float32, dev)
+        if case == "R32":
+            md = rows_of(md, 32)
+        for spec in (ell_spec(mm, mode), product_spec(mm, mode)):
+            wk, tk, pk = ell_fast(md, x, spec)
+            wp, tp, pp = ell_fast_plain(md, x, spec)
+            assert same_bits(wk, wp), (case, spec.detect)
+            assert bool(tk) == bool(tp)
+            torch.testing.assert_close(pk, pp, rtol=1e-5, atol=1e-6)
 
 
 def bordered(core, k=600, seed=3):
@@ -653,6 +766,44 @@ def test_halo_kernels_match_plain_and_single_device(dev, mode, layout):
         assert halo_fn.launches == before + n
         w1, t1, _ = single(md, x, spec)
         assert same_bits(torch.cat(outs), w1)
+
+
+def test_kernel_c_halo_repeatable_on_every_shard(dev):
+    """Kernel C's halo form through the launchers a sharded solve resolves
+    once per shard: 100 rounds of the 4 shards' calls back to back give
+    identical w, pw and trigger, clean and with a halo-row fault (which
+    fires on shard 1 only)."""
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import ell_launcher
+    from abft_sparse_cg_tpu_torch.parallel.sharded import (
+        default_mesh,
+        shard_rows,
+    )
+    from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
+        _halo,
+        halo_exchange,
+    )
+
+    n = 4
+    m0 = sharded_matrix("secded", "ell", n)
+    R_loc, H = m0.R // n, _halo(m0)
+    spec = ell_spec(m0, "secded")
+    mesh = default_mesh(n, dev)
+    x = torch.tensor(np.random.default_rng(5).standard_normal(m0.R),
+                     dtype=torch.float32, device=dev)
+    ext = halo_exchange(x, mesh, H)
+    for m in (m0, halo_fault(m0, n)):
+        shards = shard_rows(make_matrix_device(m, torch.float32, dev), mesh)
+        calls = [ell_launcher(md, spec, dev, H, s * R_loc)
+                 for s, md in enumerate(shards)]
+        first = [c(e) for c, e in zip(calls, ext)]
+        outs = [[c(e) for c, e in zip(calls, ext)] for _ in range(100)]
+        torch.cuda.synchronize()
+        for rnd in outs:
+            for (w, t, p), (w0, t0, p0) in zip(rnd, first):
+                assert same_bits(w, w0) and bool(t) == bool(t0)
+                assert same_bits(p.view(1), p0.view(1))
+        assert [bool(t) for _, t, _ in first] == (
+            [False] * n if m is m0 else [False, True, False, False])
 
 
 @pytest.mark.parametrize("layout", ["dia", "ell"])
