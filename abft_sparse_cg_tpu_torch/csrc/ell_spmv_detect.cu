@@ -97,6 +97,9 @@ constexpr int kSlabWords = kSlab * kRows;          // one plane of a slab
 constexpr int kStageWords = 3 * kSlabWords;        // values, gather, signal
 constexpr int kSmemBytes = kStages * kStageWords * 4;
 static_assert(kRows % 32 == 0 && kStages >= 3, "tile shape");
+// The ring fits the default 48 KB of dynamic shared memory: no launch
+// needs cudaFuncAttributeMaxDynamicSharedMemorySize.
+static_assert(kSmemBytes <= 48 * 1024, "ring size");
 
 __device__ unsigned int g_arrive;   // finish_call's counter
 
@@ -246,19 +249,6 @@ ell_spmv_detect_kernel(EllArgs a, Gather gat, CallOut out) {
   finish_call(pw, bad, out, &g_arrive, fbuf, ibuf);
 }
 
-// The ring is dynamic shared memory past the default 48 KB: allowed once
-// per instance and device.
-template <class Gather>
-cudaError_t allow_smem(int device) {
-  static bool done[64];
-  if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      ell_spmv_detect_kernel<Gather>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
-  return err;
-}
-
 template <class Gather>
 int launch(const EllArgs& a, Gather gat, float* part, int* flags, float* pw,
            unsigned char* trig, int grid, int device, void* stream) {
@@ -269,8 +259,6 @@ int launch(const EllArgs& a, Gather gat, float* part, int* flags, float* pw,
       grid < 1 || grid > a.R / 32 || (align & 15) != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem<Gather>(device);
   if (err != cudaSuccess) return (int)err;
   CallOut out{part, flags, pw, trig};
   ell_spmv_detect_kernel<Gather>
@@ -302,18 +290,12 @@ extern "C" int abft_ell_spmv_occupancy(int device, int halo, int* per_sm,
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  if (halo) {
-    err = allow_smem<HaloGather>(device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          per_sm, ell_spmv_detect_kernel<HaloGather>, kRows, kSmemBytes);
-  } else {
-    err = allow_smem<GlobalGather>(device);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          per_sm, ell_spmv_detect_kernel<GlobalGather>, kRows, kSmemBytes);
-  }
-  return (int)err;
+  return (int)(halo ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          per_sm, ell_spmv_detect_kernel<HaloGather>, kRows,
+                          kSmemBytes)
+                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          per_sm, ell_spmv_detect_kernel<GlobalGather>,
+                          kRows, kSmemBytes));
 }
 
 // ``part`` and ``flags`` hold ``grid`` entries (scratch), ``pw`` and

@@ -99,9 +99,11 @@ Phases:
  21. flat and split times: per-iteration and split-tail solves with
      slope and GB/s, kernel E per call against its plain version,
      ``A @ x`` and its bound, the secded-over-none price of kernel E's
-     per-call signals, kernel C at the band split's main part (K 9, R
-     819,200) against plain, ``A @ x`` and its bound, the split tail
-     against its plain loop;
+     per-call signals, kernel C at the band split's main part (K 11, R
+     819,200: several tiles per block) held bit-exact to plain live and
+     as the product, clean and with a 1-bit fault, and timed against
+     plain, ``A @ x`` and its bound, the split tail against its plain
+     loop;
  22. the lazy (CI 4) and Jacobi instances of kernels B and D (and of the
      split tail) against their plain loops, secded, on DIA -b 10,
      dense-radius-3d -b 10 and arrowhead -b 10: clean (a lazy x equal
@@ -228,57 +230,6 @@ def parallel_builds(asm, modes, **kw):
         futs = {mode: ex.submit(build_protected, "csr", asm, mode, **kw)
                 for mode in modes}
         return {mode: f.result() for mode, f in futs.items()}
-
-
-def ell_edge_cases():
-    """Kernel C's schedule at its edges, as {name: (assembled matrix,
-    build options)}: R = 32 (a tridiagonal of 20 rows; its planes are cut
-    to 32 rows on the card, ``cut_rows``), K = 1 (a diagonal), K = 13 (13
-    diagonals: not a multiple of the 8-slot slab) and whole tiles of
-    empty rows (two tridiagonal blocks 1,000 rows apart, R aligned to
-    4096).  Each is forced to the ELL layout."""
-    import numpy as np
-
-    from abft_sparse_cg_tpu_torch.formats import assemble
-    from abft_sparse_cg_tpu_torch.utils.matgen import spd_tridiagonal
-
-    cat = np.concatenate
-    r, c, v, n = spd_tridiagonal(20)
-    out = {"ell-edge R 32": (assemble(c, r, v, n, 1), {})}
-    i = np.arange(4096)
-    out["ell-edge K 1"] = (assemble(i, i, np.full(4096, 2.0), 4096, 1), {})
-    i = np.arange(4000)
-    rows, cols, vals = [i], [i], [np.full(4000, 20.0)]
-    for d in range(1, 7):
-        rows.append(i[d:])
-        cols.append(i[:-d])
-        vals.append(-np.ones(4000 - d) / d)
-    out["ell-edge K 13"] = (assemble(cat(cols), cat(rows), cat(vals), 4000,
-                                     1), {})
-    r, c, v, _ = spd_tridiagonal(500)
-    out["ell-edge empty tiles"] = (
-        assemble(cat([c, c + 1500]), cat([r, r + 1500]), cat([v, v]), 2000,
-                 1), {"row_align": 4096})
-    return out
-
-
-ROW_CUT = {"ell-edge R 32": 32}
-
-
-def cut_rows(md, name):
-    """``md`` cut to the first ROW_CUT[name] rows (contiguous copies), or
-    as it is."""
-    R = ROW_CUT.get(name)
-    if R is None:
-        return md
-
-    def cut(t, per=1):
-        return None if t is None else t[..., : R // per].contiguous()
-
-    return md._replace(words=tuple(cut(w) for w in md.words),
-                       cksum=cut(md.cksum, 8), values=cut(md.values),
-                       fold=cut(md.fold), fold_ck=cut(md.fold_ck, 8),
-                       ell_len=cut(md.ell_len), gidx=cut(md.gidx))
 
 
 def host_ms(fn, reps):
@@ -673,6 +624,16 @@ def main():
     from abft_sparse_cg_tpu_torch.solver.fused import (
         fused_cg_dia, fused_cg_dia_plain, fused_cg_ell, fused_cg_ell_plain,
         fused_grid, make_fused_solver, tail_spec)
+    from abft_sparse_cg_tpu_torch.utils.ell_edges import (
+        ROW_CUT, cut_rows, ell_edge_cases)
+
+    def edge_cut(name):
+        """Rows the card keeps of shape ``name`` (an edge case's cut), or
+        None for all."""
+        return ROW_CUT.get(name.removeprefix("ell-edge "))
+
+    def edge_rows(name, m):
+        return edge_cut(name) or m.R
 
     dev = torch.device("cuda", 0)
     f32 = torch.float32
@@ -1064,11 +1025,12 @@ def main():
               f"{mm.perm is not None}; 6 builds in "
               f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    for name, (asm, kw) in ell_edge_cases().items():
+    for case, (asm, kw) in ell_edge_cases().items():
+        name = f"ell-edge {case}"
         per = parallel_builds(asm, MODES, force_exec="ell", **kw)
         mm = per["secded"]
         shapes[name] = (asm, per)
-        print(f"{name}: K {mm.K}, R {ROW_CUT.get(name, mm.R)}, N {mm.N}, "
+        print(f"{name}: K {mm.K}, R {edge_rows(name, mm)}, N {mm.N}, "
               f"empty rows {int(np.sum(np.asarray(mm.ell_len) == 0))}")
     print(f"kernel C's edge shapes: 4 x 6 builds in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1094,7 +1056,7 @@ def main():
         for mode in MODES:
             m = per[mode]
             spec = ell_spec(m, mode)
-            xc = torch.zeros(ROW_CUT.get(name, m.R), dtype=f32, device=dev)
+            xc = torch.zeros(edge_rows(name, m), dtype=f32, device=dev)
             xc[: m.N] = torch.tensor(np.random.default_rng(3).random(m.N),
                                      dtype=f32)
             variants = [("clean", m)]
@@ -1107,7 +1069,8 @@ def main():
                     m, "INDEX", 1, np.random.default_rng(23),
                     echo=lambda s: None)))
             for label, mm in variants:
-                mdc = cut_rows(make_matrix_device(mm, f32, dev), name)
+                mdc = cut_rows(make_matrix_device(mm, f32, dev),
+                               edge_cut(name))
                 wk, tk, pk = ell_fast(mdc, xc, spec)
                 wp, tp, pp = ell_fast_plain(mdc, xc, spec)
                 torch.cuda.synchronize()
@@ -1517,12 +1480,41 @@ def main():
               f"computing the flat signals on every call): "
               f"{(med_e[name, 'secded'][0]['kernel'] / med_e[name, 'none'][0]['kernel'] - 1) * 100:+.1f}% [{card}]")
     # Kernel C at the band split's main part, the shape the per-iteration
-    # tier launches live on band+random-1pct -b 10 (K 9, R 819,200).
+    # tier launches live on band+random-1pct -b 10 (K 11, R 819,200): the
+    # main path's one shape where a block walks several tiles (25,600
+    # warps of rows over the resident blocks), so the ring runs on across
+    # tiles.  Held to the plain version live and as the product, clean and
+    # with a 1-bit fault, through the launcher the solver resolves.
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import product_spec
+
     mm = splits["band+random-1pct"][1]["secded"].main
-    mdb = make_matrix_device(mm, f32, dev)
     xb = torch.zeros(mm.R, dtype=f32, device=dev)
     xb[: mm.N] = torch.tensor(np.random.default_rng(3).random(mm.N),
                               dtype=f32)
+    cb_errs = []
+    for label, m1 in (("clean", mm), ("1-bit", inject_bitflips(
+            mm, "ANY", 1, np.random.default_rng(21), echo=lambda s: None))):
+        changed = any(not np.array_equal(m1.ell[n], mm.ell[n])
+                      for n in mm.layout.word_names)
+        mdb = make_matrix_device(m1, f32, dev)
+        for spec_b in (ell_spec(m1, "secded"), product_spec(m1, "secded")):
+            wk, tk, pk = ell_launcher(mdb, spec_b, dev)(xb)
+            wp, tp, pp = ell_fast_plain(mdb, xb, spec_b)
+            torch.cuda.synchronize()
+            tag = (f"band+random-1pct main secded {label} "
+                   f"{'live' if spec_b.detect else 'product'}")
+            prel = pw_rel(pk, pp)
+            require(same_w(wk, wp), f"{tag}: w not bit-exact")
+            require(prel <= 1e-5, f"{tag}: pw rel err {prel:.2e}")
+            require(bool(tk) == bool(tp) == (spec_b.detect and changed),
+                    f"{tag}: trig {bool(tk)}, plain {bool(tp)}, changed "
+                    f"{changed}")
+            err = float((wk - wp)[torch.isfinite(wp)].abs().max())
+            cb_errs.append(err)
+            print(f"{tag}: kernel C w bit-exact (max|err| {err:.1e}), pw "
+                  f"rel {prel:.1e}, trig {bool(tk)}")
+        del mdb
+    mdb = make_matrix_device(mm, f32, dev)
     med_cb = kernel_times(
         ell_fast, ell_fast_plain, mdb, ell_spec(mm, "secded"), xb,
         f"kernel C secded band+random-1pct -b 10 main part (K {mm.K}, R "
@@ -1559,7 +1551,7 @@ def main():
          "source": "abft_sparse_cg_tpu_torch/csrc/ell_spmv_detect.cu",
          "replaces": "abft_sparse_cg_tpu/ops/spmv_pallas.py:846",
          "launches": path_launches["band+random-1pct"]["ell_spmv_detect"],
-         "max_abs_err": max(c_errs), "ms": med_cb[0]["kernel"],
+         "max_abs_err": max(cb_errs), "ms": med_cb[0]["kernel"],
          "plain_ms": med_cb[0]["plain"], "bound_ms": med_cb[1],
          "bound_by": med_cb[2], "library_ms": med_cb[0]["A @ x"]},
         {"name": "fused_cg_dia (split tail)", "route": "cuda",
@@ -1774,13 +1766,14 @@ def main():
         for mode in ("constraints", "sec8", "secded"):
             m = per[mode]
             spec = product_spec(m, mode)
-            xp_ = torch.zeros(ROW_CUT.get(name, m.R), dtype=f32, device=dev)
+            xp_ = torch.zeros(edge_rows(name, m), dtype=f32, device=dev)
             xp_[: m.N] = torch.tensor(np.random.default_rng(3).random(m.N),
                                       dtype=f32)
             for label, mm in (("clean", m), ("1-bit", inject_bitflips(
                     m, "ANY", 1, np.random.default_rng(21),
                     echo=lambda s: None))):
-                mdp = cut_rows(make_matrix_device(mm, f32, dev), name)
+                mdp = cut_rows(make_matrix_device(mm, f32, dev),
+                               edge_cut(name))
                 before = kern.product_launches
                 wk, tk, pk = kern(mdp, xp_, spec)
                 wp, tp, pp = plain(mdp, xp_, spec)

@@ -15,6 +15,12 @@ trace to 1e-3 above float32's noise floor (its dot products are summed
 in fixed chunks, the plain loop's by torch.sum).
 """
 
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +40,11 @@ from abft_sparse_cg_tpu_torch.solver.fused import (
     fused_cg_dia,
     fused_cg_ell,
     make_fused_solver,
+)
+from abft_sparse_cg_tpu_torch.utils.ell_edges import (
+    ROW_CUT,
+    cut_rows,
+    ell_edge_cases,
 )
 from abft_sparse_cg_tpu_torch.utils.matgen import (
     row_lengths_assembled,
@@ -373,73 +384,74 @@ def test_one_launch_per_call_and_repeatable(dev, kernel):
                 assert bool(trig) == bool(first[1])
 
 
-def rows_of(md, R):
-    """``md`` cut to its first R rows (contiguous copies): a banded-ELL
-    matrix of R = 32 rows, below what the build pads to."""
-    def cut(t, per=1):
-        return None if t is None else t[..., : R // per].contiguous()
-
-    return md._replace(words=tuple(cut(w) for w in md.words),
-                       cksum=cut(md.cksum, 8), values=cut(md.values),
-                       fold=cut(md.fold), fold_ck=cut(md.fold_ck, 8),
-                       ell_len=cut(md.ell_len), gidx=cut(md.gidx))
-
-
-def ell_edge_matrix(mode, case):
-    """Kernel C's ragged edges: R = 32 (a tridiagonal matrix of 20 rows,
-    cut to 32), K = 1 (a diagonal), K = 13 (13 diagonals: not a multiple
-    of the 8-slot slab), and whole tiles of empty rows (two tridiagonal
-    blocks with 1,000 empty rows between them, R aligned to 4096)."""
-    if case == "R32":
-        rows, cols, vals, n = spd_tridiagonal(20)
-        return build_protected("csr", assemble(cols, rows, vals, n, 1),
-                               mode, force_exec="ell")
-    if case == "K1":
-        i = np.arange(4096)
-        return build_protected("csr", assemble(i, i, np.full(4096, 2.0),
-                                               4096, 1), mode,
-                               force_exec="ell")
-    if case == "K13":
-        n = 4000
-        i = np.arange(n)
-        rows, cols, vals = [i], [i], [np.full(n, 20.0)]
-        for d in range(1, 7):
-            rows.append(i[d:])
-            cols.append(i[:-d])
-            vals.append(-np.ones(n - d) / d)
-        m = build_protected("csr", assemble(
-            np.concatenate(cols), np.concatenate(rows),
-            np.concatenate(vals), n, 1), mode, force_exec="ell")
-        assert m.K == 13
-        return m
-    r1, c1, v1, _ = spd_tridiagonal(500)
-    rows, cols = np.concatenate([r1, r1 + 1500]), np.concatenate([c1, c1 + 1500])
-    return build_protected("csr", assemble(cols, rows, np.concatenate([v1, v1]),
-                                           2000, 1), mode, force_exec="ell",
-                           row_align=4096)
-
-
 @pytest.mark.parametrize("case", ["R32", "K1", "K13", "empty-tiles"])
 @pytest.mark.parametrize("mode", ["none", "constraints", "sec8", "secded"])
 def test_kernel_c_ragged_edges(dev, mode, case):
     """Kernel C and its detection-free product at the edges of its
-    schedule: w bit-exact to the plain version, the trigger equal, pw to
+    schedule (utils.ell_edges: R = 32, K = 1, K = 13, whole tiles of empty
+    rows): w bit-exact to the plain version, the trigger equal, pw to
     1e-5; clean and faulted."""
     from abft_sparse_cg_tpu_torch.ops.spmv_cuda import product_spec
 
-    m = ell_edge_matrix(mode, case)
-    assert m.exec_kind == "ell"
-    R = 32 if case == "R32" else m.R
+    asm, kw = ell_edge_cases()[case]
+    m = build_protected("csr", asm, mode, force_exec="ell", **kw)
+    assert m.exec_kind == "ell" and (case != "K13" or m.K == 13)
+    R = ROW_CUT.get(case, m.R)
     x = torch.tensor(np.random.default_rng(5).standard_normal(R),
                      dtype=torch.float32, device=dev)
     for mm in (m, faulted(m, 1, 31)):
-        md = make_matrix_device(mm, torch.float32, dev)
-        if case == "R32":
-            md = rows_of(md, 32)
+        md = cut_rows(make_matrix_device(mm, torch.float32, dev),
+                      ROW_CUT.get(case))
         for spec in (ell_spec(mm, mode), product_spec(mm, mode)):
             wk, tk, pk = ell_fast(md, x, spec)
             wp, tp, pp = ell_fast_plain(md, x, spec)
             assert same_bits(wk, wp), (case, spec.detect)
+            assert bool(tk) == bool(tp)
+            torch.testing.assert_close(pk, pp, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["none", "constraints", "secded"])
+def test_kernel_c_many_tiles_per_block(dev, mode):
+    """Kernel C where every block walks at least three 128-row tiles (R
+    past 3 tiles per resident block), so its ring of slabs runs on from
+    one tile into the next: 13 diagonals over the first half of the rows,
+    a tridiagonal over the rest, 2,000 empty rows between them (tiles of
+    4, 1 and 0 value slabs).  Live and as the product, clean and
+    faulted: w bit-exact to the plain version, the trigger equal, pw to
+    1e-5."""
+    from abft_sparse_cg_tpu_torch._build import library
+    from abft_sparse_cg_tpu_torch.ops.spmv import ELL_TILE_ROWS, ell_grid
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import product_spec
+
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    assert library("ell_spmv_detect").abft_ell_spmv_occupancy(
+        dev.index, 0, ctypes.addressof(per_sm), ctypes.addressof(sms)) == 0
+    n = 3 * ELL_TILE_ROWS * sms.value * per_sm.value + 1000
+    h = n // 2
+    i = np.arange(h)
+    rows, cols, vals = [i], [i], [np.full(h, 20.0)]
+    for d in range(1, 7):
+        rows.append(i[d:])
+        cols.append(i[:-d])
+        vals.append(-np.ones(h - d) / d)
+    r, c, v, _ = spd_tridiagonal(n - h - 2000)
+    rows.append(r + h + 2000)
+    cols.append(c + h + 2000)
+    vals.append(v)
+    m = build_protected("csr", assemble(
+        np.concatenate(cols), np.concatenate(rows), np.concatenate(vals), n,
+        1), mode, force_exec="ell")
+    assert m.exec_kind == "ell" and m.K == 13
+    grid = ell_grid(m.R, sms.value, per_sm.value)
+    assert m.R // grid >= 3 * ELL_TILE_ROWS
+    x = torch.tensor(np.random.default_rng(5).standard_normal(m.R),
+                     dtype=torch.float32, device=dev)
+    for mm in (m, faulted(m, 1, 31)):
+        md = make_matrix_device(mm, torch.float32, dev)
+        for spec in (ell_spec(mm, mode), product_spec(mm, mode)):
+            wk, tk, pk = ell_fast(md, x, spec)
+            wp, tp, pp = ell_fast_plain(md, x, spec)
+            assert same_bits(wk, wp), spec.detect
             assert bool(tk) == bool(tp)
             torch.testing.assert_close(pk, pp, rtol=1e-5, atol=1e-6)
 
@@ -768,11 +780,10 @@ def test_halo_kernels_match_plain_and_single_device(dev, mode, layout):
         assert same_bits(torch.cat(outs), w1)
 
 
-def test_kernel_c_halo_repeatable_on_every_shard(dev):
-    """Kernel C's halo form through the launchers a sharded solve resolves
-    once per shard: 100 rounds of the 4 shards' calls back to back give
-    identical w, pw and trigger, clean and with a halo-row fault (which
-    fires on shard 1 only)."""
+def halo_shard_calls(m, dev, n=4):
+    """Kernel C's halo form on the ``n`` shards of ``m`` as a sharded solve
+    resolves it (one ``ell_launcher`` per shard), each with its shard's
+    x_ext: ([call], [x_ext])."""
     from abft_sparse_cg_tpu_torch.ops.spmv_cuda import ell_launcher
     from abft_sparse_cg_tpu_torch.parallel.sharded import (
         default_mesh,
@@ -783,20 +794,80 @@ def test_kernel_c_halo_repeatable_on_every_shard(dev):
         halo_exchange,
     )
 
+    R_loc, H = m.R // n, _halo(m)
+    mesh = default_mesh(n, dev)
+    x = torch.tensor(np.random.default_rng(5).standard_normal(m.R),
+                     dtype=torch.float32, device=dev)
+    shards = shard_rows(make_matrix_device(m, torch.float32, dev), mesh)
+    calls = [ell_launcher(md, ell_spec(m, "secded"), dev, H, s * R_loc)
+             for s, md in enumerate(shards)]
+    return calls, halo_exchange(x, mesh, H)
+
+
+def halo_shard_profile(rounds=5):
+    """The device operations (names) the profiler lists for ``rounds``
+    rounds of the 4 shards' halo calls, after a warm-up round."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls, ext = halo_shard_calls(sharded_matrix("secded", "ell", 4),
+                                  torch.device("cuda", 0))
+    for c, e in zip(calls, ext):
+        c(e)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for c, e in zip(calls, ext):
+                c(e)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def test_kernel_c_halo_repeatable_on_every_shard(dev, monkeypatch):
+    """Kernel C's halo form through the launchers a sharded solve resolves
+    once per shard, one device operation per call: 5 rounds of the 4
+    shards' calls are 20 device operations, all kernel C, in the
+    profiler's list of a fresh process (a long one, as this test
+    process, loses profiler events: it listed 18-19 of 20 on the card),
+    and here each of those 20 calls writes its own outputs (handed to it
+    filled with NaN and a set trigger).  100 more rounds back to back
+    give identical w, pw and trigger, clean and with a halo-row fault
+    (which fires on shard 1 only)."""
+    from abft_sparse_cg_tpu_torch.ops import spmv_cuda
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.dirname(tests)
+    run = subprocess.run(
+        [sys.executable, "-c", "import json, test_torch_cuda as t; "
+         "print(json.dumps(t.halo_shard_profile()))"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join((root, tests))})
+    assert run.returncode == 0, run.stderr[-3000:]
+    ops = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(ops) == 20, ops
+    assert all("ell_spmv_detect_kernel" in o for o in ops), ops
+
+    plain = spmv_cuda._call_outputs
+
+    def poisoned(x, rows=None):
+        w, t, p = plain(x, rows)
+        w.fill_(float("nan"))
+        t.fill_(True)
+        p.fill_(float("nan"))
+        return w, t, p
+
     n = 4
     m0 = sharded_matrix("secded", "ell", n)
-    R_loc, H = m0.R // n, _halo(m0)
-    spec = ell_spec(m0, "secded")
-    mesh = default_mesh(n, dev)
-    x = torch.tensor(np.random.default_rng(5).standard_normal(m0.R),
-                     dtype=torch.float32, device=dev)
-    ext = halo_exchange(x, mesh, H)
     for m in (m0, halo_fault(m0, n)):
-        shards = shard_rows(make_matrix_device(m, torch.float32, dev), mesh)
-        calls = [ell_launcher(md, spec, dev, H, s * R_loc)
-                 for s, md in enumerate(shards)]
+        calls, ext = halo_shard_calls(m, dev, n)
         first = [c(e) for c, e in zip(calls, ext)]
-        outs = [[c(e) for c, e in zip(calls, ext)] for _ in range(100)]
+        torch.cuda.synchronize()
+        with monkeypatch.context() as mp:
+            mp.setattr(spmv_cuda, "_call_outputs", poisoned)
+            outs = [[c(e) for c, e in zip(calls, ext)] for _ in range(5)]
+        outs += [[c(e) for c, e in zip(calls, ext)] for _ in range(100)]
         torch.cuda.synchronize()
         for rnd in outs:
             for (w, t, p), (w0, t0, p0) in zip(rnd, first):

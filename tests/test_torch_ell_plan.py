@@ -27,8 +27,9 @@ replay of that schedule:
 Shapes: the whole dense-radius-3d -b 10 shape (R 221,184, K 175) and one
 shard of it (R_loc 55,296) on 132 SMs, schedule only (their planes would
 take hundreds of MB here); with data: that shard's rows at K = 21, R =
-32, K = 1, K = 13 (not a multiple of the slab), tiles of empty rows, and
-a built dense-radius-3d matrix in every mode.
+32, K = 1, K = 13 (not a multiple of the slab), tiles of empty rows, a
+built dense-radius-3d matrix in every mode, and the edge matrices the
+card is held to (utils.ell_edges).
 """
 
 import numpy as np
@@ -52,6 +53,11 @@ from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
     ell_gather_plane,
     ell_spec,
     signals_plain,
+)
+from abft_sparse_cg_tpu_torch.utils.ell_edges import (
+    ROW_CUT,
+    cut_rows,
+    ell_edge_cases,
 )
 from abft_sparse_cg_tpu_torch.utils.matzoo import dense_radius_3d
 
@@ -325,5 +331,39 @@ def test_replay_on_a_built_matrix(mode):
             g.numpy(), x, plane, base, spec.use_parity, spec.use_cksum)
         check_coverage(spec.K, m.R, md.ell_len.numpy(), summed, folded,
                        plane is not None)
+        assert same_bits(w, want.numpy())
+        assert trig == bool(signals_plain(md, spec))
+
+
+@pytest.mark.parametrize("case,K", [("R32", 3), ("K1", 1), ("K13", 13),
+                                    ("empty-tiles", 3)])
+def test_replay_on_the_edge_matrices(case, K):
+    """The edge matrices the card tests and chip_smoke.py hold kernel C
+    to (utils.ell_edges), secded, as the card gets them (R = 32 cut from
+    the build): their stated K and rows, whole empty tiles where named,
+    and the replay's w bit-identical to ell_product with its trigger
+    signals_plain's, clean and with a 1-bit fault."""
+    asm, kw = ell_edge_cases()[case]
+    m = build_protected("csr", asm, "secded", force_exec="ell", **kw)
+    assert m.exec_kind == "ell" and m.K == K
+    R = ROW_CUT.get(case, m.R)
+    assert R == (32 if case == "R32" else m.R)
+    x = np.random.default_rng(4).standard_normal(R).astype(F32)
+    for mm in (m, inject_bitflips(m, "ANY", 1, np.random.default_rng(21),
+                                  echo=lambda s: None)):
+        md = cut_rows(make_matrix_device(mm, torch.float32, CPU),
+                      ROW_CUT.get(case))
+        ell_len = md.ell_len.numpy()
+        if case == "empty-tiles":
+            assert (ell_len.reshape(-1, ELL_TILE_ROWS).max(axis=1) == 0).any()
+        spec = ell_spec(mm, "secded")
+        g = ell_gather_plane(md, spec)
+        want = ell_product(md.values, g, md.ell_len, torch.from_numpy(x))
+        w, trig, summed, folded = replay(
+            K, R, ell_len, 8, md.values.numpy(), g.numpy(), x,
+            md.fold.numpy().view(np.uint32),
+            md.fold_ck[0].numpy().view(np.uint32), spec.use_parity,
+            spec.use_cksum)
+        check_coverage(K, R, ell_len, summed, folded, True)
         assert same_bits(w, want.numpy())
         assert trig == bool(signals_plain(md, spec))
