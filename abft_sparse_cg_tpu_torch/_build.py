@@ -35,9 +35,10 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-# The split tail of the fused kernels: td, tb, rows, starts, T, S, the
-# chunk partials, the tail's signal plane and baseline, E.
-_TAIL = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I]
+# The split tail of the fused kernels: td, tb, rows, starts, the per-tile
+# window masks, T, S, the dense-row chunk, the chunk partials, the outlier
+# rows' main products, the tail's signal plane and baseline, E.
+_TAIL = [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I]
 # The Jacobi and lazy options of the fused kernels: M^-1, the rz
 # partials, the x/r/p snapshot, the check interval, the snapshot's
 # itr and rr/rz outputs.

@@ -3,7 +3,7 @@
 // flat_spmv_detect.cu): the DIA stencil and banded-ELL row products (and
 // the banded-ELL gather rule of one shard of a row-sharded solve), the
 // live ABFT signals, fixed-order block and grid reductions, the one-launch
-// epilogue of kernels A, C and E, and the split tail pass of the fused
+// epilogue of kernels A, C and E, and the split tail of the fused
 // kernels.
 //
 // Arithmetic order.  The row products sum the diagonals (d = 0..D-1) or
@@ -228,26 +228,6 @@ __device__ __forceinline__ float ell_row_signals(
   return w;
 }
 
-// Signals of one slot j of a flat (E,) plane (E % 8 == 0), for the split
-// tail of kernels B and D; nonzero if they fired.  Every
-// lane of a warp must call it, on 32 consecutive j starting at a multiple
-// of 32; j may run past E (up to E rounded up to 32), where the word
-// reads as zero and no block is compared.  The checksum covers each exact
-// 8-slot block, as ops.spmv._fold_blocks does on a 1-D plane.
-__device__ __forceinline__ int flat_signals(const DiaSignals& s, int E,
-                                            int j) {
-  const uint32_t v = j < E ? __ldg(s.plane + j) : 0u;
-  int bad = s.use_parity ? (__popc(v) & 1) : 0;
-  if (s.use_cksum) {
-    uint32_t acc = v;
-    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 1);
-    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 2);
-    acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 4);
-    if ((j & 7) == 0 && j < E && acc != __ldg(s.base + (j >> 3))) bad = 1;
-  }
-  return bad;
-}
-
 // Sum of a warp's 32 lane values in a fixed XOR butterfly (offsets 16,
 // 8, 4, 2, 1); every lane gets the total.  ops.spmv.flat_product repeats
 // this order.
@@ -369,110 +349,277 @@ __device__ __forceinline__ void finish_call(float pw, int bad,
 //
 // A bordered split (formats/split.py::try_split) with a dense plan
 // (ops/spmv.py::dense_tail_plan): T <= 64 outlier rows o_t, each with a
-// span window [start_t, start_t + S).  td[t] holds the dense row o_t over
-// its window, tb[t] the transpose images (entries whose gather source is
-// o_t, by output row).  Per iteration the tail adds to the main product w
+// span window [start_t, start_t + S); S and every start are multiples of
+// 128.  td[t] holds the dense row o_t over its window, tb[t] the
+// transpose images (entries whose gather source is o_t, by output row).
+// Per iteration the tail adds to the main product w
 //   dense rows        w[o_t]                  += td[t] . p[start_t + 0..S)
 //   mirrored AXPYs    w[start_t + j]          += p[o_t] * tb[t][j]
 // and streams its (E,) signal plane for live detection — the counterpart
 // of the TPU kernel's tail (solver/fused.py:977-1014, tail_trigger
 // :737-763).  Order: every element w[i] adds, for t = 0..T-1 in turn, the
 // dense row's sum (i == o_t) and then the AXPY term (i in window t), as
-// the TPU kernel's loop over t does; the T dot products are summed in
-// fixed chunks, so w is deterministic.  The tail checksum compares exact
-// 8-slot blocks, finer than the TPU kernel's whole-plane fold.
+// the TPU kernel's loop over t does.
+//
+// Schedule (one pass and one grid sync, as the tail-free loop):
+//   phase 1, beside the main rows — p[o_t] is fixed for the iteration
+//     (TailShared::po), so each non-outlier row adds its AXPY terms in t
+//     order right after its main product (tail_axpy; the windows of its
+//     128-row tile come from a host-static bit mask, tiles[i / 128]) and
+//     is final: its w and pw term are written then.  An outlier row's main
+//     product goes to tmain[t].  Block c < T * nch sums chunk c of the
+//     dense rows (tail_dense_chunk, 16-byte loads), and every thread folds
+//     whole 8-slot blocks of the tail's signal plane (tail_signals);
+//   after the grid sync and the trigger test, every block reduces the
+//     chunk partials and finishes the T outlier rows in the element order
+//     above (tail_finish); pw = the grid's phase-1 partials + the outlier
+//     rows' p . w in t order, the same in every block; the thread that
+//     owns row o_t in the grid-strided partition writes w[o_t].
+// So w is deterministic for a given grid, every non-outlier element is
+// bit-identical to the plain version's, and only pw's summation order
+// differs from it.  The tail checksum compares exact 8-slot blocks,
+// finer than the TPU kernel's whole-plane fold.
 #define ABFT_MAX_T 64
-#define ABFT_TAIL_CHUNK 2048
 
 struct TailPlan {
-  int T;                   // outlier rows; 0: no tail
-  int S;                   // span width
-  int nch;                 // chunks per dot product: ceil(S / CHUNK)
-  int E;                   // tail signal-plane slots (multiple of 8)
-  int rows[ABFT_MAX_T];    // o_t (exec rows)
-  int starts[ABFT_MAX_T];  // start_t
-  const float* td;         // (T, S)
-  const float* tb;         // (T, S)
-  float* part;             // (T * nch) chunk partials of the dot products
-  DiaSignals sig;          // (E,) tail fold or col word; null: none
+  int T;                            // outlier rows; 0: no tail
+  int S;                            // span width
+  int chunk;                        // dense-row chunk (multiple of 128)
+  int nch;                          // chunks per dense row: ceil(S / chunk)
+  int E;                            // tail signal-plane slots (E % 8 == 0)
+  const int* rows;                  // (T) o_t (exec rows)
+  const int* starts;                // (T) start_t
+  const unsigned long long* tiles;  // (R / 128) bit t: tile in window t
+  const float* td;                  // (T, S)
+  const float* tb;                  // (T, S)
+  float* part;                      // (T * nch) chunk partials
+  float* tmain;                     // (T) main product at o_t
+  DiaSignals sig;                   // (E,) tail fold or col word; or null
 };
 
-// Phase 1 (every block, beside its main rows): the chunk partials of the
-// T dot products.  Chunk c = t * nch + q covers window slots [q * CHUNK,
-// (q + 1) * CHUNK) of outlier t and is summed by one block in a fixed
-// order (thread-strided, then block_sum).
-__device__ __forceinline__ void tail_dense_partials(const TailPlan& t,
-                                                    const float* p,
-                                                    float* fbuf) {
-  const int nparts = t.T * t.nch;
-  for (int c = blockIdx.x; c < nparts; c += gridDim.x) {
-    const int k = c / t.nch;
-    const int j0 = (c - k * t.nch) * ABFT_TAIL_CHUNK;
-    const int j1 = min(j0 + ABFT_TAIL_CHUNK, t.S);
-    const float* td = t.td + (size_t)k * t.S;
-    const float* pwin = p + t.starts[k];
-    float v = 0.0f;
-    for (int j = j0 + (int)threadIdx.x; j < j1; j += blockDim.x)
-      v = __fadd_rn(v, __fmul_rn(__ldg(td + j), __ldcg(pwin + j)));
-    v = block_sum(v, fbuf);
-    if (threadIdx.x == 0) t.part[c] = v;
+// The plan's per-block copy in shared memory (rows and starts once per
+// launch, p[o_t] once per iteration, the dense sums and the finished
+// outlier rows after the sync).  An empty struct for the tail-free
+// instances.
+template <bool kTail>
+struct TailShared {
+  int rows[ABFT_MAX_T];
+  int starts[ABFT_MAX_T];
+  float po[ABFT_MAX_T];
+  float ds[ABFT_MAX_T];
+  float wo[ABFT_MAX_T];
+};
+
+template <>
+struct TailShared<false> {};
+
+// Once per launch: rows and starts into shared memory; returns the bit
+// mask of the outliers whose row this thread owns in the grid-strided
+// partition (row i belongs to thread i % stride).
+__device__ __forceinline__ unsigned long long tail_stage(
+    const TailPlan& tp, TailShared<true>& sh, int tid, int stride) {
+  for (int t = threadIdx.x; t < tp.T; t += blockDim.x) {
+    sh.rows[t] = __ldg(tp.rows + t);
+    sh.starts[t] = __ldg(tp.starts + t);
   }
+  __syncthreads();
+  unsigned long long own = 0;
+  for (int t = 0; t < tp.T; ++t)
+    if (sh.rows[t] % stride == tid) own |= 1ull << t;
+  return own;
 }
 
-// Phase 2 (after a grid sync): element i of the product, main part ``w``
-// in, tail terms added in the order described above.
-__device__ __forceinline__ float tail_row(const TailPlan& t, const float* p,
-                                          int i, float w) {
-  for (int k = 0; k < t.T; ++k) {
-    if (i == t.rows[k]) {
-      float wa = 0.0f;
-      for (int q = 0; q < t.nch; ++q)
-        wa = __fadd_rn(wa, __ldcg(t.part + k * t.nch + q));
-      w = __fadd_rn(w, wa);
+// Once per iteration, before phase 1: p[o_t] (other blocks wrote p).
+__device__ __forceinline__ void tail_load_po(const TailPlan& tp,
+                                             TailShared<true>& sh,
+                                             const float* p) {
+  for (int t = threadIdx.x; t < tp.T; t += blockDim.x)
+    sh.po[t] = __ldcg(p + sh.rows[t]);
+  __syncthreads();
+}
+
+// Which outlier row i is, if this thread owns one (``own``); -1 if none.
+__device__ __forceinline__ int tail_outlier(const TailShared<true>& sh,
+                                            unsigned long long own, int i) {
+  while (own) {
+    const int t = __ffsll((long long)own) - 1;
+    own &= own - 1;
+    if (sh.rows[t] == i) return t;
+  }
+  return -1;
+}
+
+// Phase 1, a non-outlier row i: its main product ``w`` plus its mirrored
+// AXPY terms, in t order.  The tb loads go ABFT_TAIL_BATCH windows at a
+// time, all issued before the batch is summed: one window at a time made
+// an arrowhead -b 10 iteration 9% slower (PERF.md §6).
+#define ABFT_TAIL_BATCH 4
+__device__ __forceinline__ float tail_axpy(const TailPlan& tp,
+                                           const TailShared<true>& sh,
+                                           int i, float w) {
+  unsigned long long m = __ldg(tp.tiles + (i >> 7));
+  while (m) {
+    float v[ABFT_TAIL_BATCH];
+    int ts[ABFT_TAIL_BATCH];
+#pragma unroll
+    for (int j = 0; j < ABFT_TAIL_BATCH; ++j) {
+      ts[j] = -1;
+      if (m) {
+        ts[j] = __ffsll((long long)m) - 1;
+        m &= m - 1;
+        v[j] = __ldg(tp.tb + (size_t)ts[j] * tp.S + (i - sh.starts[ts[j]]));
+      }
     }
-    const int off = i - t.starts[k];
-    if (off >= 0 && off < t.S)
-      w = __fadd_rn(w, __fmul_rn(__ldcg(p + t.rows[k]),
-                                 __ldg(t.tb + (size_t)k * t.S + off)));
+#pragma unroll
+    for (int j = 0; j < ABFT_TAIL_BATCH; ++j)
+      if (ts[j] >= 0) w = __fadd_rn(w, __fmul_rn(sh.po[ts[j]], v[j]));
   }
   return w;
 }
 
-// The tail's signals over its (E,) plane, grid-strided; nonzero if they
-// fired.  ``tid``/``stride`` are the grid's thread index and size.
-__device__ __forceinline__ int tail_signals(const TailPlan& t, int tid,
+// Phase 1, block-uniform: block c < T * nch sums chunk c = t * nch + q of
+// the dense rows, slots [q * chunk, min((q + 1) * chunk, S)) of td[t] .
+// p[start_t + ...].  Thread k takes the float4 groups k, k + blockDim,
+// k + 2 blockDim, ... of the chunk in turn, each in x, y, z, w order, two
+// groups' loads in flight; then block_sum.  (Grid-strided over chunks, so
+// a grid smaller than T * nch is still covered; the wrapper sizes the
+// chunks so that one round does.)
+__device__ __forceinline__ void tail_dense_chunk(const TailPlan& tp,
+                                                 const TailShared<true>& sh,
+                                                 const float* p,
+                                                 float* fbuf) {
+  const int nparts = tp.T * tp.nch;
+  for (int c = blockIdx.x; c < nparts; c += gridDim.x) {
+    const int t = c / tp.nch;
+    const int k0 = (c - t * tp.nch) * (tp.chunk >> 2);
+    const int k1 = min(k0 + (tp.chunk >> 2), tp.S >> 2);
+    const float4* td4 =
+        reinterpret_cast<const float4*>(tp.td + (size_t)t * tp.S);
+    const float4* p4 = reinterpret_cast<const float4*>(p + sh.starts[t]);
+    float v = 0.0f;
+    for (int k = k0 + (int)threadIdx.x; k < k1; k += 2 * blockDim.x) {
+      const int k2 = k + blockDim.x;
+      const float4 a = __ldg(td4 + k), b = __ldcg(p4 + k);
+      float4 a2 = make_float4(0.f, 0.f, 0.f, 0.f), b2 = a2;
+      if (k2 < k1) {
+        a2 = __ldg(td4 + k2);
+        b2 = __ldcg(p4 + k2);
+      }
+      v = __fadd_rn(v, __fmul_rn(a.x, b.x));
+      v = __fadd_rn(v, __fmul_rn(a.y, b.y));
+      v = __fadd_rn(v, __fmul_rn(a.z, b.z));
+      v = __fadd_rn(v, __fmul_rn(a.w, b.w));
+      if (k2 < k1) {
+        v = __fadd_rn(v, __fmul_rn(a2.x, b2.x));
+        v = __fadd_rn(v, __fmul_rn(a2.y, b2.y));
+        v = __fadd_rn(v, __fmul_rn(a2.z, b2.z));
+        v = __fadd_rn(v, __fmul_rn(a2.w, b2.w));
+      }
+    }
+    v = block_sum(v, fbuf);
+    if (threadIdx.x == 0) tp.part[c] = v;
+  }
+}
+
+// After the grid sync (every block, block-uniform): the dense sums (warp
+// w reduces rows t = w, w + 8, ...: lane l adds partials q = l, l + 32,
+// ... in turn, then warp_butterfly), then thread t finishes outlier row
+// o_t from tmain[t] in the element order (for each window t' holding o_t
+// or t' == t, in t' order: the dense sum at t' == t, then the AXPY term
+// of t'); the owner of o_t writes w[o_t].  Returns the outlier rows' pw
+// term, sum over t in order of p[o_t] * w[o_t], in every thread.
+__device__ __forceinline__ float tail_finish(const TailPlan& tp,
+                                             TailShared<true>& sh, float* w,
+                                             unsigned long long own) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int t = warp; t < tp.T; t += blockDim.x >> 5) {
+    float v = 0.0f;
+    for (int q = lane; q < tp.nch; q += 32)
+      v = __fadd_rn(v, __ldcg(tp.part + t * tp.nch + q));
+    v = warp_butterfly(v);
+    if (lane == 0) sh.ds[t] = v;
+  }
+  __syncthreads();
+  for (int t0 = threadIdx.x; t0 < tp.T; t0 += blockDim.x) {
+    const int o = sh.rows[t0];
+    const unsigned long long win = __ldg(tp.tiles + (o >> 7));
+    unsigned long long m = win | (1ull << t0);
+    float v = __ldcg(tp.tmain + t0);
+    while (m) {
+      const int t = __ffsll((long long)m) - 1;
+      m &= m - 1;
+      if (t == t0) v = __fadd_rn(v, sh.ds[t]);
+      if ((win >> t) & 1ull)
+        v = __fadd_rn(v, __fmul_rn(sh.po[t], __ldg(tp.tb + (size_t)t * tp.S +
+                                                   (o - sh.starts[t]))));
+    }
+    sh.wo[t0] = v;
+  }
+  __syncthreads();
+  while (own) {
+    const int t = __ffsll((long long)own) - 1;
+    own &= own - 1;
+    w[sh.rows[t]] = sh.wo[t];
+  }
+  float s = 0.0f;
+  for (int t = 0; t < tp.T; ++t)
+    s = __fadd_rn(s, __fmul_rn(sh.po[t], sh.wo[t]));
+  return s;
+}
+
+// The tail's signals over its (E,) plane, by whole 8-slot blocks: thread
+// ``tid`` of ``stride`` takes blocks tid, tid + stride, ... (two 16-byte
+// loads each), OR of each word's parity, XOR of the 8 words against the
+// block's baseline word; nonzero if they fired.
+__device__ __forceinline__ int tail_signals(const TailPlan& tp, int tid,
                                             int stride) {
+  const DiaSignals& s = tp.sig;
+  if (s.plane == nullptr) return 0;
+  const uint4* pl = reinterpret_cast<const uint4*>(s.plane);
   int bad = 0;
-  if (t.sig.plane == nullptr) return 0;
-  const int E32 = (t.E + 31) & ~31;
-  for (int j = tid; j < E32; j += stride) bad |= flat_signals(t.sig, t.E, j);
+  for (int g = tid; g < (tp.E >> 3); g += stride) {
+    const uint4 a = __ldg(pl + 2 * g), b = __ldg(pl + 2 * g + 1);
+    if (s.use_parity)
+      bad |= (__popc(a.x) | __popc(a.y) | __popc(a.z) | __popc(a.w) |
+              __popc(b.x) | __popc(b.y) | __popc(b.z) | __popc(b.w)) & 1;
+    if (s.use_cksum &&
+        (a.x ^ a.y ^ a.z ^ a.w ^ b.x ^ b.y ^ b.z ^ b.w) != __ldg(s.base + g))
+      bad = 1;
+  }
   return bad;
 }
 
 // Host side: fill a TailPlan from the C interface's arguments; returns
-// false on arguments the kernels cannot take.
+// false on arguments the kernels cannot take (the 16-byte loads need td,
+// p and the signal plane 16-byte aligned).
 inline bool make_tail_plan(TailPlan* t, const float* td, const float* tb,
-                           const int* rows, const int* starts, int T, int S,
-                           float* part, const uint32_t* plane,
-                           const uint32_t* base, int use_parity,
-                           int use_cksum, int E) {
+                           const int* rows, const int* starts,
+                           const unsigned long long* tiles, int T, int S,
+                           int chunk, float* part, float* tmain,
+                           const uint32_t* plane, const uint32_t* base,
+                           int use_parity, int use_cksum, int E,
+                           const float* p) {
   t->T = T;
   t->S = S;
   t->E = E;
-  t->nch = T ? (S + ABFT_TAIL_CHUNK - 1) / ABFT_TAIL_CHUNK : 0;
+  t->chunk = chunk;
+  t->nch = T && chunk > 0 ? (S + chunk - 1) / chunk : 0;
+  t->rows = rows;
+  t->starts = starts;
+  t->tiles = tiles;
   t->td = td;
   t->tb = tb;
   t->part = part;
+  t->tmain = tmain;
   t->sig = DiaSignals{plane, base, use_parity, use_cksum};
   if (T == 0) return true;
-  if (T < 0 || T > ABFT_MAX_T || S < 1 || E < 8 || E % 8 != 0 ||
-      td == nullptr || tb == nullptr || part == nullptr)
-    return false;
-  for (int k = 0; k < T; ++k) {
-    t->rows[k] = rows[k];
-    t->starts[k] = starts[k];
-  }
-  return true;
+  auto aligned = [](const void* q) { return ((uintptr_t)q & 15u) == 0; };
+  return T > 0 && T <= ABFT_MAX_T && S >= 128 && S % 128 == 0 &&
+         chunk >= 128 && chunk % 128 == 0 && E >= 8 && E % 8 == 0 &&
+         td != nullptr && tb != nullptr && rows != nullptr &&
+         starts != nullptr && tiles != nullptr && part != nullptr &&
+         tmain != nullptr && aligned(td) && aligned(p) &&
+         (plane == nullptr || aligned(plane));
 }
 
 // ---- The Jacobi and lazy instances of the fused kernels B and D ----------

@@ -17,17 +17,20 @@
 //   6. x += alpha p, r = r1, p = r1 + (rr1 / rz) p, trace[itr] = rr1,
 //      itr += 1; grid sync (the next stencil reads neighbour rows of p).
 // A bordered split with a dense plan runs the instance with the split
-// tail (kTail; dia_common.cuh TailPlan): step 1 also computes the chunk
-// partials of the tail's dense rows and the tail's signals; after the
-// sync and the trigger test, every thread adds the tail terms to its rows
-// of w and the pw partials are taken over the complete product, with one
-// more grid sync before pw is reduced (solver/fused.py:977-1014).  The
-// tail-free instance is the code without it.  The Jacobi (kPrecond) and
-// lazy --check-interval (kLazy) instances, with or without the tail, are
-// the `precond` and `ci > 1` branches of the same TPU kernel (fused.py:
-// 552-678, 912-1155; dia_common.cuh CgOpts); the same instances run the
-// `-b 100` solves that the TPU routes to _make_streaming_kernel (pallas_
-// call at :1931; the H100 has no resident-vector envelope to leave).
+// tail (kTail; dia_common.cuh TailPlan, solver/fused.py:977-1014): step 1
+// also adds each non-outlier row's mirrored AXPY terms right after its
+// stencil (its w and pw term are then final), keeps the outlier rows'
+// stencil aside, sums the chunk partials of the tail's dense rows and
+// folds the tail's signals; after the sync and the trigger test, every
+// block finishes the outlier rows and adds their p . w to pw.  So the
+// tail costs no pass and no grid sync of its own: three per iteration,
+// as without it.  The tail-free instance is the code without it.  The
+// Jacobi (kPrecond) and lazy --check-interval (kLazy) instances, with or
+// without the tail, are the `precond` and `ci > 1` branches of the same
+// TPU kernel (fused.py:552-678, 912-1155; dia_common.cuh CgOpts); the
+// same instances run the `-b 100` solves that the TPU routes to
+// _make_streaming_kernel (pallas_call at :1931; the H100 has no
+// resident-vector envelope to leave).
 // x, r and p are updated IN PLACE.  That is safe because an iteration
 // that triggers or breaks down writes none of them: the caller sees
 // exactly the state before that iteration.  The trace is written only
@@ -39,7 +42,9 @@
 // — and, at small sizes, the three grid-wide barriers per iteration.
 // At -b 10 (819,200 rows) the bytes of one iteration (36 MB in mode
 // none, 46 MB in secded) fit in the 50 MB L2; at -b 100 (8.2M rows,
-// 360-459 MB) they stream from HBM.
+// 360-459 MB) they stream from HBM.  The split tail adds its td and tb
+// planes and its signal plane (42 MB at arrowhead -b 10: 88 MB in all,
+// past the L2).
 //
 // What the design does about it: one persistent cooperative launch for
 // the whole solve (no per-iteration launch, no host round trip for the
@@ -48,9 +53,10 @@
 // block instead of an extra barrier and broadcast.  That is a few KB
 // from L2 per block but O(grid^2) for the grid: the grid is not capped
 // (SMs x occupancy, up to ~1,000 blocks), so the three reductions of an
-// iteration read up to ~3 x 4 MB of L2 in all.  Whether one reducing
-// block plus a broadcast, or a grid capped at the SM count, is cheaper
-// is not measured yet.
+// iteration read up to ~3 x 4 MB of L2 in all.  One more barrier with
+// one more such reduction cost 2.3 us per iteration at 792 blocks
+// (PERF.md §6); whether one reducing block plus a broadcast, or a
+// grid capped at the SM count, is cheaper is not measured yet.
 // Vector and partial loads go through L2 (__ldcg): other blocks write
 // p and the partials, and L1 is not coherent across SMs.  Fixed-order
 // reductions and no float atomics: two runs print identical rr lines.
@@ -99,10 +105,11 @@ struct FusedArgs {
 template <bool kTail, bool kPrecond, bool kLazy>
 __device__ __forceinline__ void cg_loop(const FusedArgs& a,
                                         const DiaOffsets& offs,
-                                        const TailPlan& t, const CgOpts& o) {
+                                        const TailPlan& tp, const CgOpts& o) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float fbuf[33];
   __shared__ int ibuf[1];
+  __shared__ TailShared<kTail> tsh;
   const int R = a.R;
   const int stride = gridDim.x * blockDim.x;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -121,24 +128,38 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
       o.ps[i] = __ldcg(a.p + i);
     }
   }
+  unsigned long long own = 0;  // the outlier rows this thread owns
+  if constexpr (kTail) own = tail_stage(tp, tsh, tid, stride);
 
   while (itr < upto && rr > a.conv) {
     // lazy: only every ci-th iteration reads the signal planes
     const bool chk = !kLazy || itr % o.ci == o.ci - 1;
+    if constexpr (kTail) tail_load_po(tp, tsh, a.p);
     // 1. stencil + pw + signals
     float pw_l = 0.0f;
     int bad = 0;
     for (int i = tid; i < R; i += stride) {
       const float wr = dia_row<true>(a.vals, offs, R, a.p, i);
-      a.w[i] = wr;
-      if constexpr (!kTail)
+      if constexpr (kTail) {
+        // an outlier row waits for the dense sums; any other is final
+        const int k = own ? tail_outlier(tsh, own, i) : -1;
+        if (k >= 0) {
+          tp.tmain[k] = wr;
+        } else {
+          const float wt = tail_axpy(tp, tsh, i, wr);
+          a.w[i] = wt;
+          pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wt));
+        }
+      } else {
+        a.w[i] = wr;
         pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
+      }
       if (a.sig.plane != nullptr && chk)
         bad |= dia_row_signals(a.sig, offs.n, R, i);
     }
     if constexpr (kTail) {
-      tail_dense_partials(t, a.p, fbuf);
-      if (chk) bad |= tail_signals(t, tid, stride);
+      tail_dense_chunk(tp, tsh, a.p, fbuf);
+      if (chk) bad |= tail_signals(tp, tid, stride);
     }
     const float bpw = block_sum(pw_l, fbuf);
     const int bbad = block_any(bad, ibuf);
@@ -154,17 +175,9 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
         trig = 1;
         break;
       }
-      // the tail terms, then pw over the complete product
-      pw_l = 0.0f;
-      for (int i = tid; i < R; i += stride) {
-        const float wr = tail_row(t, a.p, i, __ldcg(a.w + i));
-        a.w[i] = wr;
-        pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
-      }
-      const float bpw2 = block_sum(pw_l, fbuf);
-      if (threadIdx.x == 0) a.part_pw[blockIdx.x] = bpw2;
-      grid.sync();
-      pw = grid_total(a.part_pw, fbuf);
+      // the outlier rows, then pw over the complete product
+      const float pw_rows = grid_total(a.part_pw, fbuf);
+      pw = __fadd_rn(pw_rows, tail_finish(tp, tsh, a.w, own));
     } else {
       pw = grid_total(a.part_pw, fbuf);
       if (grid_any(a.part_flag, ibuf)) {
@@ -239,7 +252,7 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
       if (a.sig.plane != nullptr)
         for (int i = tid; i < R; i += stride)
           bad |= dia_row_signals(a.sig, offs.n, R, i);
-      if constexpr (kTail) bad |= tail_signals(t, tid, stride);
+      if constexpr (kTail) bad |= tail_signals(tp, tid, stride);
       const int bbad = block_any(bad, ibuf);
       if (threadIdx.x == 0) a.part_flag[blockIdx.x] = bbad;
       grid.sync();
@@ -262,14 +275,15 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
 
 template <bool kTail, bool kPrecond>
 __global__ void __launch_bounds__(kBlock)
-fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs, TailPlan t, CgOpts o) {
-  cg_loop<kTail, kPrecond, false>(a, offs, t, o);
+fused_cg_dia_kernel(FusedArgs a, DiaOffsets offs, TailPlan tp, CgOpts o) {
+  cg_loop<kTail, kPrecond, false>(a, offs, tp, o);
 }
 
 template <bool kTail, bool kPrecond>
 __global__ void __launch_bounds__(kBlock, kLazyBlocksPerSM)
-fused_cg_dia_lazy_kernel(FusedArgs a, DiaOffsets offs, TailPlan t, CgOpts o) {
-  cg_loop<kTail, kPrecond, true>(a, offs, t, o);
+fused_cg_dia_lazy_kernel(FusedArgs a, DiaOffsets offs, TailPlan tp,
+                         CgOpts o) {
+  cg_loop<kTail, kPrecond, true>(a, offs, tp, o);
 }
 
 // The instance of (tail, Jacobi, lazy).
@@ -317,7 +331,8 @@ extern "C" int abft_fused_cg_dia(
     int* part_flag, int grid, const int* iscal_in, const float* fscal_in,
     int* iscal_out, float* fscal_out, float* trace, int trace_len,
     float conv, const float* td, const float* tb, const int* trows,
-    const int* tstarts, int T, int S, float* tpart, const uint32_t* tplane,
+    const int* tstarts, const unsigned long long* ttiles, int T, int S,
+    int tchunk, float* tpart, float* tmain, const uint32_t* tplane,
     const uint32_t* tbase, int E, const float* minv, float* part_rz,
     float* xs, float* rs, float* ps, int ci, int* snap_iout,
     float* snap_fout, int device, void* stream) {
@@ -328,8 +343,9 @@ extern "C" int abft_fused_cg_dia(
                 snap_iout == nullptr || snap_fout == nullptr)))
     return (int)cudaErrorInvalidValue;
   TailPlan t;
-  if (!make_tail_plan(&t, td, tb, trows, tstarts, T, S, tpart, tplane,
-                      tbase, use_parity, use_cksum, E))
+  if (!make_tail_plan(&t, td, tb, trows, tstarts, ttiles, T, S, tchunk,
+                      tpart, tmain, tplane, tbase, use_parity, use_cksum, E,
+                      p))
     return (int)cudaErrorInvalidValue;
   int max_grid = 0;
   int rc = abft_fused_grid(device, T > 0, precond, lazy, &max_grid);

@@ -19,9 +19,10 @@
 //   4. x += alpha p, r = r1, p = r1 + (rr1 / rz) p, trace[itr] = rr1;
 //      grid sync (the next product gathers p at arbitrary rows).
 // A bordered split whose main part is banded ELL runs the instances with
-// kernel B's split tail (kTail; dia_common.cuh TailPlan, fused_cg_dia.cu),
-// and the Jacobi and lazy instances are kernel B's (dia_common.cuh
-// CgOpts).
+// kernel B's split tail (kTail; dia_common.cuh TailPlan, fused_cg_dia.cu:
+// the AXPY terms beside each row's product in step 1, the outlier rows
+// finished after its sync, no grid sync of its own), and the Jacobi and
+// lazy instances are kernel B's (dia_common.cuh CgOpts).
 //
 // What bounds it on the H100: bytes per iteration — the plane streams (K
 // values + K gather words + K signal words per row in the detecting
@@ -100,10 +101,11 @@ struct FusedArgs {
 template <bool kSignals, bool kTail, bool kPrecond, bool kLazy>
 __device__ __forceinline__ void cg_loop(const FusedArgs& a,
                                         const EllPlanes& m,
-                                        const TailPlan& t, const CgOpts& o) {
+                                        const TailPlan& tp, const CgOpts& o) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float fbuf[33];
   __shared__ int ibuf[1];
+  __shared__ TailShared<kTail> tsh;
   const int R = a.R;
   const int stride = gridDim.x * blockDim.x;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -122,10 +124,13 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
       o.ps[i] = __ldcg(a.p + i);
     }
   }
+  unsigned long long own = 0;  // the outlier rows this thread owns
+  if constexpr (kTail) own = tail_stage(tp, tsh, tid, stride);
 
   while (itr < upto && rr > a.conv) {
     // lazy: only every ci-th iteration reads the signal planes
     const bool chk = !kLazy || itr % o.ci == o.ci - 1;
+    if constexpr (kTail) tail_load_po(tp, tsh, a.p);
     // 1. ELL product + pw + signals
     float pw_l = 0.0f;
     int bad = 0;
@@ -136,13 +141,24 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
                                       m.K, R, a.p, i, a.sig, &bad)
               : ell_row<true>(m.vals, m.gsrc, m.gmask, m.ell_len, m.K, R,
                               a.p, i);
-      a.w[i] = wr;
-      if constexpr (!kTail)
+      if constexpr (kTail) {
+        // an outlier row waits for the dense sums; any other is final
+        const int k = own ? tail_outlier(tsh, own, i) : -1;
+        if (k >= 0) {
+          tp.tmain[k] = wr;
+        } else {
+          const float wt = tail_axpy(tp, tsh, i, wr);
+          a.w[i] = wt;
+          pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wt));
+        }
+      } else {
+        a.w[i] = wr;
         pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
+      }
     }
     if constexpr (kTail) {
-      tail_dense_partials(t, a.p, fbuf);
-      if (chk) bad |= tail_signals(t, tid, stride);
+      tail_dense_chunk(tp, tsh, a.p, fbuf);
+      if (chk) bad |= tail_signals(tp, tid, stride);
     }
     const float bpw = block_sum(pw_l, fbuf);
     const int bbad = block_any(bad, ibuf);
@@ -158,17 +174,9 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
         trig = 1;
         break;
       }
-      // the tail terms, then pw over the complete product
-      pw_l = 0.0f;
-      for (int i = tid; i < R; i += stride) {
-        const float wr = tail_row(t, a.p, i, __ldcg(a.w + i));
-        a.w[i] = wr;
-        pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));
-      }
-      const float bpw2 = block_sum(pw_l, fbuf);
-      if (threadIdx.x == 0) a.part_pw[blockIdx.x] = bpw2;
-      grid.sync();
-      pw = grid_total(a.part_pw, fbuf);
+      // the outlier rows, then pw over the complete product
+      const float pw_rows = grid_total(a.part_pw, fbuf);
+      pw = __fadd_rn(pw_rows, tail_finish(tp, tsh, a.w, own));
     } else {
       pw = grid_total(a.part_pw, fbuf);
       if (grid_any(a.part_flag, ibuf)) {
@@ -241,7 +249,7 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
       int bad = 0;
       for (int i = tid; i < R; i += stride)
         bad |= dia_row_signals(a.sig, m.K, R, i);
-      if constexpr (kTail) bad |= tail_signals(t, tid, stride);
+      if constexpr (kTail) bad |= tail_signals(tp, tid, stride);
       const int bbad = block_any(bad, ibuf);
       if (threadIdx.x == 0) a.part_flag[blockIdx.x] = bbad;
       grid.sync();
@@ -265,14 +273,14 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
 // Each __global__ below inlines the loop with its own launch bounds.
 template <bool kSignals, bool kTail, bool kPrecond>
 __global__ void __launch_bounds__(kBlock)
-fused_cg_ell_kernel(FusedArgs a, EllPlanes m, TailPlan t, CgOpts o) {
-  cg_loop<kSignals, kTail, kPrecond, false>(a, m, t, o);
+fused_cg_ell_kernel(FusedArgs a, EllPlanes m, TailPlan tp, CgOpts o) {
+  cg_loop<kSignals, kTail, kPrecond, false>(a, m, tp, o);
 }
 
 template <bool kTail, bool kPrecond>
 __global__ void __launch_bounds__(kBlock, kLazyBlocksPerSM)
-fused_cg_ell_lazy_kernel(FusedArgs a, EllPlanes m, TailPlan t, CgOpts o) {
-  cg_loop<true, kTail, kPrecond, true>(a, m, t, o);
+fused_cg_ell_lazy_kernel(FusedArgs a, EllPlanes m, TailPlan tp, CgOpts o) {
+  cg_loop<true, kTail, kPrecond, true>(a, m, tp, o);
 }
 
 // The instance of (signals, tail, Jacobi, lazy); null for lazy without
@@ -337,7 +345,8 @@ extern "C" int abft_fused_cg_ell(
     int grid, const int* iscal_in, const float* fscal_in, int* iscal_out,
     float* fscal_out, float* trace, int trace_len, float conv,
     const float* td, const float* tb, const int* trows, const int* tstarts,
-    int T, int S, float* tpart, const uint32_t* tplane,
+    const unsigned long long* ttiles, int T, int S, int tchunk,
+    float* tpart, float* tmain, const uint32_t* tplane,
     const uint32_t* tbase, int E, const float* minv, float* part_rz,
     float* xs, float* rs, float* ps, int ci, int* snap_iout,
     float* snap_fout, int device, void* stream) {
@@ -349,8 +358,9 @@ extern "C" int abft_fused_cg_ell(
                 snap_fout == nullptr)))
     return (int)cudaErrorInvalidValue;
   TailPlan t;
-  if (!make_tail_plan(&t, td, tb, trows, tstarts, T, S, tpart, tplane,
-                      tbase, use_parity, use_cksum, E))
+  if (!make_tail_plan(&t, td, tb, trows, tstarts, ttiles, T, S, tchunk,
+                      tpart, tmain, tplane, tbase, use_parity, use_cksum, E,
+                      p))
     return (int)cudaErrorInvalidValue;
   int max_grid = 0;
   int rc = abft_fused_ell_grid(device, T > 0, precond, lazy, &max_grid);

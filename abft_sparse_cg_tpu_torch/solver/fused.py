@@ -31,6 +31,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops.spmv import ERR_BREAKDOWN, SpmvStats, make_spmv
@@ -60,11 +61,11 @@ from .cg import (
 __all__ = ["supports_fused", "make_fused_continue", "make_fused_solver",
            "fused_cg_dia", "fused_cg_dia_plain", "fused_cg_ell",
            "fused_cg_ell_plain", "TailSpec", "tail_spec", "split_tail_plain",
-           "Snapshot", "FusedOut"]
+           "tail_chunk", "tail_tiles", "Snapshot", "FusedOut"]
 
 _MAX_K = 512        # csrc/dia_common.cuh ABFT_MAX_K
 _MAX_T = 64         # csrc/dia_common.cuh ABFT_MAX_T
-_TAIL_CHUNK = 2048  # csrc/dia_common.cuh ABFT_TAIL_CHUNK
+TILE_ROWS = 128     # the rows of one window-mask tile (dia_common.cuh)
 
 
 def supports_fused(mat, dtype, precond=False, check_interval=1) -> bool:
@@ -124,6 +125,27 @@ def split_tail_plain(mdt, ts: TailSpec, p, w):
         w[o] = w[o] + wa[t]
         w[st:st + S] = w[st:st + S] + p[o] * mdt.dense_tb[t]
     return w, signals_plain(mdt, ts), torch.sum(p * w)
+
+
+def tail_chunk(S: int, T: int, grid: int) -> int:
+    """Length of the split tail's dense-row chunks (dia_common.cuh::
+    tail_dense_chunk): the T rows of span S cut into at most ``grid``
+    chunks in all, each a multiple of 128 slots, so that one round of the
+    grid's blocks sums them, at most one chunk per block."""
+    per = max(1, grid // T)          # chunks per dense row
+    chunk = -(-S // per)
+    return -(-chunk // TILE_ROWS) * TILE_ROWS
+
+
+def tail_tiles(starts, S: int, R: int) -> np.ndarray:
+    """The split tail's window table (dia_common.cuh::tail_axpy): one
+    uint64 per 128-row tile of the R rows, bit t set where the tile lies
+    inside window t, [starts[t], starts[t] + S) (starts and S are
+    multiples of 128, so a tile is wholly inside or outside each)."""
+    tiles = np.zeros(R // TILE_ROWS, np.uint64)
+    for t, st in enumerate(starts):
+        tiles[st // TILE_ROWS:(st + S) // TILE_ROWS] |= np.uint64(1 << t)
+    return tiles
 
 
 class Snapshot(NamedTuple):
@@ -225,12 +247,28 @@ def fused_cg_ell_plain(md, spec: EllSpec, x, r, p, rr, rz, itr: int,
                           upto, conv, trace, tail, minv, ci)
 
 
-def _tail_args(what, tail, R, device):
+_tail_tables = {}
+
+
+def _tail_table(ts: TailSpec, R, device):
+    """The device copies of a tail's rows, starts and window table, made
+    once per tail and device."""
+    key = (ts.rows, ts.starts, ts.S, R, str(device))
+    if key not in _tail_tables:
+        i32 = dict(dtype=torch.int32, device=device)
+        _tail_tables[key] = (
+            torch.tensor(ts.rows, **i32), torch.tensor(ts.starts, **i32),
+            torch.from_numpy(tail_tiles(ts.starts, ts.S, R).view(np.int64))
+            .to(device))
+    return _tail_tables[key]
+
+
+def _tail_args(what, tail, R, device, grid):
     """The split-tail arguments of the C interface (all null and T = 0
     without a tail), validated."""
     if tail is None:
-        return dict(ptrs=(None, None, None, None, 0, 0, None, None, None, 0),
-                    keep=())
+        return dict(ptrs=(None, None, None, None, None, 0, 0, 0, None, None,
+                          None, None, 0), keep=())
     mdt, ts = tail
     T, S = len(ts.rows), ts.S
     if (not 1 <= T <= _MAX_T or S % 128 or S > R
@@ -247,14 +285,16 @@ def _tail_args(what, tail, R, device):
                       device)
         _check_tensor(what, "tail baseline", base, torch.int32, (E // 8,),
                       device)
-    rows, rows_ptr = _offsets_arg(ts.rows)
-    starts, starts_ptr = _offsets_arg(ts.starts)
-    part = torch.empty(T * -(-S // _TAIL_CHUNK), dtype=torch.float32,
+    rows, starts, tiles = _tail_table(ts, R, device)
+    chunk = tail_chunk(S, T, grid)
+    part = torch.empty(T * -(-S // chunk), dtype=torch.float32,
                        device=device)
+    tmain = torch.empty(T, dtype=torch.float32, device=device)
     return dict(ptrs=(mdt.dense_td.data_ptr(), mdt.dense_tb.data_ptr(),
-                      rows_ptr, starts_ptr, T, S, part.data_ptr(),
+                      rows.data_ptr(), starts.data_ptr(), tiles.data_ptr(),
+                      T, S, chunk, part.data_ptr(), tmain.data_ptr(),
                       _ptr(plane), _ptr(base), E),
-                keep=(rows, starts, part))
+                keep=(part, tmain))
 
 
 def _opts_args(what, minv, ci, grid, x, r, p):
@@ -310,7 +350,7 @@ def _launch_args(what, md, spec, x, r, p, rr, rz, itr, upto, trace,
         fscal_in=torch.stack([rr.to(torch.float32), rz.to(torch.float32)]),
         iscal_out=torch.empty(3, **i32), fscal_out=torch.empty(2, **f32),
         stream=torch.cuda.current_stream(p.device).cuda_stream,
-        tail=_tail_args(what, tail, R, p.device),
+        tail=_tail_args(what, tail, R, p.device, grid),
         opts=_opts_args(what, minv, ci, grid, x, r, p))
 
 

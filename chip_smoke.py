@@ -154,13 +154,15 @@ Phases:
  30. powerlaw-graph -b 100 (HBM-bound), if its host build takes under a
      minute and the run is early enough;
  31. torch.profiler windows, each group in a fresh worker process
-     (``--profile-worker dia|ell PICKLE``, the matrix handed over in a
-     temporary pickle; one long process lost most device
+     (``--profile-worker dia|ell|split PICKLE``, the matrix handed over
+     in a temporary pickle; one long process lost most device
      events of its later windows): kernels A and C per call, their
      products, ``A @ x``, the sharded SpMV, and solves of kernels B and
-     D (live, lazy CI 4, Jacobi) and the sharded tier — device time per
-     call by kernel, device operations per call, the busy share; each
-     group also times its halo kernel on shard 1 of 4 alone.
+     D (live, lazy CI 4, Jacobi, lazy Jacobi) and the sharded tier; the
+     split group, arrowhead -b 10 solves of kernel B's split-tail
+     instances (live, lazy CI 4, Jacobi, lazy Jacobi) — device time per
+     call by kernel, device operations per call, the busy share; the dia
+     and ell groups also time their halo kernel on shard 1 of 4 alone.
 
 Any failed check raises, so the script exits non-zero.  The last three
 lines are the card line from nvidia-smi, one JSON object describing the
@@ -526,15 +528,18 @@ def trajectory(m, b, label, oracle_mat=None, oracle_dev="cpu", conv=1e-6,
 def profile_worker(group, path):
     """Phase 31's torch.profiler windows of one group, in this fresh
     process, which does nothing else first: ``dia`` (the bundled matrix
-    at -b 10) or ``ell`` (dense-radius-3d -b 10, row_align 4096), secded,
-    the matrix the main process built, read from the pickle at
-    ``path``.
-    Windows of warm calls of the kernel (A or C) as the solvers call it,
-    its detection-free product, ``A @ x``, the sharded SpMV on 4 shards of
-    the card, and warm solves: the whole-solve kernel (B or D) live, lazy
-    CI 4 and Jacobi, and the sharded solve.  Prints one JSON line, per
-    window call_profile's numbers and the three largest kernels.  (In one
-    long process the later windows lost most device events: PERF.md §6.)"""
+    at -b 10), ``ell`` (dense-radius-3d -b 10, row_align 4096) or
+    ``split`` (arrowhead -b 10), secded, the matrix the main process
+    built, read from the pickle at ``path``.
+    ``dia`` and ``ell``: windows of warm calls of the kernel (A or C) as
+    the solvers call it, its detection-free product, ``A @ x``, the
+    sharded SpMV on 4 shards of the card, and warm solves: the whole-solve
+    kernel (B or D) live, lazy CI 4, Jacobi and lazy Jacobi, and the
+    sharded solve.  ``split``: warm solves of kernel B's split-tail
+    instances, live, lazy CI 4, Jacobi and lazy Jacobi.  Prints one JSON
+    line, per window call_profile's numbers and the three largest
+    kernels.  (In one long process the later windows lost most device
+    events: PERF.md §6.)"""
     import pickle
 
     import numpy as np
@@ -557,9 +562,26 @@ def profile_worker(group, path):
     dev, f32 = torch.device("cuda", 0), torch.float32
     with open(path, "rb") as f:
         m = pickle.load(f)
-    spmv, solve = ("A", "B") if group == "dia" else ("C", "D")
     b = np.random.default_rng(11).random(m.N)
     md = make_matrix_device(m, f32, dev)
+    be = CudaBackend("secded")
+    if group == "split":
+        bd = torch.zeros(m.R, dtype=f32)
+        bd[: m.N] = torch.tensor(m.to_exec_order(b), dtype=f32)
+        minv = torch.zeros(m.R, dtype=f32)
+        minv[: m.N] = torch.tensor(m.to_exec_order(
+            jacobi_minv(m, "jacobi")), dtype=f32)
+        bd, minv = bd.to(dev), minv.to(dev)
+        solvers = {"": be._solver(m, f32, 1000, CONV),
+                   " lazy CI 4": be._solver(m, f32, 1000, CONV, False, 4),
+                   " Jacobi": be._solver(m, f32, 1000, CONV, True),
+                   " lazy Jacobi": be._solver(m, f32, 1000, CONV, True, 4)}
+        windows = {f"B split tail{k} secded solve": (
+            (lambda s=s: s(md, bd, minv)) if "Jacobi" in k
+            else (lambda s=s: s(md, bd)), 10) for k, s in solvers.items()}
+        print(json.dumps(profile_windows(windows)))
+        return
+    spmv, solve = ("A", "B") if group == "dia" else ("C", "D")
     mesh = default_mesh(4, dev)
     smd, bd, put = _device_put_sharded(m, b, mesh, f32)
     minv = put(jacobi_minv(m, "jacobi"))
@@ -573,10 +595,10 @@ def profile_worker(group, path):
               else ell_launcher(smd.shards[1], spec, dev, H, m.R // 4))
     a_csr, _ = csr_yardstick(md, spec)
     xcol = bd[:, None]
-    be = CudaBackend("secded")
     s_live = be._solver(m, f32, 1000, CONV)
     s_lazy = be._solver(m, f32, 1000, CONV, False, 4)
     s_jac = be._solver(m, f32, 1000, CONV, True)
+    s_lazy_jac = be._solver(m, f32, 1000, CONV, True, 4)
     s_sh = make_sharded_solver(m, mesh, 1000, CONV, f32)
     windows = {
         f"{spmv} secded call": (lambda: live(md, bd), 50),
@@ -587,8 +609,15 @@ def profile_worker(group, path):
         f"{solve} secded solve": (lambda: s_live(md, bd), 10),
         f"{solve} lazy CI 4 solve": (lambda: s_lazy(md, bd), 10),
         f"{solve} Jacobi solve": (lambda: s_jac(md, bd, minv), 10),
+        f"{solve} lazy Jacobi solve": (lambda: s_lazy_jac(md, bd, minv), 10),
         "sharded solve, 4 shards": (lambda: s_sh(smd, bd), 10),
     }
+    print(json.dumps(profile_windows(windows)))
+
+
+def profile_windows(windows):
+    """call_profile over each {label: (fn, reps)}, its own output kept
+    quiet; per window the numbers and the three largest kernels."""
     out = {}
     for label, (fn, reps) in windows.items():
         with contextlib.redirect_stdout(io.StringIO()):
@@ -597,7 +626,7 @@ def profile_worker(group, path):
             top = sorted(w["by_name"].items(), key=lambda kv: -kv[1])[:3]
             w["by_name"] = dict(top)
         out[label] = w
-    print(json.dumps(out))
+    return out
 
 
 def main():
@@ -2398,7 +2427,8 @@ def main():
     device_state(card)
     import pickle
 
-    for group, mm in (("dia", mats["secded"]), ("ell", ell["secded"])):
+    for group, mm in (("dia", mats["secded"]), ("ell", ell["secded"]),
+                      ("split", splits["arrowhead"][1]["secded"])):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, f"{group}.pickle")

@@ -489,6 +489,109 @@ def split_matrix(mode, main):
     return m
 
 
+# Dense rows coupled to whole column ranges, (row, lo, hi), on a 4096-row
+# tridiagonal core: windows that overlap where both spans' entries share
+# a 128-row tile, and outlier rows inside the other outlier's window.
+SPANS = {
+    "windows share a tile": ((100, 0, 1200), (3000, 1100, 2300)),
+    "outlier in another window": ((1500, 2000, 3100), (2500, 1000, 2100)),
+}
+
+
+def spans_matrix(mode, case, n=4096):
+    """A bordered split whose dense plan has the windows of SPANS[case]
+    (diagonally dominant)."""
+    rows, cols, vals, n = spd_tridiagonal(n)
+    pairs = {(int(r), int(c)) for r, c in zip(rows, cols)}
+    rows, cols, vals = list(rows), list(cols), list(vals)
+    for r, lo, hi in SPANS[case]:
+        for c in range(lo, hi):
+            key = (max(r, c), min(r, c))
+            if key not in pairs:
+                pairs.add(key)
+                rows.append(key[0])
+                cols.append(key[1])
+                vals.append(-0.01)
+    rows, cols = np.array(rows), np.array(cols)
+    vals = np.array(vals, dtype=float)
+    deg = np.bincount(rows, minlength=n) + np.bincount(cols, minlength=n)
+    diag = rows == cols
+    vals[diag] = np.abs(vals[diag]) + 0.01 * deg[rows[diag]] + 4.0
+    m = build_protected("csr", assemble(cols, rows, vals, n, 1), mode)
+    assert m.exec_kind == "split" and m.main.exec_kind == "dia"
+    assert m.tail.dense_plan is not None
+    return m
+
+
+@pytest.mark.parametrize("case", sorted(SPANS))
+@pytest.mark.parametrize("mode,flips,seed", [
+    ("secded", 0, 0), ("secded", 1, 6), ("sed", 1, 6)])
+def test_split_tail_windows(dev, case, mode, flips, seed):
+    """Kernel B's split tail where two windows overlap and where an
+    outlier row lies inside the other's window: the plain loop's
+    iterations and events, its trace to 1e-3 above float32's noise floor,
+    a second run bit-identical."""
+    m = spans_matrix(mode, case)
+    rows, starts, S = m.tail.dense_plan
+    assert len(rows) == 2 and max(starts) < min(starts) + S  # overlap
+    if case == "outlier in another window":
+        assert all(st <= o < st + S for o in rows for st in starts)
+    if flips:
+        m = faulted(m, flips, seed)
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    solve = make_fused_solver(m, mode, 300, 1e-8)
+    before = fused_cg_dia.tail_launches
+    rk = solve(make_matrix_device(m, torch.float32, dev), b.to(dev))
+    assert fused_cg_dia.tail_launches > before
+    rp = solve(make_matrix_device(m, torch.float32, CPU), b)
+    assert rk.iterations == rp.iterations
+    assert tuple(rk.stats) == tuple(rp.stats)
+    it = rk.iterations
+    t0 = rp.rr_trace[:it].numpy()
+    above = t0 > (t0[0] * 1e-5 if it else 0)
+    np.testing.assert_allclose(rk.rr_trace[:it].cpu().numpy()[above],
+                               t0[above], rtol=1e-3)
+    rk2 = solve(make_matrix_device(m, torch.float32, dev), b.to(dev))
+    assert torch.equal(rk2.x, rk.x)
+
+
+@pytest.mark.parametrize("shape", ["dia", "ell", "windows share a tile",
+                                   "outlier in another window"])
+def test_split_tail_replays_bit_for_bit(dev, shape):
+    """One iteration of kernel B or D with the split tail on the card's
+    grid, against tests/test_torch_tail_plan.py's NumPy replay of the
+    schedule: w (through r = b - alpha w), pw (through alpha) and x equal
+    bit for bit."""
+    from test_torch_tail_plan import main_product, replay
+
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import fast_spec
+    from abft_sparse_cg_tpu_torch.solver.cg import init_state
+    from abft_sparse_cg_tpu_torch.solver.fused import fused_grid, tail_spec
+
+    m = (split_matrix("secded", shape) if shape in ("dia", "ell")
+         else spans_matrix("secded", shape))
+    spec = fast_spec(m.main, "secded")
+    kernel = fused_cg_dia if m.main.exec_kind == "dia" else fused_cg_ell
+    md = make_matrix_device(m, torch.float32, dev)
+    b = np.zeros(m.R, np.float32)
+    b[: m.N] = np.random.default_rng(7).random(m.N)
+    s = init_state(torch.from_numpy(b).to(dev), 4)
+    x, r, p = s.x.clone(), s.r.clone(), s.p.clone()
+    out = kernel(md[0], spec, x, r, p, s.rr, s.rz, 0, 1, 0.0,
+                 torch.full_like(s.trace, float("nan")),
+                 (md[1], tail_spec(m, "secded")))
+    assert (out.itr, out.trig, out.err) == (1, 0, 0)
+    rows, starts, S = m.tail.dense_plan
+    mdc = make_matrix_device(m, torch.float32, CPU)
+    got = replay(main_product(m, mdc, b), b, rows, starts, S,
+                 mdc[1].dense_td.numpy(), mdc[1].dense_tb.numpy(),
+                 fused_grid(0, m.main.exec_kind, True))
+    alpha = np.float32(np.float32(s.rz.item()) / got["pw"])
+    np.testing.assert_array_equal(x.cpu().numpy(), alpha * b)
+    np.testing.assert_array_equal(r.cpu().numpy(), b - alpha * got["w"])
+
+
 @pytest.mark.parametrize("main", ["dia", "ell"])
 @pytest.mark.parametrize("mode,flips,seed", [
     ("none", 0, 0), ("constraints", 0, 0), ("secded", 0, 0),
