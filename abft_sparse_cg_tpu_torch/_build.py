@@ -57,9 +57,11 @@ _SIGNATURES = {
     },
     "fused_cg_dia": {
         "abft_fused_grid": [_I, _I, _I, _I, _P],
+        # ... the tail-free schedule (fold or not), the fold's second r
+        # and p buffers, the tail-free rows per block
         "abft_fused_cg_dia": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                               _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                              _F, *_TAIL, *_OPTS, _I, _P],
+                              _F, *_TAIL, *_OPTS, _I, _P, _P, _I, _I, _P],
     },
     "ell_spmv_detect": {
         "abft_ell_spmv_detect": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _P,

@@ -3,8 +3,9 @@
 // flat_spmv_detect.cu): the DIA stencil and banded-ELL row products (and
 // the banded-ELL gather rule of one shard of a row-sharded solve), the
 // live ABFT signals, fixed-order block and grid reductions, the one-launch
-// epilogue of kernels A, C and E, and the split tail of the fused
-// kernels.
+// epilogue of kernels A, C and E, the split tail of the fused kernels,
+// and kernel B's grid barrier that reduces (grid_reduce) with its
+// 16-byte row helpers.
 //
 // Arithmetic order.  The row products sum the diagonals (d = 0..D-1) or
 // the slots (k = 0..ell_len[r]-1) in order with explicitly rounded
@@ -646,8 +647,10 @@ struct CgOpts {
 };
 
 // Fixed-order sum of a whole grid's per-block partials, computed by
-// every block (fused kernels, after a grid sync; __ldcg: other blocks
-// wrote them).
+// every block after a grid sync (__ldcg: other blocks wrote them): the
+// split-tail instances of kernel B and kernel D.  Every block reads all
+// the partials, so a grid of G blocks reads G^2 of them per reduction;
+// kernel B's tail-free instances reduce with grid_reduce below instead.
 __device__ __forceinline__ float grid_total(const float* part, float* buf) {
   float v = 0.0f;
   for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
@@ -660,4 +663,187 @@ __device__ __forceinline__ int grid_any(const int* part, int* buf) {
   for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
     v |= __ldcg(part + i);
   return block_any(v, buf);
+}
+
+// ---- Kernel B's tail-free instances: the grid barrier that reduces -------
+//
+// One barrier and one fixed-order reduction in a single step.  Each block
+// sums its threads' values (warp butterflies, then the warps in order,
+// as block_sum does) and thread 0 stores the block's partials and counts
+// the block in with one acquire-release atomic.  The block that came
+// last (the count tells it) resets the count, sums the partials in
+// grid_total's order (thread i adds partials i, i + blockDim, ... in
+// turn, then the block sum) and publishes the totals with the next
+// generation in one 16-byte store, which releases the others: each
+// waits for that generation and reads the totals in the same 16-byte
+// load.  So a reduction reads each partial once, not once per block, the
+// totals do not depend on which block came last, and the critical path
+// is the arrival's atomic, one read of the partials and the publication.
+// Each block reads the generation once per launch (grid_generation:
+// no barrier can complete before every block has started) and counts
+// its barriers itself.  The count is back at 0 after every barrier, so
+// one GridSync (a __device__ variable of the kernel's library, zero when
+// it loads) serves every launch, one at a time: the port issues them all
+// on one stream.  The launch is cooperative, so every block is resident
+// and the wait cannot deadlock.
+struct GridSync {
+  unsigned int count;  // blocks arrived at the current barrier
+  unsigned int pad[3];
+  uint4 pub;           // the last barrier's a, b (float bits), OR, generation
+};
+
+struct Sums {
+  float a, b;
+  int any;
+};
+
+__device__ __forceinline__ uint4 load_volatile4(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.volatile.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_volatile4(uint4* p, uint4 v) {
+  asm volatile("st.volatile.global.v4.u32 [%0], {%1, %2, %3, %4};"
+               :
+               : "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned int atom_add_acq_rel(unsigned int* p,
+                                                        unsigned int v) {
+  unsigned int old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+// The generation at launch, for thread 0 of each block to count from.
+__device__ __forceinline__ unsigned int grid_generation(const GridSync* g) {
+  return threadIdx.x == 0 ? load_volatile4(&g->pub).w : 0u;
+}
+
+// kA, kB, kAny: which of (a, b, any) carry data (none: a bare barrier).
+// Every thread of every block calls it with its own values and gets the
+// grid's totals; ``gen``: thread 0's count of the generation, from
+// grid_generation; ``pa``, ``pb``, ``pf`` hold gridDim.x partials;
+// ``fbuf`` holds at least 72 floats and ``ibuf`` 44 ints of shared
+// memory.
+template <bool kA, bool kB, bool kAny>
+__device__ __forceinline__ Sums grid_reduce(Sums s, float* pa, float* pb,
+                                            int* pf, GridSync* g,
+                                            unsigned int& gen, float* fbuf,
+                                            int* ibuf) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (int)(blockDim.x >> 5);
+  // the block's values, in thread 0
+  auto block = [&](Sums v) {
+    for (int o = 16; o > 0; o >>= 1) {
+      if (kA) v.a += __shfl_xor_sync(ABFT_FULL_MASK, v.a, o);
+      if (kB) v.b += __shfl_xor_sync(ABFT_FULL_MASK, v.b, o);
+    }
+    if (kAny) v.any = __any_sync(ABFT_FULL_MASK, v.any);
+    if (lane == 0) {
+      fbuf[warp] = v.a;
+      fbuf[33 + warp] = v.b;
+      ibuf[4 + warp] = v.any;
+    }
+    __syncthreads();
+    Sums t{0.0f, 0.0f, 0};
+    if (threadIdx.x == 0)
+      for (int i = 0; i < nw; ++i) {
+        t.a += fbuf[i];
+        t.b += fbuf[33 + i];
+        t.any |= ibuf[4 + i];
+      }
+    return t;
+  };
+  const Sums part = block(s);
+  if (threadIdx.x == 0) {
+    if (kA) pa[blockIdx.x] = part.a;
+    if (kB) pb[blockIdx.x] = part.b;
+    if (kAny) pf[blockIdx.x] = part.any;
+    const bool last = atom_add_acq_rel(&g->count, 1u) == gridDim.x - 1;
+    if (last) g->count = 0;  // ordered before the publication below
+    ibuf[0] = last;
+    gen += 1u;
+  }
+  __syncthreads();
+  if (ibuf[0]) {
+    Sums v{0.0f, 0.0f, 0};
+    for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x) {
+      if (kA) v.a += __ldcg(pa + i);
+      if (kB) v.b += __ldcg(pb + i);
+      if (kAny) v.any |= __ldcg(pf + i);
+    }
+    __syncthreads();  // fbuf held the block's own sums
+    const Sums t = block(v);
+    if (threadIdx.x == 0) {
+      __threadfence();
+      store_volatile4(&g->pub, make_uint4(__float_as_uint(t.a),
+                                          __float_as_uint(t.b),
+                                          (unsigned int)t.any, gen));
+      fbuf[66] = t.a;
+      fbuf[67] = t.b;
+      ibuf[2] = t.any;
+    }
+  } else if (threadIdx.x == 0) {
+    uint4 v;
+    do {
+      v = load_volatile4(&g->pub);
+    } while (v.w != gen);
+    __threadfence();  // what the other blocks stored before the barrier
+    fbuf[66] = __uint_as_float(v.x);
+    fbuf[67] = __uint_as_float(v.y);
+    ibuf[2] = (int)v.z;
+  }
+  __syncthreads();
+  const Sums t{fbuf[66], fbuf[67], ibuf[2]};
+  __syncthreads();  // the buffers may be reused right after
+  return t;
+}
+
+// s[i .. i + 3] of a 16-byte aligned shared array, for any i >= 0, from
+// one or two aligned 16-byte reads: a warp's lanes read i = 4 * lane + c,
+// which as four scalar reads would hit each bank four times.  The array
+// must hold 4 floats past s[i + 3].
+__device__ __forceinline__ float4 tile_window(const float* s, int i) {
+  const float4* s4 = reinterpret_cast<const float4*>(s);
+  const float4 a = s4[i >> 2];
+  switch (i & 3) {
+    case 0:
+      return a;
+    case 1: {
+      const float4 b = s4[(i >> 2) + 1];
+      return make_float4(a.y, a.z, a.w, b.x);
+    }
+    case 2: {
+      const float4 b = s4[(i >> 2) + 1];
+      return make_float4(a.z, a.w, b.x, b.y);
+    }
+    default: {
+      const float4 b = s4[(i >> 2) + 1];
+      return make_float4(a.w, b.x, b.y, b.z);
+    }
+  }
+}
+
+// 16-byte loads and stores of four consecutive rows (the row is a
+// multiple of 4 and the vector 16-byte aligned); ld4cg reads through L2,
+// for vectors that other blocks of the launch write.
+__device__ __forceinline__ float4 ld4cg(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
 }

@@ -40,10 +40,10 @@
 // and a kernel without the signal code for mode none.  The gather of p goes
 // through L2 (__ldcg): other blocks rewrite p every iteration and L1 is
 // not coherent across SMs, so the read-only path (__ldg) would read
-// stale values.  The reductions are kernel B's
-// (redundant per-block sums of the grid's partials, no float atomics:
-// two runs print identical rr lines), and so is the uncapped grid
-// (PERF.md Open question 3).  Kept as its own file rather than a
+// stale values.  The reductions are those of kernel B's split-tail
+// instances (redundant per-block sums of the grid's partials, no float
+// atomics: two runs print identical rr lines), and so is the uncapped
+// grid (PERF.md Open question 3).  Kept as its own file rather than a
 // template shared with kernel B so that kernel B's measured code stays
 // as it was.
 //

@@ -61,11 +61,20 @@ from .cg import (
 __all__ = ["supports_fused", "make_fused_continue", "make_fused_solver",
            "fused_cg_dia", "fused_cg_dia_plain", "fused_cg_ell",
            "fused_cg_ell_plain", "TailSpec", "tail_spec", "split_tail_plain",
-           "tail_chunk", "tail_tiles", "Snapshot", "FusedOut"]
+           "tail_chunk", "tail_tiles", "Snapshot", "FusedOut", "SCHEDULES",
+           "FOLD_MAX_HALO", "dia_schedule", "dia_block_rows"]
 
 _MAX_K = 512        # csrc/dia_common.cuh ABFT_MAX_K
 _MAX_T = 64         # csrc/dia_common.cuh ABFT_MAX_T
 TILE_ROWS = 128     # the rows of one window-mask tile (dia_common.cuh)
+# Kernel B's tail-free schedules (csrc/fused_cg_dia.cu): "fold" runs the
+# update of each iteration in the next one's product pass (two grid
+# barriers per iteration, halo rows of p recomputed), "three-sync" a pass
+# of its own (three).  The fold stages max|offset| halo rows on either
+# side of a tile in shared memory, at most FOLD_MAX_HALO (kFoldHalo); it
+# was the faster schedule at every halo up to that cap (PERF.md §6).
+SCHEDULES = ("fold", "three-sync")
+FOLD_MAX_HALO = 512
 
 
 def supports_fused(mat, dtype, precond=False, check_interval=1) -> bool:
@@ -90,6 +99,21 @@ def supports_fused(mat, dtype, precond=False, check_interval=1) -> bool:
     if mat.exec_kind == "dia":
         return len(mat.dia_offsets) > 0
     return mat.exec_kind == "ell" and mat.K <= _MAX_K
+
+
+def dia_schedule(offsets) -> str:
+    """Kernel B's tail-free schedule for a DIA matrix of these diagonal
+    offsets, resolved once per matrix."""
+    return ("fold" if max(abs(int(o)) for o in offsets) <= FOLD_MAX_HALO
+            else "three-sync")
+
+
+def dia_block_rows(R: int, grid: int) -> int:
+    """Rows per block of kernel B's tail-free instances: block b owns
+    rows [b nb, (b + 1) nb), nb = ceil(R / grid) rounded up to a multiple
+    of 8 (so that an 8-row checksum block never straddles two blocks)."""
+    nb = -(-R // grid)
+    return -(-nb // 8) * 8
 
 
 class TailSpec(NamedTuple):
@@ -382,23 +406,38 @@ def _count(kernel, tail, minv, ci):
 
 
 def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
-                 conv: float, trace, tail=None, minv=None,
-                 ci: int = 1) -> FusedOut:
+                 conv: float, trace, tail=None, minv=None, ci: int = 1,
+                 schedule=None) -> FusedOut:
     """Kernel B: run CG iterations ``itr .. upto`` in place on x, r, p.
 
     ``rr``/``rz`` are 0-d tensors, ``trace`` a float tensor whose slots
     [itr, itr_out) get the new residuals; ``tail`` = (tail MatrixDevice,
     TailSpec) runs the split-tail instance, ``minv`` (the (R,) Jacobi
     M^-1) the Jacobi one, ``ci`` > 1 the lazy one (in the modes with
-    signals), which returns its Snapshot."""
+    signals), which returns its Snapshot.  ``schedule`` forces a
+    tail-free schedule of SCHEDULES (default: ``dia_schedule``)."""
+    if schedule is not None and schedule not in SCHEDULES:
+        raise ValueError(f"fused_cg_dia: schedule {schedule!r} is not one "
+                         f"of {SCHEDULES}")
     if x.device.type == "cpu":
         return fused_cg_dia_plain(md, spec, x, r, p, rr, rz, itr, upto,
                                   conv, trace, tail, minv, ci)
     from .._build import check, library
 
+    if tail is not None and schedule is not None:
+        raise ValueError("fused_cg_dia: the split-tail instances have one "
+                         "schedule")
     ci = _lazy_ci(spec, ci)
     a = _launch_args("fused_cg_dia", md, spec, x, r, p, rr, rz, itr, upto,
                      trace, tail, minv, ci)
+    sched, buf2 = None, (None, None)
+    if tail is None:
+        sched = schedule or dia_schedule(spec.offsets)
+        if sched == "fold":
+            if max(abs(int(o)) for o in spec.offsets) > FOLD_MAX_HALO:
+                raise ValueError(f"fused_cg_dia: the fold schedule takes "
+                                 f"offsets up to {FOLD_MAX_HALO}")
+            buf2 = (torch.empty_like(r), torch.empty_like(p))
     offs, offs_ptr = _offsets_arg(spec.offsets)
     rc = library("fused_cg_dia").abft_fused_cg_dia(
         md.values.data_ptr(), offs_ptr, a["D"], a["R"], x.data_ptr(),
@@ -408,17 +447,21 @@ def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
         a["part_flag"].data_ptr(), a["grid"], a["iscal_in"].data_ptr(),
         a["fscal_in"].data_ptr(), a["iscal_out"].data_ptr(),
         a["fscal_out"].data_ptr(), trace.data_ptr(), trace.shape[0],
-        float(conv), *a["tail"]["ptrs"], *a["opts"]["ptrs"], a["dev"],
-        a["stream"])
+        float(conv), *a["tail"]["ptrs"], *a["opts"]["ptrs"],
+        int(sched == "fold"), _ptr(buf2[0]), _ptr(buf2[1]),
+        dia_block_rows(a["R"], a["grid"]), a["dev"], a["stream"])
     del offs
     check(rc, "fused_cg_dia cooperative launch")
     _count(fused_cg_dia, tail, minv, ci)
+    if sched is not None:
+        fused_cg_dia.schedules[sched] += 1
     return _launch_result(a)
 
 
 fused_cg_dia.launches = 0
 fused_cg_dia.tail_launches = 0   # the split-tail instances' share
 fused_cg_dia.instances = {}      # launches by instance (``_instance``)
+fused_cg_dia.schedules = dict.fromkeys(SCHEDULES, 0)   # tail-free launches
 
 
 def fused_cg_ell(md, spec: EllSpec, x, r, p, rr, rz, itr: int, upto: int,
@@ -480,7 +523,7 @@ def fused_grid(device_index: int, layout: str, tail: bool = False,
 
 
 def make_fused_continue(mat, mode, conv_threshold, precond=False,
-                        check_interval=1):
+                        check_interval=1, schedule=None):
     """``continue_(md, state, upto, minv=None) -> (CGState,
     MatrixDevice)`` with solver.cg's contract, the fast loop in kernel B
     or D (fused.py:1946).  A split's ``md`` is the (main, tail) pair.
@@ -488,13 +531,15 @@ def make_fused_continue(mat, mode, conv_threshold, precond=False,
     ``check_interval`` > 1 runs the lazy instance in the modes with
     signals, resolved by solver.cg's ``_lazy_exit_resolve`` with the
     phantom guard (fused.py:2150-2164; the kernel closes the exit window
-    itself, so the resolve's verify is a no-op)."""
+    itself, so the resolve's verify is a no-op).  ``schedule`` forces
+    kernel B's tail-free schedule (``fused_cg_dia``)."""
     split = mat.exec_kind == "split"
     spec = fast_spec(mat.main if split else mat, mode)
     tspec = tail_spec(mat, mode) if split else None
     kernel = fused_cg_dia if isinstance(spec, DiaSpec) else fused_cg_ell
     classify = make_spmv(mat, torch.float32, mode).classify
     ci = _lazy_ci(spec, check_interval)
+    kw = {} if schedule is None else {"schedule": schedule}
 
     def run_fast(md, s: CGState, upto: int, minv):
         ktrace = torch.full_like(s.trace, float("nan"))
@@ -502,7 +547,7 @@ def make_fused_continue(mat, mode, conv_threshold, precond=False,
         if split:
             md, tail = md[0], (md[1], tspec)
         out = kernel(md, spec, s.x, s.r, s.p, s.rr, s.rz, s.itr, upto,
-                     conv_threshold, ktrace, tail, minv, ci)
+                     conv_threshold, ktrace, tail, minv, ci, **kw)
         # Merge the kernel's trace: it wrote slots [s.itr, itr) only.
         tio = torch.arange(s.trace.shape[0], device=s.trace.device)
         trace = torch.where((tio >= s.itr) & (tio < out.itr), ktrace,
@@ -559,8 +604,9 @@ def make_fused_continue(mat, mode, conv_threshold, precond=False,
 
 
 def make_fused_solver(mat, mode, max_itrs: int, conv_threshold: float,
-                      precond=False, check_interval=1):
+                      precond=False, check_interval=1, schedule=None):
     """``solve(md, b, minv=None) -> CGResult`` on kernel B or D;
-    ``minv`` must match ``precond``."""
+    ``minv`` must match ``precond``; ``schedule`` as in
+    ``make_fused_continue``."""
     return _solver(make_fused_continue(mat, mode, conv_threshold, precond,
-                                       check_interval), max_itrs)
+                                       check_interval, schedule), max_itrs)

@@ -40,7 +40,9 @@ Phases:
      occupancy (at least 2 resident blocks per SM, both forms);
   3. kernel A vs its plain version, every mode, clean and with injected
      1- and 2-bit faults: w bit-exact, pw within 1e-5;
-  4. kernel B vs its plain loop: a clean and a faulted secded solve;
+  4. kernel B vs its plain loop: a clean and a faulted secded solve on
+     each tail-free schedule (fold, three-sync; solver/fused.py::
+     SCHEDULES), the two schedules' x equal bit for bit;
   5. the DIA main path: the four run_tests classes on -t cuda at -b 10
      --seed 11, through abft_sparse_cg_tpu_torch.cli.main_csr (what
      bin/cg-csr-torch runs), every launch count reset before and read
@@ -105,7 +107,8 @@ Phases:
      plain, ``A @ x`` and its bound, the split tail against its plain
      loop;
  22. the lazy (CI 4) and Jacobi instances of kernels B and D (and of the
-     split tail) against their plain loops, secded, on DIA -b 10,
+     split tail; kernel B's tail-free ones on each schedule) against
+     their plain loops, secded, on DIA -b 10,
      dense-radius-3d -b 10 and arrowhead -b 10: clean (a lazy x equal
      to the live instance's bit for bit, the trace within 1e-3 above
      float32's noise floor), one fault corrected (through a rollback
@@ -116,7 +119,8 @@ Phases:
      path unchanged), where the plain loop's Jacobi path must leave its
      unpreconditioned one by far more than the check's tolerance;
  23. kernel B at DIA -b 100, what the TPU routes to its streaming
-     kernel: live, lazy CI 32 and Jacobi against the plain loop;
+     kernel: live, lazy CI 32 and Jacobi against the plain loop, on each
+     tail-free schedule;
  24. the detection-free products of kernels A, C and E (no signal
      plane, the mode's gather masking kept) against their plain
      versions on the phase 3, 10 and 16 shapes (C's edges included),
@@ -154,15 +158,16 @@ Phases:
  30. powerlaw-graph -b 100 (HBM-bound), if its host build takes under a
      minute and the run is early enough;
  31. torch.profiler windows, each group in a fresh worker process
-     (``--profile-worker dia|ell|split PICKLE``, the matrix handed over
+     (``--profile-worker dia|ell|split|dia100 PICKLE``, the matrix handed over
      in a temporary pickle; one long process lost most device
      events of its later windows): kernels A and C per call, their
      products, ``A @ x``, the sharded SpMV, and solves of kernels B and
      D (live, lazy CI 4, Jacobi, lazy Jacobi) and the sharded tier; the
      split group, arrowhead -b 10 solves of kernel B's split-tail
-     instances (live, lazy CI 4, Jacobi, lazy Jacobi) — device time per
-     call by kernel, device operations per call, the busy share; the dia
-     and ell groups also time their halo kernel on shard 1 of 4 alone.
+     instances (live, lazy CI 4, Jacobi, lazy Jacobi); the dia100 group,
+     kernel B's -b 100 secded solves, live and lazy CI 32 — device time
+     per call by kernel, device operations per call, the busy share; the
+     dia and ell groups also time their halo kernel on shard 1 of 4 alone.
 
 Any failed check raises, so the script exits non-zero.  The last three
 lines are the card line from nvidia-smi, one JSON object describing the
@@ -530,10 +535,12 @@ def profile_worker(group, path):
     process, which does nothing else first: ``dia`` (the bundled matrix
     at -b 10), ``ell`` (dense-radius-3d -b 10, row_align 4096) or
     ``split`` (arrowhead -b 10), secded, the matrix the main process
-    built, read from the pickle at ``path``.
+    built, read from the pickle at ``path``; or ``dia100``, the bundled
+    matrix at -b 100, which this worker builds itself.
     ``dia`` and ``ell``: windows of warm calls of the kernel (A or C) as
     the solvers call it, its detection-free product, ``A @ x``, the
-    sharded SpMV on 4 shards of the card, and warm solves: the whole-solve
+    sharded SpMV on 4 shards of the card, the halo kernel and ``A @
+    x_ext`` on shard 1, and warm solves: the whole-solve
     kernel (B or D) live, lazy CI 4, Jacobi and lazy Jacobi, and the
     sharded solve.  ``split``: warm solves of kernel B's split-tail
     instances, live, lazy CI 4, Jacobi and lazy Jacobi.  Prints one JSON
@@ -560,11 +567,27 @@ def profile_worker(group, path):
 
     _build.build()
     dev, f32 = torch.device("cuda", 0), torch.float32
-    with open(path, "rb") as f:
-        m = pickle.load(f)
+    if group == "dia100":
+        from abft_sparse_cg_tpu_torch.formats import (build_protected,
+                                                      load_matrix)
+
+        m = build_protected("csr", load_matrix(MATRIX, 100), "secded")
+    else:
+        with open(path, "rb") as f:
+            m = pickle.load(f)
     b = np.random.default_rng(11).random(m.N)
     md = make_matrix_device(m, f32, dev)
     be = CudaBackend("secded")
+    if group == "dia100":
+        bd = torch.zeros(m.R, dtype=f32)
+        bd[: m.N] = torch.tensor(m.to_exec_order(b), dtype=f32)
+        bd = bd.to(dev)
+        s_live = be._solver(m, f32, 1000, CONV)
+        s_lazy = be._solver(m, f32, 1000, CONV, False, 32)
+        print(json.dumps(profile_windows({
+            "B secded solve -b 100": (lambda: s_live(md, bd), 10),
+            "B lazy CI 32 solve -b 100": (lambda: s_lazy(md, bd), 10)})))
+        return
     if group == "split":
         bd = torch.zeros(m.R, dtype=f32)
         bd[: m.N] = torch.tensor(m.to_exec_order(b), dtype=f32)
@@ -595,6 +618,8 @@ def profile_worker(group, path):
               else ell_launcher(smd.shards[1], spec, dev, H, m.R // 4))
     a_csr, _ = csr_yardstick(md, spec)
     xcol = bd[:, None]
+    s_csr = shard_yardstick(smd.shards[1], spec, H, m.R // 4)
+    ecol = ext1[:, None]
     s_live = be._solver(m, f32, 1000, CONV)
     s_lazy = be._solver(m, f32, 1000, CONV, False, 4)
     s_jac = be._solver(m, f32, 1000, CONV, True)
@@ -606,6 +631,7 @@ def profile_worker(group, path):
         "A @ x": (lambda: a_csr @ xcol, 50),
         "sharded SpMV, 4 shards": (lambda: sharded(smd, bd), 50),
         f"{spmv} halo, shard 1 of 4": (lambda: shard1(ext1), 50),
+        "A @ x_ext, shard 1 of 4": (lambda: s_csr @ ecol, 50),
         f"{solve} secded solve": (lambda: s_live(md, bd), 10),
         f"{solve} lazy CI 4 solve": (lambda: s_lazy(md, bd), 10),
         f"{solve} Jacobi solve": (lambda: s_jac(md, bd, minv), 10),
@@ -651,8 +677,9 @@ def main():
     from abft_sparse_cg_tpu_torch.solver.cg import init_state, make_cg_solver
     from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
     from abft_sparse_cg_tpu_torch.solver.fused import (
-        fused_cg_dia, fused_cg_dia_plain, fused_cg_ell, fused_cg_ell_plain,
-        fused_grid, make_fused_solver, tail_spec)
+        SCHEDULES, dia_schedule, fused_cg_dia, fused_cg_dia_plain,
+        fused_cg_ell, fused_cg_ell_plain, fused_grid, make_fused_solver,
+        tail_spec)
     from abft_sparse_cg_tpu_torch.utils.ell_edges import (
         ROW_CUT, cut_rows, ell_edge_cases)
 
@@ -678,6 +705,8 @@ def main():
         fused_cg_dia.tail_launches = fused_cg_ell.tail_launches = 0
         fused_cg_dia.instances.clear()
         fused_cg_ell.instances.clear()
+        for k in fused_cg_dia.schedules:
+            fused_cg_dia.schedules[k] = 0
 
     # ---- 1. device and card ---------------------------------------------
     phase("1. device")
@@ -795,21 +824,28 @@ def main():
     md = make_matrix_device(m, f32, dev)
 
     def run_loop(fn, md_, spec_, bvec, upto=1000, tail=None, minv=None,
-                 ci=1):
+                 ci=1, schedule=None):
+        """One launch of ``fn`` from init_state; ``schedule`` forces kernel
+        B's tail-free schedule (the plain loops have none)."""
         s = init_state(bvec, upto, minv)
         x_, r_, p_ = s.x.clone(), s.r.clone(), s.p.clone()
         tr = torch.full_like(s.trace, float("nan"))
+        kw = {} if schedule is None or fn is not fused_cg_dia else {
+            "schedule": schedule}
         out = fn(md_, spec_, x_, r_, p_, s.rr, s.rz, 0, upto, CONV, tr, tail,
-                 minv, ci)
+                 minv, ci, **kw)
         torch.cuda.synchronize()
         return out, x_, tr
 
-    def check_loops(kernel, plain, md_, spec_, bvec, label, tail=None):
+    def check_loops(kernel, plain, md_, spec_, bvec, label, tail=None,
+                    schedule=None):
         """Kernel against plain loop: iterations equal, the trace to 1e-5
         (a split tail's to 1e-3 above float32's noise floor, rr0 * 1e-5:
-        its dot products are summed in another order), x beside."""
+        its dot products are summed in another order), x beside.  Returns
+        (iterations, max |x err|, the kernel's x)."""
         (ik, _, _, tk, ek, _), xk, trk = run_loop(kernel, md_, spec_, bvec,
-                                                  tail=tail)
+                                                  tail=tail,
+                                                  schedule=schedule)
         (ip, _, _, tp, ep, _), xp, trp = run_loop(plain, md_, spec_, bvec,
                                                   tail=tail)
         require(ik == ip and tk == tp == 0 and ek == ep == 0,
@@ -824,10 +860,10 @@ def main():
         print(f"{label}: kernel {ik} iterations, plain {ip}; trace max rel "
               f"dev {dev_tr:.2e}; x max|err| {err:.3e}; trig/err {tk}/{ek}")
         require(dev_tr <= tol, f"{label} trace dev {dev_tr:.2e} > {tol}")
-        return ik, err
+        return ik, err, xk
 
-    def check_faulted(m1, mode, label):
-        solve = make_fused_solver(m1, mode, 1000, CONV)
+    def check_faulted(m1, mode, label, schedule=None):
+        solve = make_fused_solver(m1, mode, 1000, CONV, schedule=schedule)
         bb = torch.zeros(m1.R, dtype=f32)
         bb[: m1.N] = torch.tensor(m1.to_exec_order(
             np.random.default_rng(11).random(m1.N)), dtype=f32)
@@ -849,11 +885,22 @@ def main():
                 f"{label}: one correction, no error")
         require(dev_tr <= tol, f"{label} trace dev {dev_tr:.2e}")
 
-    ik, b_err = check_loops(fused_cg_dia, fused_cg_dia_plain, md, spec, bd,
-                            "clean")
-    check_faulted(inject_bitflips(m, "ANY", 1, np.random.default_rng(12),
-                                  echo=lambda s: None), "secded",
-                  "1-bit flip")
+    # Kernel B's tail-free instances have two schedules (the update folded
+    # into the next product pass, or a pass of its own): both against the
+    # plain loop, and against each other bit for bit (one partition, one
+    # reduction order).
+    print(f"the matrix's schedule: {dia_schedule(spec.offsets)}")
+    b_err, xs_sched = 0.0, {}
+    for sched in SCHEDULES:
+        ik, err_s, xs_sched[sched] = check_loops(
+            fused_cg_dia, fused_cg_dia_plain, md, spec, bd,
+            f"clean [{sched}]", schedule=sched)
+        b_err = max(b_err, err_s)
+        check_faulted(inject_bitflips(m, "ANY", 1, np.random.default_rng(12),
+                                      echo=lambda s: None), "secded",
+                      f"1-bit flip [{sched}]", sched)
+    require(torch.equal(*xs_sched.values()),
+            "kernel B: the two schedules' x differ")
 
     # ---- 5. DIA main path: the four run_tests classes ----------------------
     phase("5. DIA main path: run_tests classes, cg-csr -t cuda -b 10 "
@@ -862,6 +909,7 @@ def main():
     run_tests_classes(main_csr, ["-b", "10", "--seed", "11", "-t", "cuda"])
     launches = {"dia_spmv_detect": dia_fast.launches,
                 "fused_cg_dia": fused_cg_dia.launches}
+    b_schedules = dict(fused_cg_dia.schedules)
 
     # ---- 6. trajectory ----------------------------------------------------
     phase("6. float32 cuda trajectory vs float64 plain oracle, -b 10")
@@ -872,6 +920,10 @@ def main():
     for name, n in launches.items():
         print(f"{name}: {n} launches")
         require(n > 0, f"{name} was not launched on the main path")
+    print(f"fused_cg_dia launches by schedule: {b_schedules}")
+    require(b_schedules[dia_schedule(m.dia_offsets)] == launches[
+        "fused_cg_dia"], "kernel B's main-path launches did not all run "
+        "the matrix's schedule")
 
     # ---- 8. times ---------------------------------------------------------
     phase(f"8. DIA times on {card} (warm, build excluded)")
@@ -1021,7 +1073,8 @@ def main():
          "max_abs_err": max(a_errs), "ms": med_a["kernel"],
          "plain_ms": med_a["plain"], "bound_ms": bound_a[0],
          "bound_by": bound_a[1], "library_ms": med_a["A @ x"]},
-        {"name": "fused_cg_dia", "route": "cuda",
+        {"name": f"fused_cg_dia [{dia_schedule(spec.offsets)}]",
+         "route": "cuda",
          "source": "abft_sparse_cg_tpu_torch/csrc/fused_cg_dia.cu",
          "replaces": "abft_sparse_cg_tpu/solver/fused.py:1248",
          "launches": launches["fused_cg_dia"], "max_abs_err": b_err,
@@ -1136,7 +1189,7 @@ def main():
     bde = torch.zeros(m.R, dtype=f32, device=dev)
     bde[: m.N] = torch.tensor(b_ell, dtype=f32)
     mde = make_matrix_device(m, f32, dev)
-    ik_d, d_err = check_loops(fused_cg_ell, fused_cg_ell_plain, mde, spec,
+    ik_d, d_err, _ = check_loops(fused_cg_ell, fused_cg_ell_plain, mde, spec,
                               bde, "clean")
     check_faulted(inject_bitflips(m, "ANY", 1, np.random.default_rng(12),
                                   echo=lambda s: None), "secded",
@@ -1340,7 +1393,7 @@ def main():
     mda = make_matrix_device(m, f32, dev)
     spec_a, tail_a = dia_spec(m.main, "secded"), (mda[1],
                                                    tail_spec(m, "secded"))
-    ik_t, t_err = check_loops(fused_cg_dia, fused_cg_dia_plain, mda[0],
+    ik_t, t_err, _ = check_loops(fused_cg_dia, fused_cg_dia_plain, mda[0],
                               spec_a, bda, "clean", tail=tail_a)
     for seed in (12, 14):
         check_faulted(inject_bitflips(m, "ANY", 1, np.random.default_rng(
@@ -1430,7 +1483,7 @@ def main():
     bw_ = torch.zeros(mw.R, dtype=f32, device=dev)
     bw_[: mw.N] = torch.tensor(mw.to_exec_order(
         np.random.default_rng(11).random(mw.N)), dtype=f32)
-    ik_w, _ = check_loops(fused_cg_ell, fused_cg_ell_plain, mdw,
+    ik_w, _, _ = check_loops(fused_cg_ell, fused_cg_ell_plain, mdw,
                           ell_spec(mw, "secded"), bw_, "kernel D clean")
     del mdw
     with tempfile.TemporaryDirectory() as tmp:
@@ -1624,14 +1677,21 @@ def main():
                 ("lazy Jacobi", True, 4))
     opt = {}    # (matrix, instance) -> {"err": max|x err|, "its": iters}
 
+    def merge_opt(label, name, tag):
+        """Kernel B's row of an instance over its schedules: the largest
+        x error, the iterations (the same on both)."""
+        cur, prev = opt[tag, name], opt.get((label, name))
+        opt[label, name] = cur if prev is None else {
+            "err": max(prev["err"], cur["err"]), "its": cur["its"]}
+
     def check_variant(kernel, plain, md_, spec_, bvec, name, label, minv,
-                      ci, tail=None):
+                      ci, tail=None, schedule=None):
         """One instance against its plain loop on the card: iterations
         equal, no trigger or error, the trace within 1e-3 above float32's
         noise floor (rr0 * 1e-5), and a lazy run's x equal to the live
-        instance's bit for bit."""
+        instance's (on the same schedule) bit for bit."""
         ok, xk, trk = run_loop(kernel, md_, spec_, bvec, tail=tail,
-                               minv=minv, ci=ci)
+                               minv=minv, ci=ci, schedule=schedule)
         op, xp, trp = run_loop(plain, md_, spec_, bvec, tail=tail,
                                minv=minv, ci=ci)
         require(ok.itr == op.itr and ok.trig == op.trig == 0
@@ -1648,7 +1708,7 @@ def main():
         same = "-"
         if ci > 1:
             live, xl, _ = run_loop(kernel, md_, spec_, bvec, tail=tail,
-                                   minv=minv, ci=1)
+                                   minv=minv, ci=1, schedule=schedule)
             same = torch.equal(xk, xl) and live.itr == it
             require(same, f"{label} {name}: lazy x differs from live")
         print(f"{label} {name}: kernel {it} it, plain {op.itr}; trace max rel"
@@ -1658,13 +1718,13 @@ def main():
         return xk
 
     def check_faulted_variant(m1, mode, name, label, precond, ci, clean_x,
-                              plain_too, clean):
+                              plain_too, clean, schedule=None):
         """One corrected fault (a rollback under the lazy schedule): one
         correction, no error, x equal to the clean solve's bit for bit;
         with ``plain_too``, the events and iterations of the plain loop
         (CPU tensors) too."""
         solve = make_fused_solver(m1, mode, 1000, CONV, precond=precond,
-                                  check_interval=ci)
+                                  check_interval=ci, schedule=schedule)
         args = (minv_of(m1, like=clean),) if precond else ()
         rk = solve(make_matrix_device(m1, f32, dev), bvec_of(m1), *args)
         require(rk.stats.corrected_count == 1 and rk.stats.errcode == 0,
@@ -1684,11 +1744,11 @@ def main():
         print(f"{label} {name} 1-bit flip: {rk.iterations} it, stats "
               f"{tuple(rk.stats)}, x equal to the clean solve{msg}")
 
-    def check_sed(msed, name, label, precond, ci):
+    def check_sed(msed, name, label, precond, ci, schedule=None):
         m1 = inject_bitflips(msed, "ANY", 1, np.random.default_rng(5),
                              echo=lambda s: None)
         solve = make_fused_solver(m1, "sed", 1000, CONV, precond=precond,
-                                  check_interval=ci)
+                                  check_interval=ci, schedule=schedule)
         args = (minv_of(m1, like=msed),) if precond else ()
         rk = solve(make_matrix_device(m1, f32, dev), bvec_of(m1), *args)
         require(rk.stats.errcode == ERR_SED and rk.iterations == 0,
@@ -1717,17 +1777,24 @@ def main():
         mi = minv_of(mm)
         m1 = inject_bitflips(mm, "ANY", 1, np.random.default_rng(12),
                              echo=lambda s: None)
-        for vname, precond, ci in VARIANTS:
+        # kernel B's tail-free instances on each schedule
+        scheds = SCHEDULES if kernel is fused_cg_dia and not split else (
+            None,)
+        for sched, (vname, precond, ci) in (
+                (sc, v) for sc in scheds for v in VARIANTS):
             name = ("split tail " if split else "") + vname
-            xk = check_variant(kernel, plain, mdv, spec_v, bv, name, label,
-                               mi if precond else None, ci, tl)
+            tag = label + (f" [{sched}]" if sched else "")
+            xk = check_variant(kernel, plain, mdv, spec_v, bv, name, tag,
+                               mi if precond else None, ci, tl, sched)
+            if sched is not None:
+                merge_opt(label, name, tag)
             # The plain loop of a faulted solve runs on CPU tensors: once
             # per matrix (phases 4 and 17 hold the live instances).
-            check_faulted_variant(m1, "secded", name, label, precond, ci,
-                                  xk, plain_too and vname == "lazy Jacobi",
-                                  mm)
+            check_faulted_variant(m1, "secded", name, tag, precond, ci,
+                                  xk, plain_too and vname == "lazy Jacobi"
+                                  and sched in (None, scheds[0]), mm, sched)
             if msed is not None:
-                check_sed(msed, name, label, precond, ci)
+                check_sed(msed, name, tag, precond, ci, sched)
         del mdv
 
     # The bundled matrix's diagonal is constant: there M^-1 = I / d and
@@ -1744,12 +1811,13 @@ def main():
                            dia_spec(mv, "secded"), bvec_of(mv), minv_of(mv))
     m1 = inject_bitflips(mv, "ANY", 1, np.random.default_rng(12),
                          echo=lambda s: None)
-    label = "DIA -b 10 scaled diagonal"
-    for vname, ci in (("Jacobi", 1), ("lazy Jacobi", 4)):
+    for sched, (vname, ci) in ((sc, v) for sc in SCHEDULES for v in (
+            ("Jacobi", 1), ("lazy Jacobi", 4))):
+        label = f"DIA -b 10 scaled diagonal [{sched}]"
         xk = check_variant(fused_cg_dia, fused_cg_dia_plain, mdv, spec_v, bv,
-                           vname, label, mi, ci)
+                           vname, label, mi, ci, schedule=sched)
         check_faulted_variant(m1, "secded", vname, label, True, ci, xk,
-                              False, mv)
+                              False, mv, sched)
         (ij, *_), _, trj = run_loop(fused_cg_dia_plain, mdv, spec_v, bv,
                                     minv=mi, ci=ci)
         (iu, *_), _, tru = run_loop(fused_cg_dia_plain, mdv, spec_v, bv,
@@ -1770,12 +1838,15 @@ def main():
     md100 = make_matrix_device(m, f32, dev)
     spec100 = dia_spec(m, "secded")
     b100, mi100 = bvec_of(m), minv_of(m)
-    check_loops(fused_cg_dia, fused_cg_dia_plain, md100, spec100, b100,
-                "-b 100 live")
-    for vname, precond, ci in (("lazy", False, 32), ("Jacobi", True, 1)):
-        check_variant(fused_cg_dia, fused_cg_dia_plain, md100, spec100,
-                      b100, f"{vname}, -b 100", "DIA -b 100",
-                      mi100 if precond else None, ci)
+    for sched in SCHEDULES:
+        check_loops(fused_cg_dia, fused_cg_dia_plain, md100, spec100, b100,
+                    f"-b 100 live [{sched}]", schedule=sched)
+        for vname, precond, ci in (("lazy", False, 32), ("Jacobi", True, 1)):
+            check_variant(fused_cg_dia, fused_cg_dia_plain, md100, spec100,
+                          b100, f"{vname}, -b 100", f"DIA -b 100 [{sched}]",
+                          mi100 if precond else None, ci, schedule=sched)
+            merge_opt("DIA -b 100", f"{vname}, -b 100",
+                      f"DIA -b 100 [{sched}]")
 
     # ---- 24. the detection-free products of kernels A, C and E -------------
     phase("24. the detection-free products of kernels A, C and E vs plain "
@@ -2017,6 +2088,8 @@ def main():
     def instance_row(label, name, source, replaces, kernel, plain, mm, spec_,
                      mdv, bv, mi, ci, none_b, sig_b, flops_it, launches,
                      tail=None, reps=3, batches=5):
+        """An instance's kernels-line row; kernel B's tail-free rows name
+        the schedule the matrix runs."""
         tt = interleave({"plain": loop_fn(plain, mdv, spec_, bv, tail, mi,
                                           ci),
                          "kernel": loop_fn(kernel, mdv, spec_, bv, tail, mi,
@@ -2033,7 +2106,9 @@ def main():
               f"{spread(tt['plain'])}; bound {bms:.4f} ms ({by}; "
               f"{nbytes / 1e6:.1f} MB) = {bms / ms_ * 100:.1f}% of the bound"
               f" [{card}]")
-        return {"name": f"{kernel.__name__} ({name})", "route": "cuda",
+        sched = (f" [{dia_schedule(spec_.offsets)}]"
+                 if kernel is fused_cg_dia and tail is None else "")
+        return {"name": f"{kernel.__name__} ({name}){sched}", "route": "cuda",
                 "source": source, "replaces": replaces,
                 "launches": launches,
                 "max_abs_err": opt[label, name]["err"], "ms": ms_,
@@ -2427,8 +2502,11 @@ def main():
     device_state(card)
     import pickle
 
+    # dia100 builds the bundled matrix at -b 100 itself (its planes would
+    # make a pickle of several hundred MB)
     for group, mm in (("dia", mats["secded"]), ("ell", ell["secded"]),
-                      ("split", splits["arrowhead"][1]["secded"])):
+                      ("split", splits["arrowhead"][1]["secded"]),
+                      ("dia100", None)):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, f"{group}.pickle")

@@ -14,8 +14,8 @@ matrix at -b 10 and -b 100 (DIA: kernel B) and the zoo's arrowhead at -b
 10 (a bordered split: kernel B's split-tail instances) in modes none and
 secded, and solves each configuration of CONFIGS through
 ``CudaBackend(mode)._solver`` (the tier the cuda target picks): live, and
-on arrowhead secded also lazy CI 4, Jacobi and lazy Jacobi.  Per
-configuration, full and 2-iteration solves:
+in secded also lazy CI 4, Jacobi and lazy Jacobi (and, at DIA -b 100,
+lazy CI 32).  Per configuration, full and 2-iteration solves:
 
   - by host clock around synchronised calls, in interleaved batches;
   - the kernel's own device time per solve: CUDA events recorded right
@@ -23,9 +23,10 @@ configuration, full and 2-iteration solves:
     library), summed over the solve's launches; the slope per iteration
     from full minus 2-iteration solves, beside the bytes an iteration
     must move over 3.35 TB/s (its bound);
-  - on arrowhead and DIA -b 10 secded, a torch.profiler window of 10 warm
-    full solves (chip_smoke.py's call_profile): device time and device
-    operations per solve, and the device's busy share of the window.
+  - on the configurations of PROFILED, a torch.profiler window of 10
+    warm full solves (chip_smoke.py's call_profile): device time and
+    device operations per solve, and the device's busy share of the
+    window.
 
 Prints, per configuration, each tree's medians over its turns, B over A,
 the split tail's share of the secded slope (arrowhead's minus DIA -b
@@ -47,8 +48,15 @@ import time
 # (label, matrix, blocks, mode, Jacobi, check interval)
 CONFIGS = [("-b 10", "dia", 10, "none", False, 1),
            ("-b 10", "dia", 10, "secded", False, 1),
+           ("-b 10 lazy CI 4", "dia", 10, "secded", False, 4),
+           ("-b 10 Jacobi", "dia", 10, "secded", True, 1),
+           ("-b 10 lazy Jacobi", "dia", 10, "secded", True, 4),
            ("-b 100", "dia", 100, "none", False, 1),
            ("-b 100", "dia", 100, "secded", False, 1),
+           ("-b 100 lazy CI 4", "dia", 100, "secded", False, 4),
+           ("-b 100 Jacobi", "dia", 100, "secded", True, 1),
+           ("-b 100 lazy Jacobi", "dia", 100, "secded", True, 4),
+           ("-b 100 lazy CI 32", "dia", 100, "secded", False, 32),
            ("arrowhead -b 10", "arrowhead", 10, "none", False, 1),
            ("arrowhead -b 10", "arrowhead", 10, "secded", False, 1),
            ("arrowhead -b 10 lazy CI 4", "arrowhead", 10, "secded", False,
@@ -56,7 +64,9 @@ CONFIGS = [("-b 10", "dia", 10, "none", False, 1),
            ("arrowhead -b 10 Jacobi", "arrowhead", 10, "secded", True, 1),
            ("arrowhead -b 10 lazy Jacobi", "arrowhead", 10, "secded", True,
             4)]
-PROFILED = ("-b 10 secded", "arrowhead -b 10 secded",
+PROFILED = ("-b 10 secded", "-b 10 lazy CI 4 secded", "-b 10 Jacobi secded",
+            "-b 10 lazy Jacobi secded", "-b 100 secded",
+            "-b 100 lazy CI 32 secded", "arrowhead -b 10 secded",
             "arrowhead -b 10 lazy CI 4 secded",
             "arrowhead -b 10 Jacobi secded",
             "arrowhead -b 10 lazy Jacobi secded")

@@ -24,9 +24,10 @@ iteration.  Variants:
 Every copy is compiled by nvcc into build/torch_tail_probe/; the as-built
 sources of kernels B and D are compiled once more with -Xptxas -v and
 each instance's registers, stack frame and spills are printed.  With
---sass-against DIR, the tail-free instances of B and D are compared,
-instruction for instruction (cuobjdump -sass, constant-bank offsets
-aside), with those built from the checkout DIR's sources.  Prints
+--sass-against DIR, the instances this tree shares with the checkout DIR
+(the same kernel name: kernel B's split-tail ones and all of D's) are
+compared, instruction for instruction (cuobjdump -sass,
+constant-bank offsets aside), with those built from DIR's sources.  Prints
 the card's name and power limit as nvidia-smi gives them.  Needs one
 CUDA card; exits non-zero without.
 """
@@ -51,7 +52,9 @@ UPTO = (2, 6)
 # dia_common.cuh it includes, copied beside it).  Two designs: the
 # second R-wide pass after the trigger test (a fourth grid sync), and the
 # one-pass tail (AXPY terms beside the main product, outlier rows
-# finished after the first sync).
+# finished after the first sync), in the loop of its own, tail_loop
+# (older trees, whose loop also served the tail-free instances, indent it
+# one level deeper and are not cut).
 _PW = "pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wr));"
 _PW_ALWAYS = ("      if constexpr (!kTail)\n        " + _PW, "      " + _PW)
 VARIANTS = {
@@ -91,25 +94,27 @@ VARIANTS = {
          "      grid.sync();\n", "")],
     # the one-pass tail
     "one-pass: no dense chunks": [
-        ("      tail_dense_chunk(tp, tsh, a.p, fbuf);\n",
-         "      if (blockIdx.x == 0)\n"
-         "        for (int c = threadIdx.x; c < tp.T * tp.nch; c += "
+        ("    tail_dense_chunk(tp, tsh, a.p, fbuf);\n",
+         "    if (blockIdx.x == 0)\n"
+         "      for (int c = threadIdx.x; c < tp.T * tp.nch; c += "
          "blockDim.x)\n"
-         "          tp.part[c] = 0.0f;\n")],
+         "        tp.part[c] = 0.0f;\n")],
     "one-pass: no tail signals": [
-        ("      if (chk) bad |= tail_signals(tp, tid, stride);\n", "")],
+        ("    if (chk) bad |= tail_signals(tp, tid, stride);\n", "")],
     "one-pass: no AXPY terms": [
         ("tail_axpy(tp, tsh, i, wr)", "wr")],
     "one-pass: no outlier finish": [
-        ("      pw = __fadd_rn(pw_rows, tail_finish(tp, tsh, a.w, own));",
-         "      pw = pw_rows;\n"
-         "      for (int t = 0; t < tp.T; ++t)\n"
-         "        if ((own >> t) & 1ull) a.w[tsh.rows[t]] = "
+        ("    const float pw = __fadd_rn(pw_rows, tail_finish(tp, tsh, a.w, "
+         "own));",
+         "    const float pw = pw_rows;\n"
+         "    for (int t = 0; t < tp.T; ++t)\n"
+         "      if ((own >> t) & 1ull) a.w[tsh.rows[t]] = "
          "__ldcg(tp.tmain + t);")],
     "8 blocks per SM": [
-        ("__global__ void __launch_bounds__(kBlock)\nfused_cg_dia_kernel(",
+        ("__global__ void __launch_bounds__(kBlock)\n"
+         "fused_cg_dia_tail_kernel(",
          "__global__ void __launch_bounds__(kBlock, kLazyBlocksPerSM)\n"
-         "fused_cg_dia_kernel(")],
+         "fused_cg_dia_tail_kernel(")],
     "one-pass: AXPY loads one at a time": [
         ("  while (m) {\n"
          "    float v[ABFT_TAIL_BATCH];\n"
@@ -242,25 +247,35 @@ def sass_functions(so):
     return {demangle(k): "\n".join(v) for k, v in out.items()}
 
 
-def compare_tail_free(other):
-    """The tail-free instances of kernels B and D in this tree against
-    those of the checkout ``other``, instruction for instruction."""
+def _unchanged_key(name):
+    """A kernel's name with the names that kernel B's split-tail
+    instances have had since they got a loop of their own
+    (fused_cg_dia_tail_kernel<P>, fused_cg_dia_tail_lazy_kernel<P>)
+    written as before (fused_cg_dia_kernel<true, P>,
+    fused_cg_dia_lazy_kernel<true, P>), so that a tree of either age
+    pairs with the other."""
+    return re.sub(r"fused_cg_dia_tail(_lazy)?_kernel<", lambda m:
+                  f"fused_cg_dia{m.group(1) or ''}_kernel<(bool)1, ", name)
+
+
+def compare_unchanged(other):
+    """The instances of kernels B and D that this tree shares with the
+    checkout ``other`` (B's split-tail ones, all of D's; the same name,
+    see _unchanged_key), instruction for instruction."""
     for name in ("fused_cg_dia", "fused_cg_ell"):
         so = os.path.join(OUT, f"other_{name}.so")
         subprocess.run(nvcc_cmd(os.path.join(
             other, "abft_sparse_cg_tpu_torch", "csrc", f"{name}.cu"), so)
             + ["-I", os.path.join(other, "abft_sparse_cg_tpu_torch", "csrc")],
             check=True)
-        mine = sass_functions(os.path.join(OUT, f"verbose_{name}.so"))
-        theirs = sass_functions(so)
+        mine = {_unchanged_key(k): v for k, v in sass_functions(
+            os.path.join(OUT, f"verbose_{name}.so")).items()}
+        theirs = {_unchanged_key(k): v for k, v in sass_functions(so).items()}
         for fn in sorted(mine):
-            # kTail: fused_cg_ell_kernel's second template argument, the
-            # first of every other kernel
-            args = fn.split("<", 2)[-1].split(",")
-            if args[1 if "fused_cg_ell_kernel<" in fn else 0].strip() \
-                    != "(bool)0":
+            if fn not in theirs:
+                print(f"  {fn[:72]}: not in {other}")
                 continue
-            a, b = theirs.get(fn, "").splitlines(), mine[fn].splitlines()
+            a, b = theirs[fn].splitlines(), mine[fn].splitlines()
             diff = [d for d in difflib.unified_diff(a, b, lineterm="", n=0)
                     if d[:1] in "+-" and d[:3] not in ("+++", "---")]
             print(f"  {fn[:72]}: {len(b)} instructions ({len(a)} "
@@ -302,8 +317,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, default=5)
     ap.add_argument("--sass-against", metavar="DIR",
-                    help="compare the tail-free instances' SASS with the "
-                         "checkout DIR's")
+                    help="compare the SASS of the instances this tree "
+                         "shares with the checkout DIR")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -327,7 +342,7 @@ def main():
     print("ptxas -v of the as-built kernels B and D:")
     libs = {v: Timed(p) for v, p in build_variants().items()}
     if args.sass_against:
-        compare_tail_free(os.path.abspath(args.sass_against))
+        compare_unchanged(os.path.abspath(args.sass_against))
 
     dev, f32 = torch.device("cuda", 0), torch.float32
     m = build_protected("csr", zoo_assembled("arrowhead", 10), "secded")

@@ -36,9 +36,12 @@ from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
     ell_fast_plain,
     ell_spec,
 )
+from abft_sparse_cg_tpu_torch.solver.cg import init_state
 from abft_sparse_cg_tpu_torch.solver.fused import (
+    SCHEDULES,
     fused_cg_dia,
     fused_cg_ell,
+    fused_grid,
     make_fused_solver,
 )
 from abft_sparse_cg_tpu_torch.utils.ell_edges import (
@@ -118,19 +121,22 @@ def test_kernel_a_rejects_bad_arguments(dev):
         dia_fast(md, x[: m.R - 32], spec)
 
 
+@pytest.mark.parametrize("schedule", SCHEDULES)
 @pytest.mark.parametrize("mode,flips,seed", [
     ("none", 0, 0), ("constraints", 0, 0), ("secded", 0, 0),
     ("secded", 1, 6), ("sec7", 1, 6), ("sed", 1, 6), ("secded", 2, 3)])
-def test_kernel_b_matches_plain(dev, mode, flips, seed):
+def test_kernel_b_matches_plain(dev, mode, flips, seed, schedule):
     m = dia_matrix(mode)
     if flips:
         m = faulted(m, flips, seed)
     b = torch.zeros(m.R, dtype=torch.float32)
     b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
-    solve = make_fused_solver(m, mode, 300, 1e-8)
+    solve = make_fused_solver(m, mode, 300, 1e-8, schedule=schedule)
     before = fused_cg_dia.launches
+    on_schedule = fused_cg_dia.schedules[schedule]
     rk = solve(make_matrix_device(m, torch.float32, dev), b.to(dev))
     assert fused_cg_dia.launches > before
+    assert fused_cg_dia.schedules[schedule] > on_schedule
     rp = solve(make_matrix_device(m, torch.float32, CPU), b)
     assert rk.iterations == rp.iterations
     assert tuple(rk.stats) == tuple(rp.stats)
@@ -141,6 +147,104 @@ def test_kernel_b_matches_plain(dev, mode, flips, seed):
     rk2 = solve(make_matrix_device(m, torch.float32, dev), b.to(dev))
     assert torch.equal(rk2.rr_trace[:it], rk.rr_trace[:it])
     assert torch.equal(rk2.x, rk.x)
+
+
+def kernel_b_run(md, spec, b, upto, minv=None, ci=1, schedule=None,
+                 conv=0.0):
+    """One launch of kernel B from init_state: (FusedOut, x, r, p,
+    trace)."""
+    s = init_state(b, upto, minv)
+    x, r, p = s.x.clone(), s.r.clone(), s.p.clone()
+    tr = torch.full_like(s.trace, float("nan"))
+    out = fused_cg_dia(md, spec, x, r, p, s.rr, s.rz, 0, upto, conv, tr,
+                       None, minv, ci, schedule=schedule)
+    torch.cuda.synchronize()
+    return out, x, r, p, tr
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_kernel_b_state_after_a_trigger(dev, schedule):
+    """An iteration that triggers or breaks down leaves x, r and p as
+    they were before it, in the caller's buffers, also after folded
+    updates: a lazy CI 4 run on a faulted matrix triggers at its first
+    check (iteration 3) with the state of a clean 3-iteration run of the
+    same matrix bit for bit; a live run triggers at once and leaves the
+    entry state; an indefinite matrix breaks down at iteration 2 with
+    the state of a 2-iteration run."""
+    m = faulted(varied_dia_matrix("secded"), 1, 12)
+    md = make_matrix_device(m, torch.float32, dev)
+    spec = dia_spec(m, "secded")
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    b = b.to(dev)
+    short = kernel_b_run(md, spec, b, 3, ci=4, schedule=schedule)
+    full = kernel_b_run(md, spec, b, 300, ci=4, schedule=schedule)
+    assert (full[0].itr, full[0].trig) == (3, 1)
+    assert short[0].itr == 3
+    for a, c in zip(short[1:4], full[1:4]):
+        assert torch.equal(a, c)
+    live = kernel_b_run(md, spec, b, 300, schedule=schedule)
+    s = init_state(b, 300)
+    assert (live[0].itr, live[0].trig) == (0, 1)
+    for a, c in zip(live[1:4], (s.x, s.r, s.p)):
+        assert torch.equal(a, c)
+    rows, cols, vals, n = spd_tridiagonal(2048)
+    vals = vals.copy()
+    vals[(rows == cols) & (rows >= 2040)] = -3.0
+    mi = build_protected("csr", assemble(cols, rows, vals, n, 1), "secded")
+    mdi = make_matrix_device(mi, torch.float32, dev)
+    spi = dia_spec(mi, "secded")
+    bi = torch.zeros(mi.R, dtype=torch.float32)
+    bi[: mi.N] = torch.tensor(np.random.default_rng(7).random(mi.N))
+    bi = bi.to(dev)
+    broke = kernel_b_run(mdi, spi, bi, 300, schedule=schedule)
+    two = kernel_b_run(mdi, spi, bi, 2, schedule=schedule)
+    assert broke[0].err == 7 and broke[0].itr == 2
+    for a, c in zip(broke[1:4], two[1:4]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES)
+@pytest.mark.parametrize("shape", ["tridiagonal", "laplacian", "Jacobi",
+                                   "lazy"])
+def test_kernel_b_replays_bit_for_bit(dev, shape, schedule):
+    """Kernel B on the card's grid against tests/test_torch_fused_plan.py's
+    NumPy replay of its schedule and fixed-order reductions: iterations,
+    trace, x, r and p bit for bit."""
+    from test_torch_fused_plan import replay_solve
+
+    from abft_sparse_cg_tpu_torch.utils.matgen import spd_laplacian_2d
+
+    if shape == "laplacian":
+        rows, cols, vals, n = spd_laplacian_2d(40)
+        m = build_protected("csr", assemble(cols, rows, vals, n, 5),
+                            "secded")
+    else:
+        m = varied_dia_matrix("secded", n=5000, blocks=3)
+    spec = dia_spec(m, "secded")
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    minv = jacobi_minv(m, CPU) if shape == "Jacobi" else None
+    ci = 4 if shape == "lazy" else 1
+    upto = 30
+    grid = fused_grid(0, "dia", False, minv is not None)
+    itr, trig, err, x, r, p, trace = replay_solve(
+        make_matrix_device(m, torch.float32, CPU), spec, b, minv, grid,
+        schedule, upto, 1e-8, ci)
+    # the replay's entry state (rr0 and rz0 summed on the CPU, as the
+    # replay sums them)
+    s = init_state(b, upto, minv)
+    xk, rk, pk = (v.to(dev) for v in (s.x, s.r, s.p))
+    tk = torch.full((upto + 1,), float("nan"), device=dev)
+    out = fused_cg_dia(make_matrix_device(m, torch.float32, dev), spec, xk,
+                       rk, pk, s.rr.to(dev), s.rz.to(dev), 0, upto, 1e-8, tk,
+                       None, None if minv is None else minv.to(dev), ci,
+                       schedule=schedule)
+    torch.cuda.synchronize()
+    assert (out.itr, out.trig, out.err) == (itr, trig, err)
+    assert same_bits(tk[:itr].cpu(), torch.from_numpy(trace))
+    for a, c in zip((xk, rk, pk), (x, r, p)):
+        assert same_bits(a.cpu(), torch.from_numpy(np.asarray(c)))
 
 
 def ell_matrix(mode, shape="dense-radius"):
@@ -355,28 +459,50 @@ def one_launch_calls(kernel, dev):
     return out
 
 
+def one_launch_profile(kernel):
+    """Per call of one_launch_calls(kernel), the device operations (names)
+    the profiler lists for 5 calls after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for _, calls in one_launch_calls(kernel, torch.device("cuda", 0)):
+        for call in calls:
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+            names.append([e.name for e in prof.events()
+                          if e.device_type == DeviceType.CUDA])
+    return names
+
+
 @pytest.mark.parametrize("kernel", ["A", "C", "C halo", "E"])
 def test_one_launch_per_call_and_repeatable(dev, kernel):
     """Kernels A, C (and C's halo form on a shard) and E as the solvers
     call them (live and detection-free): one device operation per call in
-    the profiler's list, and 100 back-to-back calls on one matrix give
+    the profiler's list of a fresh process (a long one, as this test
+    process, loses profiler events: on the card it once listed none of
+    kernel E's 5), and 105 back-to-back calls on one matrix give
     identical w, pw and trigger (the block counter and, in E, the chunk
     flags reset themselves), clean and faulted."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    tests = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.dirname(tests)
+    run = subprocess.run(
+        [sys.executable, "-c", "import json, test_torch_cuda as t; "
+         f"print(json.dumps(t.one_launch_profile({kernel!r})))"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join((root, tests))})
+    assert run.returncode == 0, run.stderr[-3000:]
+    for ops in json.loads(run.stdout.strip().splitlines()[-1]):
+        assert len(ops) == 5, ops
     for _, calls in one_launch_calls(kernel, dev):
         for call in calls:
             first = call()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                outs = [call() for _ in range(5)]
-                torch.cuda.synchronize()
-            ops = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-            assert len(ops) == 5, [e.name for e in ops]
-            outs += [call() for _ in range(100)]
+            outs = [call() for _ in range(105)]
             torch.cuda.synchronize()
             for w, trig, pw in outs:
                 assert same_bits(w, first[0])
@@ -686,19 +812,21 @@ def fused_matrix(layout, mode):
     return split_matrix(mode, "dia")
 
 
-@pytest.mark.parametrize("layout", ["dia", "ell", "split"])
+@pytest.mark.parametrize("layout,schedule", [
+    ("dia", "fold"), ("dia", "three-sync"), ("ell", None), ("split", None)])
 @pytest.mark.parametrize("variant", ["lazy", "Jacobi", "lazy Jacobi"])
 @pytest.mark.parametrize("mode,flips,seed", [
     ("secded", 0, 0), ("secded", 1, 6), ("sed", 1, 6)])
 def test_fused_instances_match_plain(dev, layout, variant, mode, flips,
-                                     seed):
+                                     seed, schedule):
     """The lazy (CI 4) and Jacobi instances of kernels B and D (and of
     the split tail) against their plain loops: iterations and events
     equal, the trace to 1e-5 (1e-4 with Jacobi, whose rz = r . z is one
     more reduction summed in another order than torch.sum; 1e-3 above
     float32's noise floor for the split tail); a clean lazy solve's x
     equals the live instance's bit for bit, and a rolled-back faulted
-    one equals the clean one."""
+    one equals the clean one.  Kernel B's tail-free instances run under
+    each schedule."""
     m = fused_matrix(layout, mode)
     precond = "Jacobi" in variant
     ci = 4 if "lazy" in variant else 1
@@ -708,7 +836,7 @@ def test_fused_instances_match_plain(dev, layout, variant, mode, flips,
     args = (jacobi_minv(m, dev),) if precond else ()
     cpu_args = (jacobi_minv(m, CPU),) if precond else ()
     solve = make_fused_solver(mf, mode, 300, 1e-8, precond=precond,
-                              check_interval=ci)
+                              check_interval=ci, schedule=schedule)
     kernel = fused_cg_ell if layout == "ell" else fused_cg_dia
     name = ("split tail " if layout == "split" else "") + variant
     before = kernel.instances.get(name, 0)
@@ -725,7 +853,8 @@ def test_fused_instances_match_plain(dev, layout, variant, mode, flips,
     np.testing.assert_allclose(rk.rr_trace[:it].cpu().numpy()[above],
                                t0[above], rtol=tol)
     if mode == "secded":
-        live = make_fused_solver(m, mode, 300, 1e-8, precond=precond)(
+        live = make_fused_solver(m, mode, 300, 1e-8, precond=precond,
+                                 schedule=schedule)(
             make_matrix_device(m, torch.float32, dev), b.to(dev), *args)
         assert torch.equal(rk.x, live.x)
     if precond and not flips:
