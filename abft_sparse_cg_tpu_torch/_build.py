@@ -35,10 +35,14 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+# The live signals' planes: the first signal plane and its baseline, the
+# second ones (constraints mode on COO128: the row word; else null).
+_SIG = [_P, _P, _P, _P]
 # The split tail of the fused kernels: td, tb, rows, starts, the per-tile
 # window masks, T, S, the dense-row chunk, the chunk partials, the outlier
-# rows' main products, the tail's signal plane and baseline, E.
-_TAIL = [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I]
+# rows' main products, the tail's signal planes and baselines (the second
+# plane null but in constraints mode on COO128), E.
+_TAIL = [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, *_SIG, _I]
 # The Jacobi and lazy options of the fused kernels: M^-1, the rz
 # partials, the x/r/p snapshot, the check interval, the snapshot's
 # itr and rr/rz outputs.
@@ -49,40 +53,42 @@ _CALL = [_P, _P, _P, _P]
 # source name -> {C function: argtypes}
 _SIGNATURES = {
     "dia_spmv_detect": {
-        "abft_dia_spmv_detect": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I,
+        "abft_dia_spmv_detect": [_P, _P, _I, _I, _P, _P, *_SIG, _I, _I,
                                  *_CALL, _I, _P],
-        "abft_dia_spmv_detect_halo": [_P, _P, _I, _I, _P, _I, _P, _P, _P,
+        "abft_dia_spmv_detect_halo": [_P, _P, _I, _I, _P, _I, _P, *_SIG,
                                       _I, _I, *_CALL, _I, _P],
         "abft_dia_spmv_grid": [_I],
     },
     "fused_cg_dia": {
-        "abft_fused_grid": [_I, _I, _I, _I, _P],
+        # device, tail, Jacobi, lazy, signal planes, grid out
+        "abft_fused_grid": [_I, _I, _I, _I, _I, _P],
         # ... the tail-free schedule (fold or not), the fold's second r
         # and p buffers, the tail-free rows per block
-        "abft_fused_cg_dia": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+        "abft_fused_cg_dia": [_P, _P, _I, _I, _P, _P, _P, _P, *_SIG, _I,
                               _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                               _F, *_TAIL, *_OPTS, _I, _P, _P, _I, _I, _P],
     },
     "ell_spmv_detect": {
-        "abft_ell_spmv_detect": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _P,
+        "abft_ell_spmv_detect": [_P, _P, _U, _P, _I, _I, _P, _P, *_SIG,
                                  _I, _I, *_CALL, _I, _I, _P],
         "abft_ell_spmv_detect_halo": [_P, _P, _U, _P, _I, _I, _P, _I, _I,
-                                      _I, _P, _P, _P, _I, _I, *_CALL, _I,
+                                      _I, _P, *_SIG, _I, _I, *_CALL, _I,
                                       _I, _P],
-        "abft_ell_spmv_occupancy": [_I, _I, _P, _P],
+        # device, halo form, signal planes, blocks per SM out, SMs out
+        "abft_ell_spmv_occupancy": [_I, _I, _I, _P, _P],
         "abft_ell_spmv_tile": [],
         "abft_ell_spmv_slab": [],
         "abft_ell_spmv_stages": [],
     },
     "fused_cg_ell": {
-        "abft_fused_ell_grid": [_I, _I, _I, _I, _P],
-        "abft_fused_cg_ell": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _P, _P,
-                              _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
-                              _P, _I, _F, *_TAIL, *_OPTS, _I, _P],
+        "abft_fused_ell_grid": [_I, _I, _I, _I, _I, _P],
+        "abft_fused_cg_ell": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _P,
+                              *_SIG, _I, _I, _P, _P, _P, _I, _P, _P, _P,
+                              _P, _P, _I, _F, *_TAIL, *_OPTS, _I, _P],
     },
     "flat_spmv_detect": {
         "abft_flat_spmv_detect": [_P, _P, _U, _P, _P, _I, _P, _P, _I, _P,
-                                  _P, _P, _P, _I, _I, *_CALL, _I, _P],
+                                  _P, *_SIG, _I, _I, *_CALL, _I, _P],
         "abft_flat_spmv_tile": [],
         "abft_flat_spmv_run_rows": [],
     },

@@ -3,9 +3,10 @@
 Same flags, defaults, stdout lines and exit codes as the JAX CLI (the
 parser below is a copy of its ``parse_arguments``, with ``cuda`` as
 the default target where the JAX CLI has ``jnp``), so ``run_tests``
-drives ``bin/cg-csr-torch`` unchanged: the config echo, the injection
-banner, ``[ECC]`` lines, ``iteration ... rr =`` lines, ``ran for``,
-``time taken``, ``total error``.  Targets: ``cuda`` (the default: the
+drives ``bin/cg-csr-torch`` and ``bin/cg-coo-torch`` (``main_csr``,
+``main_coo``: the CSR96 and COO128 codewords) unchanged: the config
+echo, the injection banner, ``[ECC]`` lines, ``iteration ... rr =``
+lines, ``ran for``, ``time taken``, ``total error``.  Targets: ``cuda`` (the default: the
 kernels on the card, float32) and ``torch`` (plain PyTorch on the CPU,
 float64 by default — asked for explicitly, as the tests do).  Without a
 card ``cuda-<mode>`` is not registered, so a run without ``-t`` prints
@@ -23,8 +24,8 @@ in the JAX CLI.  ``--devices N`` row-shards the solve over N shards
 on ``torch`` N shards on the CPU; on ``cuda`` one shard per card, and a
 host with fewer cards exits 1 with the JAX message.  Flags of features
 this package has not ported yet print a one-line error and exit 1:
---solver pipelined, --checkpoint/--checkpoint-every/--resume, --profile
-and --format coo.
+--solver pipelined, --checkpoint/--checkpoint-every/--resume and
+--profile.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import sys
 
 import numpy as np
 
-__all__ = ["main", "main_csr", "parse_arguments"]
+__all__ = ["main", "main_csr", "main_coo", "parse_arguments"]
 
 _ROADMAP = "is not ported to the PyTorch/CUDA package yet (ROADMAP.md queue 1)"
 
@@ -279,8 +280,6 @@ def parse_arguments(argv, fmt):
 
 def _unported_flag(params):
     """The first flag of ``params`` that selects an unported feature."""
-    if params["fmt"] != "csr":
-        return "--format coo"
     if params["solver"] != "standard":
         return "--solver pipelined"
     if params["checkpoint"] or params["resume"]:
@@ -435,6 +434,10 @@ def _main(params):
 
 def main_csr(argv=None) -> int:
     return main(argv, fmt="csr")
+
+
+def main_coo(argv=None) -> int:
+    return main(argv, fmt="coo")
 
 
 if __name__ == "__main__":

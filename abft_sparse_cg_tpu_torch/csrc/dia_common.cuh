@@ -26,6 +26,13 @@
 //           425-438), strictly finer than the TPU kernels' chunk-
 //           congruence classes, so the trigger fires wherever theirs
 //           does.
+// Constraints mode on COO128 streams two planes, the col and the row
+// word (spmv_pallas.py:283-298, the per-word loop at :459-460): each
+// plane's block XORs against its own baseline, ORed, and parity over
+// the XOR of an element's two words.  The plane count is a template
+// parameter (kPlanes, 1 or 2) of every signal helper and kernel instance,
+// so the one-plane instances compile to what they did before the second
+// plane existed.
 #pragma once
 
 #include <cstdint>
@@ -45,11 +52,24 @@ struct DiaOffsets {
 };
 
 struct DiaSignals {
-  const uint32_t* plane;  // (D, R) fold or col word; null: no signals
-  const uint32_t* base;   // (R / 8) encode-time block checksums
+  const uint32_t* plane;   // (D, R) fold or col word; null: no signals
+  const uint32_t* base;    // (R / 8) encode-time block checksums
   int use_parity;
   int use_cksum;
+  const uint32_t* plane2;  // (D, R) the row word of constraints mode on
+  const uint32_t* base2;   // COO128, and its baseline; else null
 };
+
+// The 8-row block XOR of one plane at row r (a multiple of 8 in lane
+// order: the shuffles close aligned groups of 8 lanes) against its
+// baseline; nonzero on a mismatch.  Every lane must call it.
+__device__ __forceinline__ int block8_differs(uint32_t acc,
+                                              const uint32_t* base, int r) {
+  acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 1);
+  acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 2);
+  acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 4);
+  return (r & 7) == 0 && acc != __ldg(base + (r >> 3));
+}
 
 // Loads of data that other blocks of the same kernel write (the fused
 // kernel's p and partials) bypass L1, which is not coherent across SMs.
@@ -174,13 +194,20 @@ __device__ __forceinline__ float ell_row(const float* __restrict__ vals,
 // Signals of row r; nonzero if they fired.  Must be called by all 32
 // lanes of a warp on 32 consecutive rows starting at a multiple of 32
 // (the 8-row XOR uses warp shuffles within aligned groups of 8 lanes).
+template <int kPlanes = 1>
 __device__ __forceinline__ int dia_row_signals(const DiaSignals& s, int D,
                                                int R, int r) {
-  uint32_t acc = 0;
+  uint32_t acc = 0, acc2 = 0;
   int bad = 0;
   for (int d = 0; d < D; ++d) {
     const uint32_t v = __ldg(s.plane + (size_t)d * R + r);
-    if (s.use_parity) bad |= __popc(v) & 1;
+    uint32_t pv = v;
+    if constexpr (kPlanes == 2) {
+      const uint32_t v2 = __ldg(s.plane2 + (size_t)d * R + r);
+      acc2 ^= v2;
+      pv ^= v2;
+    }
+    if (s.use_parity) bad |= __popc(pv) & 1;
     acc ^= v;
   }
   if (s.use_cksum) {
@@ -188,6 +215,7 @@ __device__ __forceinline__ int dia_row_signals(const DiaSignals& s, int D,
     acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 2);
     acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 4);
     if ((r & 7) == 0 && acc != __ldg(s.base + (r >> 3))) bad = 1;
+    if constexpr (kPlanes == 2) bad |= block8_differs(acc2, s.base2, r);
   }
   return bad;
 }
@@ -199,20 +227,26 @@ __device__ __forceinline__ int dia_row_signals(const DiaSignals& s, int D,
 // uses it because a separate signal pass made its secded solve much
 // slower (PERF.md §6).  Nonzero ``*bad`` if the signals fired;
 // the warp-shuffle rule of dia_row_signals applies.
-template <bool kCoherent>
+template <bool kCoherent, int kPlanes = 1>
 __device__ __forceinline__ float ell_row_signals(
     const float* __restrict__ vals, const uint32_t* __restrict__ gsrc,
     uint32_t gmask, const int* __restrict__ ell_len, int K, int R,
     const float* x, int r, const DiaSignals& s, int* bad) {
   const int n = min(__ldg(ell_len + r), K);
   float w = 0.0f;
-  uint32_t acc = 0;
+  uint32_t acc = 0, acc2 = 0;
   int odd = 0;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     const size_t o = (size_t)k * R + r;
     const uint32_t v = __ldg(s.plane + o);
-    if (s.use_parity) odd |= __popc(v) & 1;
+    uint32_t pv = v;
+    if constexpr (kPlanes == 2) {
+      const uint32_t v2 = __ldg(s.plane2 + o);
+      acc2 ^= v2;
+      pv ^= v2;
+    }
+    if (s.use_parity) odd |= __popc(pv) & 1;
     acc ^= v;
     if (k < n) {
       const int g = ell_gather(__ldg(gsrc + o), gmask, R);
@@ -224,6 +258,7 @@ __device__ __forceinline__ float ell_row_signals(
     acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 2);
     acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 4);
     if ((r & 7) == 0 && acc != __ldg(s.base + (r >> 3))) odd = 1;
+    if constexpr (kPlanes == 2) odd |= block8_differs(acc2, s.base2, r);
   }
   *bad |= odd;
   return w;
@@ -571,7 +606,10 @@ __device__ __forceinline__ float tail_finish(const TailPlan& tp,
 // The tail's signals over its (E,) plane, by whole 8-slot blocks: thread
 // ``tid`` of ``stride`` takes blocks tid, tid + stride, ... (two 16-byte
 // loads each), OR of each word's parity, XOR of the 8 words against the
-// block's baseline word; nonzero if they fired.
+// block's baseline word; nonzero if they fired.  kPlanes 2: the same over
+// the second plane against its own baseline, parity over the XOR of the
+// two planes.
+template <int kPlanes = 1>
 __device__ __forceinline__ int tail_signals(const TailPlan& tp, int tid,
                                             int stride) {
   const DiaSignals& s = tp.sig;
@@ -579,10 +617,22 @@ __device__ __forceinline__ int tail_signals(const TailPlan& tp, int tid,
   const uint4* pl = reinterpret_cast<const uint4*>(s.plane);
   int bad = 0;
   for (int g = tid; g < (tp.E >> 3); g += stride) {
-    const uint4 a = __ldg(pl + 2 * g), b = __ldg(pl + 2 * g + 1);
-    if (s.use_parity)
+    uint4 a = __ldg(pl + 2 * g), b = __ldg(pl + 2 * g + 1);
+    if constexpr (kPlanes == 2) {
+      const uint4* pl2 = reinterpret_cast<const uint4*>(s.plane2);
+      const uint4 a2 = __ldg(pl2 + 2 * g), b2 = __ldg(pl2 + 2 * g + 1);
+      if (s.use_cksum && (a2.x ^ a2.y ^ a2.z ^ a2.w ^ b2.x ^ b2.y ^ b2.z ^
+                          b2.w) != __ldg(s.base2 + g))
+        bad = 1;
+      if (s.use_parity)
+        bad |= (__popc(a.x ^ a2.x) | __popc(a.y ^ a2.y) |
+                __popc(a.z ^ a2.z) | __popc(a.w ^ a2.w) |
+                __popc(b.x ^ b2.x) | __popc(b.y ^ b2.y) |
+                __popc(b.z ^ b2.z) | __popc(b.w ^ b2.w)) & 1;
+    } else if (s.use_parity) {
       bad |= (__popc(a.x) | __popc(a.y) | __popc(a.z) | __popc(a.w) |
               __popc(b.x) | __popc(b.y) | __popc(b.z) | __popc(b.w)) & 1;
+    }
     if (s.use_cksum &&
         (a.x ^ a.y ^ a.z ^ a.w ^ b.x ^ b.y ^ b.z ^ b.w) != __ldg(s.base + g))
       bad = 1;
@@ -598,6 +648,7 @@ inline bool make_tail_plan(TailPlan* t, const float* td, const float* tb,
                            const unsigned long long* tiles, int T, int S,
                            int chunk, float* part, float* tmain,
                            const uint32_t* plane, const uint32_t* base,
+                           const uint32_t* plane2, const uint32_t* base2,
                            int use_parity, int use_cksum, int E,
                            const float* p) {
   t->T = T;
@@ -612,7 +663,7 @@ inline bool make_tail_plan(TailPlan* t, const float* td, const float* tb,
   t->tb = tb;
   t->part = part;
   t->tmain = tmain;
-  t->sig = DiaSignals{plane, base, use_parity, use_cksum};
+  t->sig = DiaSignals{plane, base, use_parity, use_cksum, plane2, base2};
   if (T == 0) return true;
   auto aligned = [](const void* q) { return ((uintptr_t)q & 15u) == 0; };
   return T > 0 && T <= ABFT_MAX_T && S >= 128 && S % 128 == 0 &&
@@ -620,7 +671,8 @@ inline bool make_tail_plan(TailPlan* t, const float* td, const float* tb,
          td != nullptr && tb != nullptr && rows != nullptr &&
          starts != nullptr && tiles != nullptr && part != nullptr &&
          tmain != nullptr && aligned(td) && aligned(p) &&
-         (plane == nullptr || aligned(plane));
+         (plane == nullptr || aligned(plane)) &&
+         (plane2 == nullptr || (plane != nullptr && aligned(plane2)));
 }
 
 // ---- The Jacobi and lazy instances of the fused kernels B and D ----------

@@ -3,9 +3,11 @@
 // Replaces the TPU kernel abft_sparse_cg_tpu/ops/spmv_pallas.py::
 // _make_dia_fast (pallas_call at :519): w[r] = sum_d vals[d, r] *
 // x[r + off_d] (zero outside [0, R)), the fused pw = x . w, and the
-// mode's trigger signals (parity and/or 8-row-block checksum of the one
+// mode's trigger signals (parity and/or 8-row-block checksum of the
 // streamed word plane; dia_common.cuh).  With no plane it is the
-// detection-free product of the lazy schedule.
+// detection-free product of the lazy schedule.  Constraints mode on
+// COO128 streams two planes, the col and the row word, each against its
+// own baseline (the kPlanes = 2 instances; spmv_pallas.py:459-460).
 //
 // What bounds it on the H100: bytes.  Per row it reads D values (f32),
 // D signal words (u32, ECC and constraints modes), ~1 x element (the
@@ -61,7 +63,7 @@ __device__ __forceinline__ float x_at(const float* __restrict__ x, int c,
   return (c >= 0 && c < R) ? __ldg(x + c) : 0.0f;
 }
 
-template <bool kHalo>
+template <bool kHalo, int kPlanes>
 __global__ void __launch_bounds__(kBlock)
 dia_spmv_detect_kernel(const float* __restrict__ vals, DiaOffsets offs,
                        int R, const float* __restrict__ x,
@@ -92,13 +94,21 @@ dia_spmv_detect_kernel(const float* __restrict__ vals, DiaOffsets offs,
   if (sig.plane != nullptr) {
     // R / 4 is a multiple of 8: both threads of an 8-row block are in
     // range or both are not, and every lane takes the shuffle.
-    uint32_t acc = 0;
+    uint32_t acc = 0, acc2 = 0;
     if (r < R) {
       for (int d = 0; d < offs.n; ++d) {
         const uint4 u = __ldg(reinterpret_cast<const uint4*>(
             sig.plane + (size_t)d * R + r));
+        uint4 pu = u;
+        if constexpr (kPlanes == 2) {
+          const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+              sig.plane2 + (size_t)d * R + r));
+          acc2 ^= v.x ^ v.y ^ v.z ^ v.w;
+          pu = make_uint4(u.x ^ v.x, u.y ^ v.y, u.z ^ v.z, u.w ^ v.w);
+        }
         if (sig.use_parity)
-          bad |= (__popc(u.x) | __popc(u.y) | __popc(u.z) | __popc(u.w)) & 1;
+          bad |= (__popc(pu.x) | __popc(pu.y) | __popc(pu.z) | __popc(pu.w)) &
+                 1;
         acc ^= u.x ^ u.y ^ u.z ^ u.w;
       }
     }
@@ -106,6 +116,11 @@ dia_spmv_detect_kernel(const float* __restrict__ vals, DiaOffsets offs,
       acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 1);
       if (r < R && (t & 1) == 0 && acc != __ldg(sig.base + (r >> 3)))
         bad = 1;
+      if constexpr (kPlanes == 2) {
+        acc2 ^= __shfl_xor_sync(ABFT_FULL_MASK, acc2, 1);
+        if (r < R && (t & 1) == 0 && acc2 != __ldg(sig.base2 + (r >> 3)))
+          bad = 1;
+      }
     }
   }
   finish_call(pw, bad, out, &g_arrive, fbuf, ibuf);
@@ -116,19 +131,28 @@ int grid_of(int R) { return (R + kRows * kBlock - 1) / (kRows * kBlock); }
 template <bool kHalo>
 int launch(const float* vals, const int* offsets, int D, int R,
            const float* x, float* w, const uint32_t* plane,
-           const uint32_t* base, int use_parity, int use_cksum, float* part,
+           const uint32_t* base, const uint32_t* plane2,
+           const uint32_t* base2, int use_parity, int use_cksum, float* part,
            int* flags, float* pw, unsigned char* trig, int device,
            void* stream) {
+  if (plane2 != nullptr && (plane == nullptr || base2 == nullptr ||
+                            ((uintptr_t)plane2 & 15u) != 0))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   DiaOffsets offs;
   offs.n = D;
   for (int d = 0; d < D; ++d) offs.off[d] = offsets[d];
-  DiaSignals sig{plane, base, use_parity, use_cksum};
+  DiaSignals sig{plane, base, use_parity, use_cksum, plane2, base2};
   CallOut out{part, flags, pw, trig};
-  dia_spmv_detect_kernel<kHalo>
-      <<<grid_of(R), kBlock, 0, (cudaStream_t)stream>>>(vals, offs, R, x, w,
-                                                        sig, out);
+  if (plane2 != nullptr)
+    dia_spmv_detect_kernel<kHalo, 2>
+        <<<grid_of(R), kBlock, 0, (cudaStream_t)stream>>>(vals, offs, R, x,
+                                                          w, sig, out);
+  else
+    dia_spmv_detect_kernel<kHalo, 1>
+        <<<grid_of(R), kBlock, 0, (cudaStream_t)stream>>>(vals, offs, R, x,
+                                                          w, sig, out);
   return (int)cudaGetLastError();
 }
 
@@ -137,18 +161,22 @@ int launch(const float* vals, const int* offsets, int D, int R,
 extern "C" int abft_dia_spmv_grid(int R) { return grid_of(R); }
 
 // ``part`` and ``flags`` hold abft_dia_spmv_grid(R) entries; ``vals``,
-// ``plane`` are 16-byte aligned.
+// ``plane`` and ``plane2`` are 16-byte aligned; ``plane2`` (constraints
+// mode on COO128: the row word) is null but with a first plane.
 extern "C" int abft_dia_spmv_detect(const float* vals, const int* offsets,
                                     int D, int R, const float* x, float* w,
                                     const uint32_t* plane,
-                                    const uint32_t* base, int use_parity,
+                                    const uint32_t* base,
+                                    const uint32_t* plane2,
+                                    const uint32_t* base2, int use_parity,
                                     int use_cksum, float* part, int* flags,
                                     float* pw, unsigned char* trig,
                                     int device, void* stream) {
   if (D < 1 || D > ABFT_MAX_D || R < 32 || R % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  return launch<false>(vals, offsets, D, R, x, w, plane, base, use_parity,
-                       use_cksum, part, flags, pw, trig, device, stream);
+  return launch<false>(vals, offsets, D, R, x, w, plane, base, plane2, base2,
+                       use_parity, use_cksum, part, flags, pw, trig, device,
+                       stream);
 }
 
 // The halo form: ``x_ext`` holds R + 2H rows and H >= max |offset|.
@@ -157,6 +185,8 @@ extern "C" int abft_dia_spmv_detect_halo(const float* vals,
                                          const float* x_ext, int H, float* w,
                                          const uint32_t* plane,
                                          const uint32_t* base,
+                                         const uint32_t* plane2,
+                                         const uint32_t* base2,
                                          int use_parity, int use_cksum,
                                          float* part, int* flags, float* pw,
                                          unsigned char* trig, int device,
@@ -165,7 +195,7 @@ extern "C" int abft_dia_spmv_detect_halo(const float* vals,
     return (int)cudaErrorInvalidValue;
   for (int d = 0; d < D; ++d)
     if (offsets[d] < -H || offsets[d] > H) return (int)cudaErrorInvalidValue;
-  return launch<true>(vals, offsets, D, R, x_ext + H, w, plane, base,
-                      use_parity, use_cksum, part, flags, pw, trig, device,
-                      stream);
+  return launch<true>(vals, offsets, D, R, x_ext + H, w, plane, base, plane2,
+                      base2, use_parity, use_cksum, part, flags, pw, trig,
+                      device, stream);
 }

@@ -67,6 +67,14 @@
 // none of them is ported.  Kernel D keeps its own row loop (ell_row_
 // signals in dia_common.cuh).
 //
+// Constraints mode on COO128 streams two signal planes, the col and the
+// row word, each against its own baseline (spmv_pallas.py:459-460): the
+// kPlanes = 2 instances stage a fourth slab per ring stage (32 KB of ring
+// instead of 24), fold the second plane's XOR beside the first's and
+// close its 8-row blocks against its own baseline.  The row word is also
+// the gather word there, but it is staged twice (once per use): the
+// gather slabs stop at the tile's longest row, the signal slabs do not.
+//
 // The halo form (abft_ell_spmv_detect_halo) is one shard of a row-sharded
 // solve: it replaces the same TPU kernel's halo=True, with_base=True
 // variant (the base subtraction at :693-694, the window clamp at
@@ -94,12 +102,15 @@ constexpr int kRows = 128;    // rows per tile = threads per block
 constexpr int kSlab = 4;      // slots per staged slab
 constexpr int kStages = 4;    // slabs in the ring
 constexpr int kSlabWords = kSlab * kRows;          // one plane of a slab
-constexpr int kStageWords = 3 * kSlabWords;        // values, gather, signal
-constexpr int kSmemBytes = kStages * kStageWords * 4;
+// values, gather, then the kPlanes signal planes' slabs
+template <int kPlanes>
+constexpr int kStageWordsOf = (2 + kPlanes) * kSlabWords;
+template <int kPlanes>
+constexpr int kSmemBytes = kStages * kStageWordsOf<kPlanes> * 4;
 static_assert(kRows % 32 == 0 && kStages >= 3, "tile shape");
 // The ring fits the default 48 KB of dynamic shared memory: no launch
 // needs cudaFuncAttributeMaxDynamicSharedMemorySize.
-static_assert(kSmemBytes <= 48 * 1024, "ring size");
+static_assert(kSmemBytes<2> <= 48 * 1024, "ring size");
 
 __device__ unsigned int g_arrive;   // finish_call's counter
 
@@ -118,9 +129,10 @@ struct EllArgs {
 
 // Issue the copies of slab s (slots [s kSlab, min((s + 1) kSlab, K)) of
 // the tile's ``nrows`` rows from r0) into ring stage ``st``: the value
-// and gather planes if ``vals``, the signal plane if ``sig``.  One
+// and gather planes if ``vals``, the signal plane(s) if ``sig``.  One
 // 16-byte copy per plane, slot and 4 rows; consecutive threads take
 // consecutive rows of a slot.
+template <int kPlanes>
 __device__ __forceinline__ void issue_slab(uint32_t* st, const EllArgs& a,
                                            int r0, int nrows, int s,
                                            bool vals, bool sig) {
@@ -136,7 +148,11 @@ __device__ __forceinline__ void issue_slab(uint32_t* st, const EllArgs& a,
       cp16(st + dst, a.vals + src);
       cp16(st + kSlabWords + dst, a.gsrc + src);
     }
-    if (sig) cp16(st + 2 * kSlabWords + dst, a.sig.plane + src);
+    if (sig) {
+      cp16(st + 2 * kSlabWords + dst, a.sig.plane + src);
+      if constexpr (kPlanes == 2)
+        cp16(st + 3 * kSlabWords + dst, a.sig.plane2 + src);
+    }
   }
 }
 
@@ -153,9 +169,10 @@ __device__ __forceinline__ void gather_slab(float* xv, const uint32_t* st,
                                a.gmask));
 }
 
-template <class Gather>
+template <class Gather, int kPlanes>
 __global__ void __launch_bounds__(kRows)
 ell_spmv_detect_kernel(EllArgs a, Gather gat, CallOut out) {
+  constexpr int kStageWords = kStageWordsOf<kPlanes>;
   extern __shared__ __align__(16) uint32_t ring[];
   __shared__ float fbuf[33];
   __shared__ int ibuf[33];
@@ -186,12 +203,12 @@ ell_spmv_detect_kernel(EllArgs a, Gather gat, CallOut out) {
     const int nsl = max(nval, nsig);
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < nsl)
-        issue_slab(ring + s * kStageWords, a, r0, nrows, s, s < nval,
-                   s < nsig);
+        issue_slab<kPlanes>(ring + s * kStageWords, a, r0, nrows, s,
+                            s < nval, s < nsig);
       cp_commit();
     }
     float wr = 0.0f;
-    uint32_t acc = 0;
+    uint32_t acc = 0, acc2 = 0;
     int odd = 0;
     float xc[kSlab], xn[kSlab];
     for (int s = 0; s < nsl; ++s) {
@@ -199,8 +216,8 @@ ell_spmv_detect_kernel(EllArgs a, Gather gat, CallOut out) {
       __syncthreads();          // everyone's; and slab s - 1 is consumed
       const int sn = s + kStages - 1;
       if (sn < nsl)
-        issue_slab(ring + (sn % kStages) * kStageWords, a, r0, nrows, sn,
-                   sn < nval, sn < nsig);
+        issue_slab<kPlanes>(ring + (sn % kStages) * kStageWords, a, r0,
+                            nrows, sn, sn < nval, sn < nsig);
       cp_commit();
       if (!live) continue;
       const uint32_t* st = ring + (s % kStages) * kStageWords;
@@ -218,7 +235,13 @@ ell_spmv_detect_kernel(EllArgs a, Gather gat, CallOut out) {
         for (int j = 0; j < kSlab; ++j) {
           if (j < ns) {
             const uint32_t u = st[2 * kSlabWords + j * kRows + t];
-            odd |= __popc(u) & 1;
+            uint32_t pu = u;
+            if constexpr (kPlanes == 2) {
+              const uint32_t v = st[3 * kSlabWords + j * kRows + t];
+              acc2 ^= v;
+              pu ^= v;
+            }
+            odd |= __popc(pu) & 1;
             acc ^= u;
           }
         }
@@ -237,10 +260,9 @@ ell_spmv_detect_kernel(EllArgs a, Gather gat, CallOut out) {
       if (nsig) {
         if (a.sig.use_parity) bad |= odd;
         if (a.sig.use_cksum) {
-          acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 1);
-          acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 2);
-          acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 4);
-          if ((r & 7) == 0 && acc != __ldg(a.sig.base + (r >> 3))) bad = 1;
+          if (block8_differs(acc, a.sig.base, r)) bad = 1;
+          if constexpr (kPlanes == 2)
+            if (block8_differs(acc2, a.sig.base2, r)) bad = 1;
         }
       }
     }
@@ -254,62 +276,82 @@ int launch(const EllArgs& a, Gather gat, float* part, int* flags, float* pw,
            unsigned char* trig, int grid, int device, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(a.vals) |
                           reinterpret_cast<uintptr_t>(a.gsrc) |
-                          reinterpret_cast<uintptr_t>(a.sig.plane);
+                          reinterpret_cast<uintptr_t>(a.sig.plane) |
+                          reinterpret_cast<uintptr_t>(a.sig.plane2);
   if (a.K < 1 || a.K > ABFT_MAX_K || a.R < 32 || a.R % 32 != 0 ||
-      grid < 1 || grid > a.R / 32 || (align & 15) != 0)
+      grid < 1 || grid > a.R / 32 || (align & 15) != 0 ||
+      (a.sig.plane2 != nullptr &&
+       (a.sig.plane == nullptr || a.sig.base2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   CallOut out{part, flags, pw, trig};
-  ell_spmv_detect_kernel<Gather>
-      <<<grid, kRows, kSmemBytes, (cudaStream_t)stream>>>(a, gat, out);
+  if (a.sig.plane2 != nullptr)
+    ell_spmv_detect_kernel<Gather, 2>
+        <<<grid, kRows, (kSmemBytes<2>), (cudaStream_t)stream>>>(a, gat, out);
+  else
+    ell_spmv_detect_kernel<Gather, 1>
+        <<<grid, kRows, (kSmemBytes<1>), (cudaStream_t)stream>>>(a, gat, out);
   return (int)cudaGetLastError();
 }
 
 EllArgs args_of(const float* vals, const uint32_t* gsrc, unsigned gmask,
                 const int* ell_len, int K, int R, const float* x,
                 const float* xc, float* w, const uint32_t* plane,
-                const uint32_t* base, int use_parity, int use_cksum) {
+                const uint32_t* base, const uint32_t* plane2,
+                const uint32_t* base2, int use_parity, int use_cksum) {
   return EllArgs{vals, gsrc, gmask, ell_len, K, R, x, xc, w,
-                 DiaSignals{plane, base, use_parity, use_cksum}};
+                 DiaSignals{plane, base, use_parity, use_cksum, plane2,
+                            base2}};
+}
+
+template <class Gather>
+cudaError_t occupancy(int* per_sm, int planes) {
+  return planes == 2 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           per_sm, ell_spmv_detect_kernel<Gather, 2>, kRows,
+                           kSmemBytes<2>)
+                     : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           per_sm, ell_spmv_detect_kernel<Gather, 1>, kRows,
+                           kSmemBytes<1>);
 }
 
 }  // namespace
 
 // The schedule's constants (ops/spmv.py ELL_TILE_ROWS, ELL_SLAB,
 // ELL_STAGES) and the resident blocks per SM of the whole-matrix (halo 0)
-// or the halo form (halo 1) on ``device``, with its SM count: the grid is
-// ops/spmv.py::ell_grid of them.
+// or the halo form (halo 1) instance streaming ``planes`` signal planes (1
+// or 2) on ``device``, with its SM count: the grid is ops/spmv.py::
+// ell_grid of them.
 extern "C" int abft_ell_spmv_tile(void) { return kRows; }
 extern "C" int abft_ell_spmv_slab(void) { return kSlab; }
 extern "C" int abft_ell_spmv_stages(void) { return kStages; }
 
-extern "C" int abft_ell_spmv_occupancy(int device, int halo, int* per_sm,
-                                       int* sms) {
+extern "C" int abft_ell_spmv_occupancy(int device, int halo, int planes,
+                                       int* per_sm, int* sms) {
+  if (planes < 1 || planes > 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  return (int)(halo ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          per_sm, ell_spmv_detect_kernel<HaloGather>, kRows,
-                          kSmemBytes)
-                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                          per_sm, ell_spmv_detect_kernel<GlobalGather>,
-                          kRows, kSmemBytes));
+  return (int)(halo ? occupancy<HaloGather>(per_sm, planes)
+                    : occupancy<GlobalGather>(per_sm, planes));
 }
 
 // ``part`` and ``flags`` hold ``grid`` entries (scratch), ``pw`` and
-// ``trig`` are the 0-d outputs; 1 <= grid <= R / 32.
+// ``trig`` are the 0-d outputs; 1 <= grid <= R / 32; ``plane2`` (the row
+// word of constraints mode on COO128) is null but with a first plane.
 extern "C" int abft_ell_spmv_detect(const float* vals, const uint32_t* gsrc,
                                     unsigned gmask, const int* ell_len,
                                     int K, int R, const float* x, float* w,
                                     const uint32_t* plane,
-                                    const uint32_t* base, int use_parity,
+                                    const uint32_t* base,
+                                    const uint32_t* plane2,
+                                    const uint32_t* base2, int use_parity,
                                     int use_cksum, float* part, int* flags,
                                     float* pw, unsigned char* trig, int grid,
                                     int device, void* stream) {
   return launch(args_of(vals, gsrc, gmask, ell_len, K, R, x, x, w, plane,
-                        base, use_parity, use_cksum),
+                        base, plane2, base2, use_parity, use_cksum),
                 GlobalGather{R}, part, flags, pw, trig, grid, device,
                 stream);
 }
@@ -320,11 +362,13 @@ extern "C" int abft_ell_spmv_detect_halo(
     const float* vals, const uint32_t* gsrc, unsigned gmask,
     const int* ell_len, int K, int R, const float* x_ext, int H, int rows,
     int row0, float* w, const uint32_t* plane, const uint32_t* base,
-    int use_parity, int use_cksum, float* part, int* flags, float* pw,
-    unsigned char* trig, int grid, int device, void* stream) {
+    const uint32_t* plane2, const uint32_t* base2, int use_parity,
+    int use_cksum, float* part, int* flags, float* pw, unsigned char* trig,
+    int grid, int device, void* stream) {
   if (H < 0 || rows < 1) return (int)cudaErrorInvalidValue;
   return launch(args_of(vals, gsrc, gmask, ell_len, K, R, x_ext, x_ext + H,
-                        w, plane, base, use_parity, use_cksum),
+                        w, plane, base, plane2, base2, use_parity,
+                        use_cksum),
                 HaloGather{rows, H - row0, R + 2 * H}, part, flags, pw, trig,
                 grid, device, stream);
 }

@@ -14,7 +14,10 @@
 // kernels A and C over the one streamed (E,) plane — the rotated fold in
 // the ECC modes, the col word in constraints mode: parity of every slot,
 // and the XOR of every exact 8-slot block against its encode-time value
-// (ops/spmv.py::_fold_blocks on a 1-D plane).
+// (ops/spmv.py::_fold_blocks on a 1-D plane).  Constraints mode on
+// COO128 streams two planes, the col and the row word (the kPlanes = 2
+// instance): the second plane's 8-slot XORs close in registers against
+// its own baseline, parity is over the XOR of the two words.
 //
 // What it is not: the TPU kernel scans x in column order and routes the
 // products through two Benes networks because a TPU cannot gather; a GPU
@@ -180,6 +183,7 @@ struct Shared {
 // values and gather words, so a block waits for two round trips (those
 // loads, then the x gathers).  Returns the signals' flag; ends with the
 // block synchronised.
+template <int kPlanes>
 __device__ __forceinline__ int load_block(Shared& sh, const FlatMatrix& m,
                                           const float* __restrict__ x,
                                           const DiaSignals& sig, int r0,
@@ -188,7 +192,7 @@ __device__ __forceinline__ int load_block(Shared& sh, const FlatMatrix& m,
   const bool signals = sig.plane != nullptr;
   int rp[kRowPer + 1];
   float xr[kRowPer];
-  uint32_t sw[kPer];
+  uint32_t sw[kPer], sw2[kPlanes == 2 ? kPer : 1];
 #pragma unroll
   for (int k = 0; k <= kRowPer; ++k) {
     const int i = threadIdx.x + k * kBlock;
@@ -203,6 +207,8 @@ __device__ __forceinline__ int load_block(Shared& sh, const FlatMatrix& m,
   for (int k = 0; k < kPer; ++k) {
     const int j = q0 + threadIdx.x + k * kBlock;
     sw[k] = signals && j < q1 ? __ldg(sig.plane + j) : 0u;
+    if constexpr (kPlanes == 2)
+      sw2[k] = signals && j < q1 ? __ldg(sig.plane2 + j) : 0u;
   }
   const int ngroups = (q1 - q0) / 8;
   const uint32_t sb = signals && sig.use_cksum && threadIdx.x < ngroups
@@ -213,7 +219,19 @@ __device__ __forceinline__ int load_block(Shared& sh, const FlatMatrix& m,
     // x gathers are in flight.
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
-      if (sig.use_parity) odd |= __popc(sw[k]) & 1;
+      if constexpr (kPlanes == 2) {
+        if (sig.use_parity) odd |= __popc(sw[k] ^ sw2[k]) & 1;
+        uint32_t acc2 = sw2[k];
+        acc2 ^= __shfl_xor_sync(ABFT_FULL_MASK, acc2, 1);
+        acc2 ^= __shfl_xor_sync(ABFT_FULL_MASK, acc2, 2);
+        acc2 ^= __shfl_xor_sync(ABFT_FULL_MASK, acc2, 4);
+        const int g = (threadIdx.x + k * kBlock) >> 3;
+        if (signals && sig.use_cksum && (threadIdx.x & 7) == 0 &&
+            g < ngroups && acc2 != __ldg(sig.base2 + q0 / 8 + g))
+          odd = 1;
+      } else if (sig.use_parity) {
+        odd |= __popc(sw[k]) & 1;
+      }
       uint32_t acc = sw[k];
       acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 1);
       acc ^= __shfl_xor_sync(ABFT_FULL_MASK, acc, 2);
@@ -313,6 +331,7 @@ __device__ __forceinline__ float chain_chunk(const Shared& sh, int r,
   return __fmul_rn(__ldg(x + r), v);
 }
 
+template <int kPlanes>
 __global__ void __launch_bounds__(kBlock)
 flat_spmv_detect_kernel(FlatMatrix m, const int4* __restrict__ plan,
                         float* __restrict__ carry, unsigned int* sync,
@@ -326,7 +345,8 @@ flat_spmv_detect_kernel(FlatMatrix m, const int4* __restrict__ plan,
   const int4 blk = __ldg(plan + blockIdx.x);
   const bool chunk = blk.y < 0;
   const int nrows = chunk ? 0 : blk.y - blk.x;
-  const int bad = load_block(sh, m, x, sig, blk.x, nrows, blk.z, blk.w);
+  const int bad =
+      load_block<kPlanes>(sh, m, x, sig, blk.x, nrows, blk.z, blk.w);
   float pw;
   if (chunk) {
     const int f = -1 - blk.y;
@@ -346,25 +366,34 @@ extern "C" int abft_flat_spmv_run_rows(void) { return kRunRows; }
 // ``plan``: (nblocks, 4) row blocks from ops/spmv.py::flat_row_blocks
 // (16-byte aligned); ``carry`` holds 32 * nblocks floats (scratch),
 // ``sync`` nblocks flags that are zero (MatrixDevice.flat_sync), ``part``
-// and ``flags`` nblocks entries (scratch).
+// and ``flags`` nblocks entries (scratch); ``plane2`` (the row word of
+// constraints mode on COO128) is null but with a first plane.
 extern "C" int abft_flat_spmv_detect(const float* vals, const uint32_t* gsrc,
                                      unsigned gmask, const int* row_ptr,
                                      const int* plan, int nblocks,
                                      float* carry, unsigned* sync, int R,
                                      const float* x, float* w,
                                      const uint32_t* plane,
-                                     const uint32_t* base, int use_parity,
+                                     const uint32_t* base,
+                                     const uint32_t* plane2,
+                                     const uint32_t* base2, int use_parity,
                                      int use_cksum, float* part, int* flags,
                                      float* pw, unsigned char* trig,
                                      int device, void* stream) {
-  if (R < 1 || R % 32 != 0 || nblocks < 1)
+  if (R < 1 || R % 32 != 0 || nblocks < 1 ||
+      (plane2 != nullptr && (plane == nullptr || base2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   FlatMatrix m{vals, gsrc, gmask, row_ptr, R};
-  DiaSignals sig{plane, base, use_parity, use_cksum};
+  DiaSignals sig{plane, base, use_parity, use_cksum, plane2, base2};
   CallOut out{part, flags, pw, trig};
-  flat_spmv_detect_kernel<<<nblocks, kBlock, 0, (cudaStream_t)stream>>>(
-      m, reinterpret_cast<const int4*>(plan), carry, sync, x, w, sig, out);
+  const int4* p4 = reinterpret_cast<const int4*>(plan);
+  if (plane2 != nullptr)
+    flat_spmv_detect_kernel<2><<<nblocks, kBlock, 0, (cudaStream_t)stream>>>(
+        m, p4, carry, sync, x, w, sig, out);
+  else
+    flat_spmv_detect_kernel<1><<<nblocks, kBlock, 0, (cudaStream_t)stream>>>(
+        m, p4, carry, sync, x, w, sig, out);
   return (int)cudaGetLastError();
 }

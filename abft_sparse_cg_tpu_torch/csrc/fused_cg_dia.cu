@@ -66,6 +66,12 @@
 // One persistent cooperative launch runs the whole solve; no float
 // atomics, so two runs print identical rr lines.
 //
+// Constraints mode on COO128 streams two signal planes, the col and the
+// row word, each against its own baseline (dia_common.cuh): every
+// instance below has a kPlanes = 2 twin that loads the second plane's
+// words beside the first's, in the product pass, the lazy instances'
+// every-CI-th scan and their exit-window pass.
+//
 // A bordered split with a dense plan runs the instances with the split
 // tail (dia_common.cuh TailPlan, solver/fused.py:977-1014), which
 // keep their own loop, tail_loop below: one row per thread, grid-strided,
@@ -133,7 +139,7 @@ struct FusedArgs {
 // The split-tail instances' loop (their own schedule: one row per thread,
 // grid-strided, three grid syncs); each __global__ below inlines it with
 // its own launch bounds.
-template <bool kPrecond, bool kLazy>
+template <bool kPrecond, bool kLazy, int kPlanes>
 __device__ __forceinline__ void tail_loop(const FusedArgs& a,
                                           const DiaOffsets& offs,
                                           const TailPlan& tp,
@@ -182,10 +188,10 @@ __device__ __forceinline__ void tail_loop(const FusedArgs& a,
         pw_l = __fadd_rn(pw_l, __fmul_rn(__ldcg(a.p + i), wt));
       }
       if (a.sig.plane != nullptr && chk)
-        bad |= dia_row_signals(a.sig, offs.n, R, i);
+        bad |= dia_row_signals<kPlanes>(a.sig, offs.n, R, i);
     }
     tail_dense_chunk(tp, tsh, a.p, fbuf);
-    if (chk) bad |= tail_signals(tp, tid, stride);
+    if (chk) bad |= tail_signals<kPlanes>(tp, tid, stride);
     const float bpw = block_sum(pw_l, fbuf);
     const int bbad = block_any(bad, ibuf);
     if (threadIdx.x == 0) {
@@ -267,8 +273,8 @@ __device__ __forceinline__ void tail_loop(const FusedArgs& a,
       int bad = 0;
       if (a.sig.plane != nullptr)
         for (int i = tid; i < R; i += stride)
-          bad |= dia_row_signals(a.sig, offs.n, R, i);
-      bad |= tail_signals(tp, tid, stride);
+          bad |= dia_row_signals<kPlanes>(a.sig, offs.n, R, i);
+      bad |= tail_signals<kPlanes>(tp, tid, stride);
       const int bbad = block_any(bad, ibuf);
       if (threadIdx.x == 0) a.part_flag[blockIdx.x] = bbad;
       grid.sync();
@@ -293,7 +299,7 @@ __device__ __forceinline__ void tail_loop(const FusedArgs& a,
 // [b nb, (b + 1) nb); thread t takes rows lo + 4t .. lo + 4t + 3 of each
 // kTile-row tile [lo, hi) of that range, in every pass, so each thread
 // reads back only rows it wrote itself, but for the fold's halo rows.
-template <bool kFold, bool kPrecond, bool kLazy>
+template <bool kFold, bool kPrecond, bool kLazy, int kPlanes>
 __device__ __forceinline__ void row_loop(const FusedArgs& a,
                                          const DiaOffsets& offs,
                                          const CgOpts& o) {
@@ -397,7 +403,7 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
       // the stencil, and the signal words beside the values (both
       // planes' loads in flight together)
       const bool sig = a.sig.plane != nullptr && chk;
-      uint32_t acc = 0;
+      uint32_t acc = 0, acc2 = 0;
       if (r < hi) {
         float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
         for (int d = 0; d < offs.n; ++d) {
@@ -405,8 +411,16 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
           if (sig) {
             const uint4 u = __ldg(reinterpret_cast<const uint4*>(
                 a.sig.plane + (size_t)d * R + r));
+            uint4 pu = u;
+            if constexpr (kPlanes == 2) {
+              const uint4 u2 = __ldg(reinterpret_cast<const uint4*>(
+                  a.sig.plane2 + (size_t)d * R + r));
+              acc2 ^= u2.x ^ u2.y ^ u2.z ^ u2.w;
+              pu = make_uint4(u.x ^ u2.x, u.y ^ u2.y, u.z ^ u2.z, u.w ^ u2.w);
+            }
             if (a.sig.use_parity)
-              bad |= (__popc(u.x) | __popc(u.y) | __popc(u.z) | __popc(u.w)) &
+              bad |= (__popc(pu.x) | __popc(pu.y) | __popc(pu.z) |
+                      __popc(pu.w)) &
                      1;
             acc ^= u.x ^ u.y ^ u.z ^ u.w;
           }
@@ -439,6 +453,12 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
         if (r < hi && (threadIdx.x & 1) == 0 &&
             acc != __ldg(a.sig.base + (r >> 3)))
           bad = 1;
+        if constexpr (kPlanes == 2) {
+          acc2 ^= __shfl_xor_sync(ABFT_FULL_MASK, acc2, 1);
+          if (r < hi && (threadIdx.x & 1) == 0 &&
+              acc2 != __ldg(a.sig.base2 + (r >> 3)))
+            bad = 1;
+        }
       }
       if constexpr (kFold) __syncthreads();  // the next tile's stage
     }
@@ -600,15 +620,23 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
         for (int lo = lo0; lo < hi0; lo += kTile) {
           const int r = lo + t4;
           const int hi = min(lo + kTile, hi0);
-          uint32_t acc = 0;
+          uint32_t acc = 0, acc2 = 0;
           if (r < hi) {
             for (int d = 0; d < offs.n; ++d) {
               const uint4 u = __ldg(reinterpret_cast<const uint4*>(
                   a.sig.plane + (size_t)d * R + r));
+              uint4 pu = u;
+              if constexpr (kPlanes == 2) {
+                const uint4 u2 = __ldg(reinterpret_cast<const uint4*>(
+                    a.sig.plane2 + (size_t)d * R + r));
+                acc2 ^= u2.x ^ u2.y ^ u2.z ^ u2.w;
+                pu = make_uint4(u.x ^ u2.x, u.y ^ u2.y, u.z ^ u2.z,
+                                u.w ^ u2.w);
+              }
               if (a.sig.use_parity)
-                bad |=
-                    (__popc(u.x) | __popc(u.y) | __popc(u.z) | __popc(u.w)) &
-                    1;
+                bad |= (__popc(pu.x) | __popc(pu.y) | __popc(pu.z) |
+                        __popc(pu.w)) &
+                       1;
               acc ^= u.x ^ u.y ^ u.z ^ u.w;
             }
           }
@@ -617,6 +645,12 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
             if (r < hi && (threadIdx.x & 1) == 0 &&
                 acc != __ldg(a.sig.base + (r >> 3)))
               bad = 1;
+            if constexpr (kPlanes == 2) {
+              acc2 ^= __shfl_xor_sync(ABFT_FULL_MASK, acc2, 1);
+              if (r < hi && (threadIdx.x & 1) == 0 &&
+                  acc2 != __ldg(a.sig.base2 + (r >> 3)))
+                bad = 1;
+            }
           }
         }
       }
@@ -640,46 +674,54 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
   }
 }
 
-template <bool kFold, bool kPrecond, bool kLazy>
+template <bool kFold, bool kPrecond, bool kLazy, int kPlanes>
 __global__ void __launch_bounds__(kBlock, kRowBlocksPerSM)
 fused_cg_dia_rows(FusedArgs a, DiaOffsets offs, CgOpts o) {
-  row_loop<kFold, kPrecond, kLazy>(a, offs, o);
+  row_loop<kFold, kPrecond, kLazy, kPlanes>(a, offs, o);
 }
 
-template <bool kPrecond>
+template <bool kPrecond, int kPlanes>
 __global__ void __launch_bounds__(kBlock)
 fused_cg_dia_tail_kernel(FusedArgs a, DiaOffsets offs, TailPlan tp,
                          CgOpts o) {
-  tail_loop<kPrecond, false>(a, offs, tp, o);
+  tail_loop<kPrecond, false, kPlanes>(a, offs, tp, o);
 }
 
-template <bool kPrecond>
+template <bool kPrecond, int kPlanes>
 __global__ void __launch_bounds__(kBlock, kLazyBlocksPerSM)
 fused_cg_dia_tail_lazy_kernel(FusedArgs a, DiaOffsets offs, TailPlan tp,
                               CgOpts o) {
-  tail_loop<kPrecond, true>(a, offs, tp, o);
+  tail_loop<kPrecond, true, kPlanes>(a, offs, tp, o);
 }
 
-// The instance of (tail, Jacobi, lazy, fold).  The split-tail instances
-// have one schedule.
-const void* instance(bool tail, bool precond, bool lazy, bool fold) {
+template <int kPlanes>
+const void* instance_of(bool tail, bool precond, bool lazy, bool fold) {
   if (tail) {
-    const void* fns[4] = {(const void*)fused_cg_dia_tail_kernel<false>,
-                          (const void*)fused_cg_dia_tail_kernel<true>,
-                          (const void*)fused_cg_dia_tail_lazy_kernel<false>,
-                          (const void*)fused_cg_dia_tail_lazy_kernel<true>};
+    const void* fns[4] = {
+        (const void*)fused_cg_dia_tail_kernel<false, kPlanes>,
+        (const void*)fused_cg_dia_tail_kernel<true, kPlanes>,
+        (const void*)fused_cg_dia_tail_lazy_kernel<false, kPlanes>,
+        (const void*)fused_cg_dia_tail_lazy_kernel<true, kPlanes>};
     return fns[(precond ? 1 : 0) + (lazy ? 2 : 0)];
   }
   const void* fns[8] = {
-      (const void*)fused_cg_dia_rows<false, false, false>,
-      (const void*)fused_cg_dia_rows<true, false, false>,
-      (const void*)fused_cg_dia_rows<false, true, false>,
-      (const void*)fused_cg_dia_rows<true, true, false>,
-      (const void*)fused_cg_dia_rows<false, false, true>,
-      (const void*)fused_cg_dia_rows<true, false, true>,
-      (const void*)fused_cg_dia_rows<false, true, true>,
-      (const void*)fused_cg_dia_rows<true, true, true>};
+      (const void*)fused_cg_dia_rows<false, false, false, kPlanes>,
+      (const void*)fused_cg_dia_rows<true, false, false, kPlanes>,
+      (const void*)fused_cg_dia_rows<false, true, false, kPlanes>,
+      (const void*)fused_cg_dia_rows<true, true, false, kPlanes>,
+      (const void*)fused_cg_dia_rows<false, false, true, kPlanes>,
+      (const void*)fused_cg_dia_rows<true, false, true, kPlanes>,
+      (const void*)fused_cg_dia_rows<false, true, true, kPlanes>,
+      (const void*)fused_cg_dia_rows<true, true, true, kPlanes>};
   return fns[(fold ? 1 : 0) + (precond ? 2 : 0) + (lazy ? 4 : 0)];
+}
+
+// The instance of (tail, Jacobi, lazy, fold, signal planes).  The
+// split-tail instances have one schedule.
+const void* instance(bool tail, bool precond, bool lazy, bool fold,
+                     int planes) {
+  return planes == 2 ? instance_of<2>(tail, precond, lazy, fold)
+                     : instance_of<1>(tail, precond, lazy, fold);
 }
 
 bool aligned16(const void* q) { return ((uintptr_t)q & 15u) == 0; }
@@ -687,14 +729,16 @@ bool aligned16(const void* q) { return ((uintptr_t)q & 15u) == 0; }
 }  // namespace
 
 // Largest co-resident grid for the cooperative launch on ``device`` of
-// the instance (``tail``, ``precond``, ``lazy``).  A split-tail instance
+// the instance (``tail``, ``precond``, ``lazy``) streaming ``planes``
+// signal planes (1, or 2: constraints mode on COO128).  A split-tail instance
 // gets SMs x its own resident blocks per SM (the tail live instance fits
 // 6, the lazy ones 8, launched on the live grid).  Every tail-free
 // instance, either schedule, gets SMs x kRowBlocksPerSM, which its launch
 // bounds guarantee (the query checks it): one partition of the rows for
 // all of them.  Returns a cudaError_t.
 extern "C" int abft_fused_grid(int device, int tail, int precond, int lazy,
-                               int* grid) {
+                               int planes, int* grid) {
+  if (planes < 1 || planes > 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int coop = 0, sms = 0;
@@ -707,7 +751,7 @@ extern "C" int abft_fused_grid(int device, int tail, int precond, int lazy,
   for (int fold = 0; fold < (tail ? 1 : 2); ++fold) {
     int n = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, instance(tail, precond, lazy, fold), kBlock, 0);
+        &n, instance(tail, precond, lazy, fold, planes), kBlock, 0);
     if (err != cudaSuccess) return (int)err;
     per_sm = n < per_sm ? n : per_sm;
   }
@@ -717,33 +761,40 @@ extern "C" int abft_fused_grid(int device, int tail, int precond, int lazy,
   return *grid > 0 ? (int)cudaSuccess : (int)cudaErrorLaunchOutOfResources;
 }
 
-// ``fold``: the tail-free schedule (1 fold, 0 three-sync; ignored with a
-// tail); ``r2``, ``p2``: the fold's second r and p buffers (R floats,
-// 16-byte aligned); ``nb``: the tail-free rows per block (a multiple of
-// 8, nb x grid >= R).
+// ``plane2``, ``tplane2``: the second signal planes of the main part and
+// the tail (constraints mode on COO128: the row word), null but with a
+// first plane; they select the two-plane instances.  ``fold``: the
+// tail-free schedule (1 fold, 0 three-sync; ignored with a tail); ``r2``,
+// ``p2``: the fold's second r and p buffers (R floats, 16-byte aligned);
+// ``nb``: the tail-free rows per block (a multiple of 8, nb x grid >= R).
 extern "C" int abft_fused_cg_dia(
     const float* vals, const int* offsets, int D, int R, float* x, float* r,
     float* p, float* w, const uint32_t* plane, const uint32_t* base,
-    int use_parity, int use_cksum, float* part_pw, float* part_rr,
-    int* part_flag, int grid, const int* iscal_in, const float* fscal_in,
-    int* iscal_out, float* fscal_out, float* trace, int trace_len,
-    float conv, const float* td, const float* tb, const int* trows,
-    const int* tstarts, const unsigned long long* ttiles, int T, int S,
-    int tchunk, float* tpart, float* tmain, const uint32_t* tplane,
-    const uint32_t* tbase, int E, const float* minv, float* part_rz,
+    const uint32_t* plane2, const uint32_t* base2, int use_parity,
+    int use_cksum, float* part_pw, float* part_rr, int* part_flag, int grid,
+    const int* iscal_in, const float* fscal_in, int* iscal_out,
+    float* fscal_out, float* trace, int trace_len, float conv,
+    const float* td, const float* tb, const int* trows, const int* tstarts,
+    const unsigned long long* ttiles, int T, int S, int tchunk, float* tpart,
+    float* tmain, const uint32_t* tplane, const uint32_t* tbase,
+    const uint32_t* tplane2, const uint32_t* tbase2, int E,
+    const float* minv, float* part_rz,
     float* xs, float* rs, float* ps, int ci, int* snap_iout,
     float* snap_fout, int fold, float* r2, float* p2, int nb, int device,
     void* stream) {
   const bool precond = minv != nullptr, lazy = ci > 1, tail = T > 0;
+  const int planes = plane2 != nullptr ? 2 : 1;
   if (D < 1 || D > ABFT_MAX_D || R % 32 != 0 || grid < 1 || ci < 1 ||
+      (plane2 != nullptr && (plane == nullptr || base2 == nullptr)) ||
+      (tail && tplane != nullptr && (tplane2 != nullptr) != (planes == 2)) ||
       (precond && part_rz == nullptr) ||
       (lazy && (xs == nullptr || rs == nullptr || ps == nullptr ||
                 snap_iout == nullptr || snap_fout == nullptr)))
     return (int)cudaErrorInvalidValue;
   TailPlan t;
   if (!make_tail_plan(&t, td, tb, trows, tstarts, ttiles, T, S, tchunk,
-                      tpart, tmain, tplane, tbase, use_parity, use_cksum, E,
-                      p))
+                      tpart, tmain, tplane, tbase, tplane2, tbase2, use_parity,
+                      use_cksum, E, p))
     return (int)cudaErrorInvalidValue;
   int halo = 0;
   for (int d = 0; d < D; ++d) {
@@ -753,7 +804,8 @@ extern "C" int abft_fused_cg_dia(
   fold = !tail && fold;
   if (!tail) {
     // the 16-byte loads, the partition, the fold's buffers and its halo
-    const void* vecs[] = {vals, x, r, p, w, plane, minv, xs, rs, ps, r2, p2};
+    const void* vecs[] = {vals, x,  r,  p,  w,  plane, plane2,
+                          minv, xs, rs, ps, r2, p2};
     for (const void* v : vecs)
       if (!aligned16(v)) return (int)cudaErrorInvalidValue;
     if (nb < 8 || nb % 8 != 0 || (long long)nb * grid < R ||
@@ -778,7 +830,7 @@ extern "C" int abft_fused_cg_dia(
   a.p2 = p2;
   a.nb = nb;
   a.halo = halo;
-  a.sig = DiaSignals{plane, base, use_parity, use_cksum};
+  a.sig = DiaSignals{plane, base, use_parity, use_cksum, plane2, base2};
   a.part_pw = part_pw;
   a.part_rr = part_rr;
   a.part_flag = part_flag;
@@ -793,7 +845,7 @@ extern "C" int abft_fused_cg_dia(
   void* tail_args[] = {&a, &offs, &t, &o};
   void* row_args[] = {&a, &offs, &o};
   err = cudaLaunchCooperativeKernel(
-      instance(tail, precond, lazy, fold), dim3(grid), dim3(kBlock),
+      instance(tail, precond, lazy, fold, planes), dim3(grid), dim3(kBlock),
       tail ? tail_args : row_args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

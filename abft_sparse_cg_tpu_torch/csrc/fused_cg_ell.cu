@@ -22,7 +22,10 @@
 // kernel B's split tail (kTail; dia_common.cuh TailPlan, fused_cg_dia.cu:
 // the AXPY terms beside each row's product in step 1, the outlier rows
 // finished after its sync, no grid sync of its own), and the Jacobi and
-// lazy instances are kernel B's (dia_common.cuh CgOpts).
+// lazy instances are kernel B's (dia_common.cuh CgOpts).  Constraints
+// mode on COO128 streams two signal planes, the col and the row word, each
+// against its own baseline: the kPlanes = 2 instances of the signal
+// helpers (ell_row_signals, dia_row_signals, tail_signals).
 //
 // What bounds it on the H100: bytes per iteration — the plane streams (K
 // values + K gather words + K signal words per row in the detecting
@@ -98,7 +101,8 @@ struct FusedArgs {
 // and lazy instances (dia_common.cuh CgOpts); lazy implies kSignals.  The
 // lazy instance's unchecked iterations run ell_row, its checked ones
 // ell_row_signals: both sum the slots in order, so w is the same bits.
-template <bool kSignals, bool kTail, bool kPrecond, bool kLazy>
+// kPlanes: the signal planes streamed (2: constraints mode on COO128).
+template <bool kSignals, bool kTail, bool kPrecond, bool kLazy, int kPlanes>
 __device__ __forceinline__ void cg_loop(const FusedArgs& a,
                                         const EllPlanes& m,
                                         const TailPlan& tp, const CgOpts& o) {
@@ -137,8 +141,9 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
     for (int i = tid; i < R; i += stride) {
       const float wr =
           kSignals && chk
-              ? ell_row_signals<true>(m.vals, m.gsrc, m.gmask, m.ell_len,
-                                      m.K, R, a.p, i, a.sig, &bad)
+              ? ell_row_signals<true, kPlanes>(m.vals, m.gsrc, m.gmask,
+                                               m.ell_len, m.K, R, a.p, i,
+                                               a.sig, &bad)
               : ell_row<true>(m.vals, m.gsrc, m.gmask, m.ell_len, m.K, R,
                               a.p, i);
       if constexpr (kTail) {
@@ -158,7 +163,7 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
     }
     if constexpr (kTail) {
       tail_dense_chunk(tp, tsh, a.p, fbuf);
-      if (chk) bad |= tail_signals(tp, tid, stride);
+      if (chk) bad |= tail_signals<kPlanes>(tp, tid, stride);
     }
     const float bpw = block_sum(pw_l, fbuf);
     const int bbad = block_any(bad, ibuf);
@@ -248,8 +253,8 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
     if (its != itr && trig == 0 && err == 0) {
       int bad = 0;
       for (int i = tid; i < R; i += stride)
-        bad |= dia_row_signals(a.sig, m.K, R, i);
-      if constexpr (kTail) bad |= tail_signals(tp, tid, stride);
+        bad |= dia_row_signals<kPlanes>(a.sig, m.K, R, i);
+      if constexpr (kTail) bad |= tail_signals<kPlanes>(tp, tid, stride);
       const int bbad = block_any(bad, ibuf);
       if (threadIdx.x == 0) a.part_flag[blockIdx.x] = bbad;
       grid.sync();
@@ -271,21 +276,36 @@ __device__ __forceinline__ void cg_loop(const FusedArgs& a,
 }
 
 // Each __global__ below inlines the loop with its own launch bounds.
-template <bool kSignals, bool kTail, bool kPrecond>
+template <bool kSignals, bool kTail, bool kPrecond, int kPlanes = 1>
 __global__ void __launch_bounds__(kBlock)
 fused_cg_ell_kernel(FusedArgs a, EllPlanes m, TailPlan tp, CgOpts o) {
-  cg_loop<kSignals, kTail, kPrecond, false>(a, m, tp, o);
+  cg_loop<kSignals, kTail, kPrecond, false, kPlanes>(a, m, tp, o);
 }
 
-template <bool kTail, bool kPrecond>
+template <bool kTail, bool kPrecond, int kPlanes = 1>
 __global__ void __launch_bounds__(kBlock, kLazyBlocksPerSM)
 fused_cg_ell_lazy_kernel(FusedArgs a, EllPlanes m, TailPlan tp, CgOpts o) {
-  cg_loop<true, kTail, kPrecond, true>(a, m, tp, o);
+  cg_loop<true, kTail, kPrecond, true, kPlanes>(a, m, tp, o);
 }
 
-// The instance of (signals, tail, Jacobi, lazy); null for lazy without
-// signals (mode none has no lazy schedule).
-const void* instance(bool signals, bool tail, bool precond, bool lazy) {
+// The instance of (signals, tail, Jacobi, lazy, signal planes); null for
+// lazy without signals (mode none has no lazy schedule).  ``planes`` 2
+// (constraints mode on COO128) selects the two-plane twin of a signal
+// instance.
+const void* instance(bool signals, bool tail, bool precond, bool lazy,
+                     int planes) {
+  if (signals && planes == 2) {
+    const void* fns[8] = {
+        (const void*)fused_cg_ell_kernel<true, false, false, 2>,
+        (const void*)fused_cg_ell_kernel<true, true, false, 2>,
+        (const void*)fused_cg_ell_kernel<true, false, true, 2>,
+        (const void*)fused_cg_ell_kernel<true, true, true, 2>,
+        (const void*)fused_cg_ell_lazy_kernel<false, false, 2>,
+        (const void*)fused_cg_ell_lazy_kernel<true, false, 2>,
+        (const void*)fused_cg_ell_lazy_kernel<false, true, 2>,
+        (const void*)fused_cg_ell_lazy_kernel<true, true, 2>};
+    return fns[(tail ? 1 : 0) + (precond ? 2 : 0) + (lazy ? 4 : 0)];
+  }
   if (lazy) {
     if (!signals) return nullptr;
     const void* fns[4] = {
@@ -311,10 +331,11 @@ const void* instance(bool signals, bool tail, bool precond, bool lazy) {
 
 // Largest co-resident grid for the cooperative launch on ``device``:
 // SMs x resident blocks per SM, for both signal instances of (``tail``,
-// ``precond``) live, or for the lazy instance (signals only).  Returns a
-// cudaError_t.
+// ``precond``) live (the signal one streaming ``planes`` planes), or for
+// the lazy instance (signals only).  Returns a cudaError_t.
 extern "C" int abft_fused_ell_grid(int device, int tail, int precond,
-                                   int lazy, int* grid) {
+                                   int lazy, int planes, int* grid) {
+  if (planes < 1 || planes > 2) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int coop = 0, sms = 0, per_sm = 0;
@@ -323,8 +344,8 @@ extern "C" int abft_fused_ell_grid(int device, int tail, int precond,
   if (!coop) return (int)cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  const void* fns[] = {instance(true, tail, precond, lazy),
-                       instance(false, tail, precond, lazy)};
+  const void* fns[] = {instance(true, tail, precond, lazy, planes),
+                       instance(false, tail, precond, lazy, planes)};
   per_sm = 1 << 30;
   for (const void* fn : fns) {
     if (fn == nullptr) continue;
@@ -340,18 +361,23 @@ extern "C" int abft_fused_ell_grid(int device, int tail, int precond,
 extern "C" int abft_fused_cg_ell(
     const float* vals, const uint32_t* gsrc, unsigned gmask,
     const int* ell_len, int K, int R, float* x, float* r, float* p,
-    float* w, const uint32_t* plane, const uint32_t* base, int use_parity,
+    float* w, const uint32_t* plane, const uint32_t* base,
+    const uint32_t* plane2, const uint32_t* base2, int use_parity,
     int use_cksum, float* part_pw, float* part_rr, int* part_flag,
     int grid, const int* iscal_in, const float* fscal_in, int* iscal_out,
     float* fscal_out, float* trace, int trace_len, float conv,
     const float* td, const float* tb, const int* trows, const int* tstarts,
     const unsigned long long* ttiles, int T, int S, int tchunk,
     float* tpart, float* tmain, const uint32_t* tplane,
-    const uint32_t* tbase, int E, const float* minv, float* part_rz,
+    const uint32_t* tbase, const uint32_t* tplane2, const uint32_t* tbase2,
+    int E, const float* minv, float* part_rz,
     float* xs, float* rs, float* ps, int ci, int* snap_iout,
     float* snap_fout, int device, void* stream) {
   const bool precond = minv != nullptr, lazy = ci > 1;
+  const int planes = plane2 != nullptr ? 2 : 1;
   if (K < 1 || K > ABFT_MAX_K || R % 32 != 0 || grid < 1 || ci < 1 ||
+      (plane2 != nullptr && (plane == nullptr || base2 == nullptr)) ||
+      (T > 0 && tplane != nullptr && (tplane2 != nullptr) != (planes == 2)) ||
       (precond && part_rz == nullptr) ||
       (lazy && (plane == nullptr || xs == nullptr || rs == nullptr ||
                 ps == nullptr || snap_iout == nullptr ||
@@ -359,11 +385,12 @@ extern "C" int abft_fused_cg_ell(
     return (int)cudaErrorInvalidValue;
   TailPlan t;
   if (!make_tail_plan(&t, td, tb, trows, tstarts, ttiles, T, S, tchunk,
-                      tpart, tmain, tplane, tbase, use_parity, use_cksum, E,
-                      p))
+                      tpart, tmain, tplane, tbase, tplane2, tbase2, use_parity,
+                      use_cksum, E, p))
     return (int)cudaErrorInvalidValue;
   int max_grid = 0;
-  int rc = abft_fused_ell_grid(device, T > 0, precond, lazy, &max_grid);
+  int rc =
+      abft_fused_ell_grid(device, T > 0, precond, lazy, planes, &max_grid);
   if (rc != (int)cudaSuccess) return rc;
   if (grid > max_grid) return (int)cudaErrorCooperativeLaunchTooLarge;
   EllPlanes m{vals, gsrc, ell_len, gmask, K};
@@ -373,7 +400,7 @@ extern "C" int abft_fused_cg_ell(
   a.r = r;
   a.p = p;
   a.w = w;
-  a.sig = DiaSignals{plane, base, use_parity, use_cksum};
+  a.sig = DiaSignals{plane, base, use_parity, use_cksum, plane2, base2};
   a.part_pw = part_pw;
   a.part_rr = part_rr;
   a.part_flag = part_flag;
@@ -387,7 +414,7 @@ extern "C" int abft_fused_cg_ell(
   CgOpts o{minv, part_rz, xs, rs, ps, ci, snap_iout, snap_fout};
   void* args[] = {&a, &m, &t, &o};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      instance(plane != nullptr, T > 0, precond, lazy), dim3(grid),
+      instance(plane != nullptr, T > 0, precond, lazy, planes), dim3(grid),
       dim3(kBlock), args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

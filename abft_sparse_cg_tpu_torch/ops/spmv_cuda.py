@@ -59,7 +59,6 @@ from .spmv import (
     flat_product,
     make_constraints_check,
     make_spmv,
-    not_ported,
     window_positions,
 )
 
@@ -102,35 +101,40 @@ class DiaSpec(NamedTuple):
     """Static description of one DIA product with signals.
 
     ``plane``: None (no signals), "fold" (ECC modes) or the index of the
-    one word plane scanned (constraints: the col word).  ``detect`` is
-    False for the detection-free product (``product_spec``)."""
+    first word plane scanned (constraints: the col word); ``plane2``: the
+    index of the second one (constraints on COO128: the row word), else
+    None.  ``detect`` is False for the detection-free product
+    (``product_spec``)."""
 
     offsets: tuple
     use_parity: bool
     use_cksum: bool
     plane: object
     detect: bool = True
+    plane2: object = None
 
 
-def _signal_plane(mode, mat):
-    """(use_parity, use_cksum, plane): the one plane live detection
-    streams — None, "fold" or the word index (constraints: col)."""
+def _signal_plane(mode, mat) -> dict:
+    """The signal fields of a spec (use_parity, use_cksum, plane,
+    plane2): the planes live detection streams, in codeword-word order —
+    none, the fold, or the index words (constraints: col, and row on
+    COO128, each against its own baseline; spmv_pallas.py:283-298)."""
     use_parity, use_cksum, sw = _mode_signals(mode, mat)
-    if not (use_parity or use_cksum):
-        plane = None
-    elif use_fold(mode):
-        plane = "fold"
-    else:
-        if len(sw) != 1:
-            raise not_ported("a multi-word constraints scan (cg-coo)", "7")
-        plane = sw[0]
-    return use_parity, use_cksum, plane
+    planes = ()
+    if use_parity or use_cksum:
+        planes = ("fold",) if use_fold(mode) else sw
+    if len(planes) > 2:
+        raise ValueError(f"{mode}: {len(planes)} signal planes, the kernels "
+                         "scan at most 2")
+    planes = planes + (None,) * (2 - len(planes))
+    return dict(use_parity=use_parity, use_cksum=use_cksum,
+                plane=planes[0], plane2=planes[1])
 
 
 def dia_spec(mat, mode) -> DiaSpec:
     if mat.exec_kind != "dia":
         raise ValueError(f"dia_spec: a {mat.exec_kind!r} matrix")
-    return DiaSpec(tuple(mat.dia_offsets), *_signal_plane(mode, mat))
+    return DiaSpec(tuple(mat.dia_offsets), **_signal_plane(mode, mat))
 
 
 class EllSpec(NamedTuple):
@@ -151,6 +155,7 @@ class EllSpec(NamedTuple):
     mask_ecc: bool
     detect: bool = True
     rows: int = 0
+    plane2: object = None
 
 
 def _gather_source(mat, mode) -> dict:
@@ -168,13 +173,14 @@ def _gather_source(mat, mode) -> dict:
 def ell_spec(mat, mode) -> EllSpec:
     if mat.exec_kind != "ell":
         raise ValueError(f"ell_spec: a {mat.exec_kind!r} matrix")
-    return EllSpec(mat.K, *_signal_plane(mode, mat),
+    return EllSpec(mat.K, **_signal_plane(mode, mat),
                    **_gather_source(mat, mode), rows=mat.R)
 
 
 class FlatSpec(NamedTuple):
     """Static description of one flat product with signals: ``gather``,
-    ``mask_ecc`` and ``plane`` as in EllSpec, over (E,) planes."""
+    ``mask_ecc``, ``plane`` and ``plane2`` as in EllSpec, over (E,)
+    planes."""
 
     use_parity: bool
     use_cksum: bool
@@ -182,12 +188,13 @@ class FlatSpec(NamedTuple):
     gather: object
     mask_ecc: bool
     detect: bool = True
+    plane2: object = None
 
 
 def flat_spec(mat, mode) -> FlatSpec:
     if mat.exec_kind != "flat":
         raise ValueError(f"flat_spec: a {mat.exec_kind!r} matrix")
-    return FlatSpec(*_signal_plane(mode, mat), **_gather_source(mat, mode))
+    return FlatSpec(**_signal_plane(mode, mat), **_gather_source(mat, mode))
 
 
 def fast_spec(mat, mode):
@@ -206,26 +213,46 @@ def product_spec(mat, mode):
     spmv_pallas.py:313): no plane streamed, the gather source and ECC
     masking of the true mode kept."""
     return fast_spec(mat, mode)._replace(use_parity=False, use_cksum=False,
-                                         plane=None, detect=False)
+                                         plane=None, plane2=None,
+                                         detect=False)
 
 
-def _signal_planes(md: MatrixDevice, spec):
-    """(plane (D, R) int32, baseline (R/8,) int32) or (None, None)."""
-    if spec.plane is None:
-        return None, None
-    if spec.plane == "fold":
-        return md.fold, md.fold_ck[0]
-    return md.words[spec.plane], md.cksum[spec.plane]
+def _signal_planes(md: MatrixDevice, spec) -> tuple:
+    """The (plane, baseline) pairs of ``spec``'s signals in codeword-word
+    order — () without signals, else one or two pairs of a (D, R) (or
+    (E,)) int32 plane and its (R/8,) int32 block checksums."""
+    pairs = []
+    for p in (spec.plane, spec.plane2):
+        if p == "fold":
+            pairs.append((md.fold, md.fold_ck[0]))
+        elif p is not None:
+            pairs.append((md.words[p], md.cksum[p]))
+    return tuple(pairs)
+
+
+def _plane_ptrs(pairs) -> tuple:
+    """(plane, baseline, plane2, baseline2) addresses of the C interfaces
+    (None where a plane is absent)."""
+    pairs = tuple(pairs) + ((None, None),) * (2 - len(pairs))
+    return tuple(_ptr(t) for pair in pairs for t in pair)
 
 
 def signals_plain(md: MatrixDevice, spec) -> torch.Tensor:
-    """The trigger of ``spec``'s signals, in plain PyTorch."""
-    plane, base = _signal_planes(md, spec)
+    """The trigger of ``spec``'s signals, in plain PyTorch: parity of
+    every element over its streamed words, and each plane's 8-row block
+    XORs against its own baseline, ORed."""
+    pairs = _signal_planes(md, spec)
     trig = torch.zeros((), dtype=torch.bool, device=md.values.device)
+    if not pairs:
+        return trig
     if spec.use_parity:
-        trig = trig | torch.any(parity32(widen(plane)) != 0)
+        acc = pairs[0][0]
+        for plane, _ in pairs[1:]:
+            acc = acc ^ plane
+        trig = trig | torch.any(parity32(widen(acc)) != 0)
     if spec.use_cksum:
-        trig = trig | torch.any(_fold_blocks(plane) != base)
+        for plane, base in pairs:
+            trig = trig | torch.any(_fold_blocks(plane) != base)
     return trig
 
 
@@ -269,8 +296,8 @@ def _check_x(x: torch.Tensor, what) -> int:
 
 def _check_planes(md: MatrixDevice, spec, R, dev, what):
     """Validate the planes of a DIA or ELL product over R rows on
-    ``dev``; returns (D or K, signal plane, baseline, gather plane or
-    None)."""
+    ``dev``; returns (D or K, the (signal plane, baseline) pairs, gather
+    plane or None)."""
     D = len(spec.offsets) if isinstance(spec, DiaSpec) else spec.K
     _check_tensor(what, "values", md.values, torch.float32, (D, R), dev)
     gsrc = None
@@ -278,19 +305,19 @@ def _check_planes(md: MatrixDevice, spec, R, dev, what):
         gsrc = md.gidx if spec.gather == "gidx" else md.words[spec.gather]
         _check_tensor(what, "gather plane", gsrc, torch.int32, (D, R), dev)
         _check_tensor(what, "ell_len", md.ell_len, torch.int32, (R,), dev)
-    plane, base = _signal_planes(md, spec)
-    if plane is not None:
+    pairs = _signal_planes(md, spec)
+    for plane, base in pairs:
         _check_tensor(what, "signal plane", plane, torch.int32, (D, R), dev)
         _check_tensor(what, "baseline", base, torch.int32, (R // 8,), dev)
-    return D, plane, base, gsrc
+    return D, pairs, gsrc
 
 
 def _check_cuda_args(md: MatrixDevice, x: torch.Tensor, spec, what):
     """Validate x and the planes of a DIA or ELL product; returns (D or
-    K, R, signal plane, baseline, gather plane or None)."""
+    K, R, the (signal plane, baseline) pairs, gather plane or None)."""
     R = _check_x(x, what)
-    D, plane, base, gsrc = _check_planes(md, spec, R, x.device, what)
-    return D, R, plane, base, gsrc
+    D, pairs, gsrc = _check_planes(md, spec, R, x.device, what)
+    return D, R, pairs, gsrc
 
 
 _ELL_MAX_K = 512   # csrc/dia_common.cuh ABFT_MAX_K
@@ -349,9 +376,10 @@ def dia_launcher(md: MatrixDevice, spec: DiaSpec, dev: torch.device,
 
     what = "dia_fast" if halo is None else "dia_fast_halo"
     R = md.values.shape[-1] if md.values is not None else -1
-    D, plane, base, _ = _check_planes(md, spec, R, dev, what)
-    for name, t in (("values", md.values), ("signal plane", plane)):
-        if t is not None and t.data_ptr() % 16:
+    D, pairs, _ = _check_planes(md, spec, R, dev, what)
+    for name, t in (("values", md.values),
+                    *(("signal plane", p) for p, _ in pairs)):
+        if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
     if halo is not None and max(map(abs, spec.offsets)) > halo:
         raise ValueError(f"{what}: halo {halo} under the offsets "
@@ -359,15 +387,15 @@ def dia_launcher(md: MatrixDevice, spec: DiaSpec, dev: torch.device,
     lib = library("dia_spmv_detect")
     scratch, part, flags = _scratch(lib.abft_dia_spmv_grid(R), dev)
     offs, offs_ptr = _offsets_arg(spec.offsets)
-    sig = (_ptr(plane), _ptr(base), int(spec.use_parity),
-           int(spec.use_cksum), part, flags)
+    sig = (*_plane_ptrs(pairs), int(spec.use_parity), int(spec.use_cksum),
+           part, flags)
     head = (md.values.data_ptr(), offs_ptr, D, R)
     if halo is None:
         fn, counter, rows, mid = lib.abft_dia_spmv_detect, dia_fast, R, ()
     else:
         fn, counter = lib.abft_dia_spmv_detect_halo, dia_fast_halo
         rows, mid = R + 2 * halo, (halo,)
-    index, product = dev.index, not spec.detect
+    index, product, two = dev.index, not spec.detect, len(pairs) == 2
 
     def launch(x, _keep=(md, offs, scratch)):
         _launch_check(x, rows, dev, what)
@@ -376,9 +404,7 @@ def dia_launcher(md: MatrixDevice, spec: DiaSpec, dev: torch.device,
                  pw.data_ptr(), trig.data_ptr(), index,
                  torch.cuda.current_stream(dev).cuda_stream),
               f"{what} launch")
-        counter.launches += 1
-        if product:
-            counter.product_launches += 1
+        _count_launch(counter, product, two)
         return w, trig, pw
 
     return launch
@@ -394,8 +420,20 @@ def dia_fast(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec):
     return dia_launcher(md, spec, x.device)(x)
 
 
+def _count_launch(counter, product, two):
+    """One launch of a kernel A, C or E wrapper's kernel: ``product``, the
+    detection-free product; ``two``, the two-plane instance (constraints
+    mode on COO128)."""
+    counter.launches += 1
+    if product:
+        counter.product_launches += 1
+    if two:
+        counter.two_plane_launches += 1
+
+
 dia_fast.launches = 0
 dia_fast.product_launches = 0   # the detection-free product's share
+dia_fast.two_plane_launches = 0   # the two-plane instance's share
 
 
 def dia_fast_halo(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec,
@@ -412,6 +450,7 @@ def dia_fast_halo(md: MatrixDevice, x: torch.Tensor, spec: DiaSpec,
 
 dia_fast_halo.launches = 0
 dia_fast_halo.product_launches = 0
+dia_fast_halo.two_plane_launches = 0
 
 
 def ell_gather_plane(md: MatrixDevice, spec) -> torch.Tensor:
@@ -452,12 +491,12 @@ def ell_launcher(md: MatrixDevice, spec: EllSpec, dev: torch.device,
     if R < 32 or R % 32:
         raise ValueError(f"{what}: R must be a positive multiple of 32, "
                          f"got {R}")
-    K, plane, ck, gsrc = _check_planes(md, spec, R, dev, what)
+    K, pairs, gsrc = _check_planes(md, spec, R, dev, what)
     if not 1 <= K <= _ELL_MAX_K:
         raise ValueError(f"{what}: K {K} outside [1, {_ELL_MAX_K}]")
     for name, t in (("values", md.values), ("gather plane", gsrc),
-                    ("signal plane", plane)):
-        if t is not None and t.data_ptr() % 16:
+                    *(("signal plane", p) for p, _ in pairs)):
+        if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
     if halo is not None and (halo < 0 or not 0 < spec.rows < 2 ** 31
                              or not 0 <= base < spec.rows):
@@ -472,20 +511,21 @@ def ell_launcher(md: MatrixDevice, spec: EllSpec, dev: torch.device,
     index = dev.index
     per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
     check(lib.abft_ell_spmv_occupancy(
-        index, int(halo is not None), ctypes.addressof(per_sm),
-        ctypes.addressof(sms)), f"{what} occupancy")
+        index, int(halo is not None), max(len(pairs), 1),
+        ctypes.addressof(per_sm), ctypes.addressof(sms)),
+        f"{what} occupancy")
     grid = ell_grid(R, sms.value, per_sm.value)
     scratch, part, flags = _scratch(grid, dev)
     head = (md.values.data_ptr(), gsrc.data_ptr(), gather_mask(spec),
             md.ell_len.data_ptr(), K, R)
-    sig = (_ptr(plane), _ptr(ck), int(spec.use_parity),
-           int(spec.use_cksum), part, flags)
+    sig = (*_plane_ptrs(pairs), int(spec.use_parity), int(spec.use_cksum),
+           part, flags)
     if halo is None:
         fn, counter, rows, mid = lib.abft_ell_spmv_detect, ell_fast, R, ()
     else:
         fn, counter = lib.abft_ell_spmv_detect_halo, ell_fast_halo
         rows, mid = R + 2 * halo, (halo, spec.rows, base)
-    product = not spec.detect
+    product, two = not spec.detect, len(pairs) == 2
 
     def launch(x, _keep=(md, scratch)):
         _launch_check(x, rows, dev, what)
@@ -494,9 +534,7 @@ def ell_launcher(md: MatrixDevice, spec: EllSpec, dev: torch.device,
                  pw.data_ptr(), trig.data_ptr(), grid, index,
                  torch.cuda.current_stream(dev).cuda_stream),
               f"{what} launch")
-        counter.launches += 1
-        if product:
-            counter.product_launches += 1
+        _count_launch(counter, product, two)
         return w, trig, pw
 
     return launch
@@ -514,6 +552,7 @@ def ell_fast(md: MatrixDevice, x: torch.Tensor, spec: EllSpec):
 
 ell_fast.launches = 0
 ell_fast.product_launches = 0   # the detection-free product's share
+ell_fast.two_plane_launches = 0   # the two-plane instance's share
 
 
 def ell_fast_halo(md: MatrixDevice, x: torch.Tensor, spec: EllSpec,
@@ -532,6 +571,7 @@ def ell_fast_halo(md: MatrixDevice, x: torch.Tensor, spec: EllSpec,
 
 ell_fast_halo.launches = 0
 ell_fast_halo.product_launches = 0
+ell_fast_halo.two_plane_launches = 0
 
 
 def flat_fast_plain(md: MatrixDevice, x: torch.Tensor, spec: FlatSpec):
@@ -566,8 +606,8 @@ def flat_launcher(md: MatrixDevice, spec: FlatSpec, dev: torch.device):
                   (nblocks, 4), dev)
     _check_tensor(what, "flat_sync", md.flat_sync, torch.int32, (nblocks,),
                   dev)
-    plane, base = _signal_planes(md, spec)
-    if plane is not None:
+    pairs = _signal_planes(md, spec)
+    for plane, base in pairs:
         _check_tensor(what, "signal plane", plane, torch.int32, (E,), dev)
         _check_tensor(what, "baseline", base, torch.int32, (E // 8,), dev)
     lib = library("flat_spmv_detect")
@@ -580,9 +620,10 @@ def flat_launcher(md: MatrixDevice, spec: FlatSpec, dev: torch.device):
     head = (md.values.data_ptr(), gsrc.data_ptr(), gather_mask(spec),
             md.row_ptr.data_ptr(), md.flat_plan.data_ptr(), nblocks,
             carry.data_ptr(), md.flat_sync.data_ptr(), R)
-    sig = (_ptr(plane), _ptr(base), int(spec.use_parity),
-           int(spec.use_cksum), part, flags)
+    sig = (*_plane_ptrs(pairs), int(spec.use_parity), int(spec.use_cksum),
+           part, flags)
     fn, index, product = lib.abft_flat_spmv_detect, dev.index, not spec.detect
+    two = len(pairs) == 2
 
     def launch(x, _keep=(md, scratch, carry)):
         _launch_check(x, R, dev, what)
@@ -591,9 +632,7 @@ def flat_launcher(md: MatrixDevice, spec: FlatSpec, dev: torch.device):
                  trig.data_ptr(), index,
                  torch.cuda.current_stream(dev).cuda_stream),
               "flat_spmv_detect launch")
-        flat_fast.launches += 1
-        if product:
-            flat_fast.product_launches += 1
+        _count_launch(flat_fast, product, two)
         return w, trig, pw
 
     return launch
@@ -611,6 +650,7 @@ def flat_fast(md: MatrixDevice, x: torch.Tensor, spec: FlatSpec):
 
 flat_fast.launches = 0
 flat_fast.product_launches = 0   # the detection-free product's share
+flat_fast.two_plane_launches = 0   # the two-plane instance's share
 
 _KERNELS = {DiaSpec: dia_fast, EllSpec: ell_fast, FlatSpec: flat_fast}
 # Every kernel checks its planes and resolves its library, grid and

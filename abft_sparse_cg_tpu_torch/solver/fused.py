@@ -41,6 +41,7 @@ from ..ops.spmv_cuda import (
     _check_cuda_args,
     _check_tensor,
     _offsets_arg,
+    _plane_ptrs,
     _ptr,
     _signal_plane,
     _signal_planes,
@@ -118,8 +119,9 @@ def dia_block_rows(R: int, grid: int) -> int:
 
 class TailSpec(NamedTuple):
     """Static description of a split's dense-plan tail: outlier exec
-    rows, span starts, span width, and the tail's signals (``plane`` as
-    in ops.spmv_cuda.DiaSpec, over the tail's (E,) planes)."""
+    rows, span starts, span width, and the tail's signals (``plane`` and
+    ``plane2`` as in ops.spmv_cuda.DiaSpec, over the tail's (E,)
+    planes)."""
 
     rows: tuple
     starts: tuple
@@ -127,12 +129,13 @@ class TailSpec(NamedTuple):
     use_parity: bool
     use_cksum: bool
     plane: object
+    plane2: object = None
 
 
 def tail_spec(mat, mode) -> TailSpec:
     rows, starts, S = mat.tail.dense_plan
     return TailSpec(tuple(rows), tuple(starts), S,
-                    *_signal_plane(mode, mat.tail))
+                    **_signal_plane(mode, mat.tail))
 
 
 def split_tail_plain(mdt, ts: TailSpec, p, w):
@@ -292,7 +295,7 @@ def _tail_args(what, tail, R, device, grid):
     without a tail), validated."""
     if tail is None:
         return dict(ptrs=(None, None, None, None, None, 0, 0, 0, None, None,
-                          None, None, 0), keep=())
+                          None, None, None, None, 0), keep=())
     mdt, ts = tail
     T, S = len(ts.rows), ts.S
     if (not 1 <= T <= _MAX_T or S % 128 or S > R
@@ -303,8 +306,8 @@ def _tail_args(what, tail, R, device, grid):
     E = mdt.values.shape[0] if mdt.values is not None else 0
     for name, t in (("dense_td", mdt.dense_td), ("dense_tb", mdt.dense_tb)):
         _check_tensor(what, name, t, torch.float32, (T, S), device)
-    plane, base = _signal_planes(mdt, ts)
-    if plane is not None:
+    pairs = _signal_planes(mdt, ts)
+    for plane, base in pairs:
         _check_tensor(what, "tail signal plane", plane, torch.int32, (E,),
                       device)
         _check_tensor(what, "tail baseline", base, torch.int32, (E // 8,),
@@ -317,7 +320,7 @@ def _tail_args(what, tail, R, device, grid):
     return dict(ptrs=(mdt.dense_td.data_ptr(), mdt.dense_tb.data_ptr(),
                       rows.data_ptr(), starts.data_ptr(), tiles.data_ptr(),
                       T, S, chunk, part.data_ptr(), tmain.data_ptr(),
-                      _ptr(plane), _ptr(base), E),
+                      *_plane_ptrs(pairs), E),
                 keep=(part, tmain))
 
 
@@ -345,7 +348,7 @@ def _opts_args(what, minv, ci, grid, x, r, p):
 def _launch_args(what, md, spec, x, r, p, rr, rz, itr, upto, trace,
                  tail=None, minv=None, ci=1):
     """Validated tensors and the scratch one cooperative launch needs."""
-    D, R, plane, base, gsrc = _check_cuda_args(md, p, spec, what)
+    D, R, pairs, gsrc = _check_cuda_args(md, p, spec, what)
     for name, t in (("x", x), ("r", r), ("p", p), ("trace", trace)):
         if (t.dtype != torch.float32 or t.device != p.device
                 or not t.is_contiguous() or t.dim() != 1):
@@ -355,18 +358,25 @@ def _launch_args(what, md, spec, x, r, p, rr, rz, itr, upto, trace,
         raise ValueError(f"{what}: x, r, p must have R rows")
     dev = p.device.index if p.device.index is not None else 0
     layout = "ell" if isinstance(spec, EllSpec) else "dia"
+    planes = max(len(pairs), 1)
+    if tail is not None and len(_signal_planes(tail[0], tail[1])) not in (
+            0, len(pairs)):
+        raise ValueError(f"{what}: the tail streams another number of "
+                         f"signal planes than the main part")
     # A lazy instance runs on its live counterpart's grid: the same
     # partition of the rows, so the same reduction order and, on a clean
     # solve, the live instance's x bit for bit.
-    grid = fused_grid(dev, layout, tail is not None, minv is not None)
+    grid = fused_grid(dev, layout, tail is not None, minv is not None,
+                      planes=planes)
     if ci > 1 and fused_grid(dev, layout, tail is not None,
-                             minv is not None, True) < grid:
+                             minv is not None, True, planes) < grid:
         raise RuntimeError(f"{what}: the lazy instance does not fit the "
                            f"live instance's grid of {grid} blocks")
     f32 = dict(dtype=torch.float32, device=p.device)
     i32 = dict(dtype=torch.int32, device=p.device)
     return dict(
-        D=D, R=R, plane=plane, base=base, gsrc=gsrc, dev=dev, grid=grid,
+        D=D, R=R, sig=_plane_ptrs(pairs), planes=planes, gsrc=gsrc, dev=dev,
+        grid=grid,
         w=torch.empty(R, **f32),
         part_pw=torch.empty(grid, **f32), part_rr=torch.empty(grid, **f32),
         part_flag=torch.empty(grid, **i32),
@@ -389,19 +399,21 @@ def _launch_result(a):
                     err, snap)
 
 
-def _instance(tail, minv, ci) -> str:
-    """The name of a fused kernel's instance, for its launch counts."""
+def _instance(tail, minv, ci, planes=1) -> str:
+    """The name of a fused kernel's instance, for its launch counts (the
+    two-plane instances of constraints mode on COO128 end in "two-plane")."""
     parts = (["split tail"] if tail is not None else []) + (
         ["lazy"] if ci > 1 else []) + (["Jacobi"] if minv is not None
                                        else [])
-    return " ".join(parts) or "live"
+    name = " ".join(parts) or "live"
+    return f"{name} two-plane" if planes == 2 else name
 
 
-def _count(kernel, tail, minv, ci):
+def _count(kernel, tail, minv, ci, planes=1):
     kernel.launches += 1
     if tail is not None:
         kernel.tail_launches += 1
-    name = _instance(tail, minv, ci)
+    name = _instance(tail, minv, ci, planes)
     kernel.instances[name] = kernel.instances.get(name, 0) + 1
 
 
@@ -441,8 +453,8 @@ def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
     offs, offs_ptr = _offsets_arg(spec.offsets)
     rc = library("fused_cg_dia").abft_fused_cg_dia(
         md.values.data_ptr(), offs_ptr, a["D"], a["R"], x.data_ptr(),
-        r.data_ptr(), p.data_ptr(), a["w"].data_ptr(), _ptr(a["plane"]),
-        _ptr(a["base"]), int(spec.use_parity), int(spec.use_cksum),
+        r.data_ptr(), p.data_ptr(), a["w"].data_ptr(), *a["sig"],
+        int(spec.use_parity), int(spec.use_cksum),
         a["part_pw"].data_ptr(), a["part_rr"].data_ptr(),
         a["part_flag"].data_ptr(), a["grid"], a["iscal_in"].data_ptr(),
         a["fscal_in"].data_ptr(), a["iscal_out"].data_ptr(),
@@ -452,7 +464,7 @@ def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
         dia_block_rows(a["R"], a["grid"]), a["dev"], a["stream"])
     del offs
     check(rc, "fused_cg_dia cooperative launch")
-    _count(fused_cg_dia, tail, minv, ci)
+    _count(fused_cg_dia, tail, minv, ci, a["planes"])
     if sched is not None:
         fused_cg_dia.schedules[sched] += 1
     return _launch_result(a)
@@ -479,7 +491,7 @@ def fused_cg_ell(md, spec: EllSpec, x, r, p, rr, rz, itr: int, upto: int,
     rc = library("fused_cg_ell").abft_fused_cg_ell(
         md.values.data_ptr(), a["gsrc"].data_ptr(), gather_mask(spec),
         md.ell_len.data_ptr(), a["D"], a["R"], x.data_ptr(), r.data_ptr(),
-        p.data_ptr(), a["w"].data_ptr(), _ptr(a["plane"]), _ptr(a["base"]),
+        p.data_ptr(), a["w"].data_ptr(), *a["sig"],
         int(spec.use_parity), int(spec.use_cksum), a["part_pw"].data_ptr(),
         a["part_rr"].data_ptr(), a["part_flag"].data_ptr(), a["grid"],
         a["iscal_in"].data_ptr(), a["fscal_in"].data_ptr(),
@@ -487,7 +499,7 @@ def fused_cg_ell(md, spec: EllSpec, x, r, p, rr, rz, itr: int, upto: int,
         trace.data_ptr(), trace.shape[0], float(conv), *a["tail"]["ptrs"],
         *a["opts"]["ptrs"], a["dev"], a["stream"])
     check(rc, "fused_cg_ell cooperative launch")
-    _count(fused_cg_ell, tail, minv, ci)
+    _count(fused_cg_ell, tail, minv, ci, a["planes"])
     return _launch_result(a)
 
 
@@ -499,20 +511,22 @@ _grids = {}
 
 
 def fused_grid(device_index: int, layout: str, tail: bool = False,
-               precond: bool = False, lazy: bool = False) -> int:
+               precond: bool = False, lazy: bool = False,
+               planes: int = 1) -> int:
     """Co-resident grid of an instance of kernel B ("dia") or D ("ell"):
     tail-free or with the split tail, live or lazy, unpreconditioned or
-    Jacobi, on a device (SMs x blocks per SM).  Each instance has its
-    own: the live tail-free instance must keep its occupancy whatever
-    the others need.  A lazy instance is launched with its live
-    counterpart's grid (``_launch_args``), which its own must hold."""
-    key = (device_index, layout, tail, precond, lazy)
+    Jacobi, streaming one signal plane or two (constraints on COO128), on
+    a device (SMs x blocks per SM).  Each instance has its own: the live
+    tail-free instance must keep its occupancy whatever the others need.
+    A lazy instance is launched with its live counterpart's grid
+    (``_launch_args``), which its own must hold."""
+    key = (device_index, layout, tail, precond, lazy, planes)
     if key not in _grids:
         from .._build import check, library
 
         out = ctypes.c_int(0)
         args = (device_index, int(tail), int(precond), int(lazy),
-                ctypes.addressof(out))
+                int(planes), ctypes.addressof(out))
         if layout == "dia":
             rc = library("fused_cg_dia").abft_fused_grid(*args)
         else:

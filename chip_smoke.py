@@ -26,6 +26,10 @@ CUDA kernel against its plain PyTorch version on the card:
     (the Jacobi and lazy instances of kernels B and D, the per-iteration
     tier's lazy loop over the detection-free products of C and E) and
     --refine 2;
+  - cg-coo, ``main_coo`` (bin/cg-coo-torch): the same paths on COO128
+    codewords, whose constraints mode streams two signal planes (the col
+    and the row word, each against its own baseline) through every
+    kernel's two-plane instance;
   - the row-sharded solve (parallel/: ``solve_sharded``,
     ``make_shardmap_spmv`` under solver.cg's loops) on a mesh of 4 shards
     on the one card, DIA -b 10, dense-radius-3d -b 10 (row_align 4096)
@@ -71,7 +75,13 @@ Phases:
  12. the ELL main path: the four run_tests classes through main_csr with
      -t cuda -f <file> -b 4 --seed 11, the .mtx file written by the
      port's mmio into a temporary directory; launch counts reset before
-     and read after;
+     and read after.  The CLI runs on the zoo files of this phase and of
+     18 and 25 run in one worker process per file and run group
+     (``--cli-worker LABEL``, CLI_JOBS), all started before phase 10
+     (phases 10 and 11 check and time nothing) and awaited here: their
+     time is the host builds, one per run, which take the host's cores
+     side by side; each worker resets and reads its own counts, and the
+     later phases print what theirs printed;
  13. the ELL float32 trajectory against the port's float64 plain solve;
  14. ELL times: solves, per-iteration slope and GB/s, kernel C and D
      against their plain versions, ``A @ x`` and their bounds, and the
@@ -158,16 +168,53 @@ Phases:
  30. powerlaw-graph -b 100 (HBM-bound), if its host build takes under a
      minute and the run is early enough;
  31. torch.profiler windows, each group in a fresh worker process
-     (``--profile-worker dia|ell|split|dia100 PICKLE``, the matrix handed over
-     in a temporary pickle; one long process lost most device
-     events of its later windows): kernels A and C per call, their
+     (``--profile-worker dia|ell|split|dia100|coo PICKLE``, the matrix
+     handed over in a temporary pickle; one long process lost most
+     device events of its later windows): kernels A and C per call, their
      products, ``A @ x``, the sharded SpMV, and solves of kernels B and
      D (live, lazy CI 4, Jacobi, lazy Jacobi) and the sharded tier; the
      split group, arrowhead -b 10 solves of kernel B's split-tail
      instances (live, lazy CI 4, Jacobi, lazy Jacobi); the dia100 group,
      kernel B's -b 100 secded solves, live and lazy CI 32 — device time
      per call by kernel, device operations per call, the busy share; the
-     dia and ell groups also time their halo kernel on shard 1 of 4 alone.
+     dia and ell groups also time their halo kernel on shard 1 of 4 alone;
+ 32. cg-coo: kernels A, C and E on COO128 planes (DIA -b 10, dense-
+     radius-3d -b 1 at row_align 4096, powerlaw-graph -b 1) and the halo
+     forms of A and C on 4 shards, every mode, clean and faulted: random
+     1- and 2-bit faults, an INDEX flip, a row-word flip (constraints:
+     only the second plane sees it) and, in none and constraints, the
+     4-bit col/row fault whose rotated fold is zero
+     (utils/coo_faults.py): w bit-exact, pw within 1e-5, the trigger
+     each mode's signals must give; then C and E in constraints at the
+     shapes phase 37 times, dense-radius-3d -b 10 (row_align 4096:
+     several tiles per block of C's two-plane grid) and powerlaw-graph
+     -b 10, clean and with each constraints fault;
+ 33. cg-coo: kernels B and D (live, lazy CI 4, Jacobi, lazy Jacobi) and
+     B's split tail against their plain loops on COO128 (DIA -b 10,
+     dense-radius-3d -b 1, arrowhead -b 1), secded and constraints:
+     clean (a lazy x equal to the live one bit for bit), a corrected
+     1-bit fault (secded), a row-word flip and the 4-bit col/row fault
+     (constraints: the plain loop's fail-stop);
+ 34. the cg-coo main path: the four run_tests classes through main_coo
+     -t cuda -b 10 --seed 11, and constraints -x INDEX and -x 4 INDEX,
+     launch counts reset before and read after;
+ 35. cg-coo on the other layouts: a secded -x and a constraints -x INDEX
+     run through main_coo on dense-radius-3d -b 1 (ELL),
+     stencil27-shuffled -b 5 (ELL under RCM), powerlaw-graph -b 1
+     (flat), band+random-1pct -b 1 (band split) and arrowhead -b 1
+     (bordered split): the smallest -b at which each keeps its route,
+     checked and printed (constraints never permutes), and the kernels
+     each ran;
+ 36. a 4-shard COO constraints solve on the card (the two-plane halo
+     form of kernel A) against the single-device solve;
+ 37. cg-coo times: COO against CSR solves, secded and constraints, at
+     -b 10 and -b 100, interleaved (median, slope, share of the bound);
+     kernels A and B on COO constraints (and B on COO secded) at -b 10,
+     C at dense-radius-3d -b 10 and E at powerlaw-graph -b 10 per call
+     beside their CSR constraints builds (the bound counts the gather
+     word once: in constraints it is a signal plane); the device time of
+     each -b 10
+     solve in a fresh profiler worker (``--profile-worker coo``).
 
 Any failed check raises, so the script exits non-zero.  The last three
 lines are the card line from nvidia-smi, one JSON object describing the
@@ -177,6 +224,7 @@ rest of the repository beside it, it exits non-zero and prints no
 result.
 """
 
+import atexit
 import contextlib
 import ctypes
 import dataclasses
@@ -184,6 +232,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -225,16 +274,16 @@ def bound(nbytes, flops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def parallel_builds(asm, modes, **kw):
-    """Each mode's host build of ``asm`` ({mode: matrix}), in threads:
-    NumPy releases the GIL in its sorts and elementwise loops, so the
-    builds overlap on the host's cores."""
+def parallel_builds(asm, modes, fmt="csr", **kw):
+    """Each mode's host build of ``asm`` ({mode: matrix}) in the codeword
+    format ``fmt``, in threads: NumPy releases the GIL in its sorts and
+    elementwise loops, so the builds overlap on the host's cores."""
     from concurrent.futures import ThreadPoolExecutor
 
     from abft_sparse_cg_tpu_torch.formats import build_protected
 
     with ThreadPoolExecutor(max_workers=len(modes)) as ex:
-        futs = {mode: ex.submit(build_protected, "csr", asm, mode, **kw)
+        futs = {mode: ex.submit(build_protected, fmt, asm, mode, **kw)
                 for mode in modes}
         return {mode: f.result() for mode, f in futs.items()}
 
@@ -476,6 +525,154 @@ def run_tests_classes(main_csr, base):
     print("passed secded -x 2: 'double-bit error detected', exit 1")
 
 
+def option_run(main_csr, base, flags):
+    """One run of the run_tests class 3 with ``flags``: secded -x,
+    corrected, exit 0 (phase 22 holds the fail-stops)."""
+    code, out = run_cli(main_csr, [*base, *flags, "-m", "secded", "-x"])
+    require(code == 0 and total_error(out) < 1.0
+            and "[ECC] corrected" in out,
+            f"{' '.join(flags)} secded -x: exit {code}")
+    print(f"passed {' '.join(flags)} secded -x: corrected, exit 0, total "
+          f"error {total_error(out):f}")
+
+
+def reset_launches():
+    """Every kernel wrapper's launch counts to 0."""
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
+        dia_fast, dia_fast_halo, ell_fast, ell_fast_halo, flat_fast)
+    from abft_sparse_cg_tpu_torch.solver.fused import (
+        fused_cg_dia, fused_cg_ell)
+
+    for fn in (dia_fast, fused_cg_dia, ell_fast, fused_cg_ell,
+               flat_fast, dia_fast_halo, ell_fast_halo):
+        fn.launches = 0
+    for fn in (dia_fast, ell_fast, flat_fast, dia_fast_halo,
+               ell_fast_halo):
+        fn.product_launches = fn.two_plane_launches = 0
+    fused_cg_dia.tail_launches = fused_cg_ell.tail_launches = 0
+    fused_cg_dia.instances.clear()
+    fused_cg_ell.instances.clear()
+    for k in fused_cg_dia.schedules:
+        fused_cg_dia.schedules[k] = 0
+
+
+def launch_counts():
+    """({wrapper: launches}, {kernel B or D instance, or a detection-free
+    product: launches}) since the last reset_launches."""
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
+        dia_fast, ell_fast, flat_fast)
+    from abft_sparse_cg_tpu_torch.solver.fused import (
+        fused_cg_dia, fused_cg_ell)
+
+    wrappers = {"dia_spmv_detect": dia_fast.launches,
+                "ell_spmv_detect": ell_fast.launches,
+                "flat_spmv_detect": flat_fast.launches,
+                "fused_cg_dia (split tail)": fused_cg_dia.tail_launches,
+                "fused_cg_ell": fused_cg_ell.launches}
+    instances = {f"fused_cg_dia ({k})": v
+                 for k, v in fused_cg_dia.instances.items()}
+    instances.update({f"fused_cg_ell ({k})": v
+                      for k, v in fused_cg_ell.instances.items()})
+    for fn, name in ((dia_fast, "dia_spmv_detect"),
+                     (ell_fast, "ell_spmv_detect"),
+                     (flat_fast, "flat_spmv_detect")):
+        instances[f"{name} (detection-free product)"] = fn.product_launches
+    return wrappers, instances
+
+
+# The CLI runs of phases 12, 18 and 25 on the zoo files: {label: (zoo
+# file, -b, the option flag sets of a secded -x run each, or None for the
+# four run_tests classes)}.  Each runs in a worker process of its own,
+# all started together (cli_pool_start): their time is the host builds,
+# one per run, which then take the host's cores side by side.
+OPTIONS = (["--check-interval", "4"], ["-p", "jacobi"],
+           ["-p", "jacobi", "--check-interval", "4"])
+CLI_JOBS = {
+    "dense-radius-3d -b 4": ("dense-radius-3d", 4, None),
+    "powerlaw-graph -b 10": ("powerlaw-graph", 10, None),
+    "band+random-1pct -b 10": ("band+random-1pct", 10, None),
+    "arrowhead -b 10": ("arrowhead", 10, None),
+    "dense-radius-3d -b 10 options": ("dense-radius-3d", 10, OPTIONS),
+    "arrowhead -b 10 options": ("arrowhead", 10, OPTIONS),
+    "powerlaw-graph -b 10 options": ("powerlaw-graph", 10, OPTIONS[:1]),
+    "band+random-1pct -b 10 options": ("band+random-1pct", 10,
+                                       OPTIONS[:1]),
+}
+
+
+def cli_worker(label):
+    """One CLI_JOBS entry in this fresh process: the zoo file written by
+    the port's mmio into a temporary directory, every launch count reset,
+    the runs through main_csr -t cuda --seed 11 (what bin/cg-csr-torch
+    runs), the counts read.  Prints the runs' lines, then one JSON line:
+    the counts and the seconds taken."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, ROOT)
+    from abft_sparse_cg_tpu_torch import _build
+    from abft_sparse_cg_tpu_torch.cli import main_csr
+    from abft_sparse_cg_tpu_torch.utils.matgen import write_mm_triangle
+    from abft_sparse_cg_tpu_torch.utils.matzoo import ZOO
+
+    name, blocks, flag_sets = CLI_JOBS[label]
+    _build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{name}.mtx")
+        write_mm_triangle(path, *ZOO[name][0]())
+        base = ["-f", path, "-b", str(blocks), "--seed", "11", "-t", "cuda"]
+        reset_launches()
+        if flag_sets is None:
+            run_tests_classes(main_csr, base)
+        else:
+            for flags in flag_sets:
+                option_run(main_csr, base, flags)
+        wrappers, instances = launch_counts()
+    print(json.dumps({"wrappers": wrappers, "instances": instances,
+                      "seconds": time.perf_counter() - t0}))
+
+
+def cli_pool_start():
+    """Start every CLI_JOBS entry in a worker process of its own
+    (``--cli-worker LABEL``), all together, each on one host thread (the
+    eight share the host's cores); returns what cli_pool_wait takes.  A
+    worker still running when this process exits is killed."""
+    tmp = tempfile.mkdtemp()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = {}
+    for i, label in enumerate(CLI_JOBS):
+        out = open(os.path.join(tmp, f"{i}.out"), "w+")
+        err = open(os.path.join(tmp, f"{i}.err"), "w+")
+        p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--cli-worker", label], stdout=out,
+                             stderr=err, text=True, env=env)
+        atexit.register(p.kill)
+        procs[label] = (p, out, err)
+    return tmp, procs, time.perf_counter()
+
+
+def cli_pool_wait(pool):
+    """Wait for cli_pool_start's workers; {label: (the lines it printed,
+    its JSON)}.  Raises if a worker failed or outlived 600 s."""
+    tmp, procs, t0 = pool
+    out = {}
+    for label, (p, f, e) in procs.items():
+        try:
+            code = p.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            code = "none in time"
+        f.seek(0)
+        e.seek(0)
+        lines = f.read().strip().splitlines()
+        require(code == 0 and lines, f"CLI worker {label}: exit {code}\n"
+                f"{e.read()[-3000:]}")
+        out[label] = (lines[:-1], json.loads(lines[-1]))
+        f.close()
+        e.close()
+    shutil.rmtree(tmp)
+    print(f"[{len(procs)} CLI workers, started in phase 10: "
+          f"{time.perf_counter() - t0:.0f} s]")
+    return out
+
+
 def trajectory(m, b, label, oracle_mat=None, oracle_dev="cpu", conv=1e-6,
                floor=1e-8, res=None, precond=False):
     """The f32 cuda trajectory against the port's f64 plain solve (on
@@ -567,6 +764,24 @@ def profile_worker(group, path):
 
     _build.build()
     dev, f32 = torch.device("cuda", 0), torch.float32
+    if group == "coo":
+        from abft_sparse_cg_tpu_torch.formats import (build_protected,
+                                                      load_matrix)
+
+        a10 = load_matrix(MATRIX, 10)
+        b = np.random.default_rng(11).random(a10.N)
+        windows = {}
+        for mode in ("secded", "constraints"):
+            for fmt in ("csr", "coo"):
+                m = build_protected(fmt, a10, mode)
+                md = make_matrix_device(m, f32, dev)
+                bd = torch.zeros(m.R, dtype=f32)
+                bd[: m.N] = torch.tensor(m.to_exec_order(b), dtype=f32)
+                s = CudaBackend(mode)._solver(m, f32, 1000, CONV)
+                windows[f"B {fmt.upper()} {mode} solve -b 10"] = (
+                    lambda s=s, md=md, bd=bd.to(dev): s(md, bd), 10)
+        print(json.dumps(profile_windows(windows)))
+        return
     if group == "dia100":
         from abft_sparse_cg_tpu_torch.formats import (build_protected,
                                                       load_matrix)
@@ -641,6 +856,39 @@ def profile_worker(group, path):
     print(json.dumps(profile_windows(windows)))
 
 
+def profile_group(group, mm, card):
+    """Phase 31's torch.profiler windows of one group in a fresh worker
+    process (``--profile-worker group PICKLE``, the matrix ``mm`` handed
+    over in a temporary pickle; None for a group that builds its own):
+    prints each window's device time per call, device operations and busy
+    share, and returns the windows."""
+    import pickle
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{group}.pickle")
+        with open(path, "wb") as f:
+            pickle.dump(mm, f, protocol=pickle.HIGHEST_PROTOCOL)
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--profile-worker", group, path],
+                           capture_output=True, text=True, timeout=400)
+    require(p.returncode == 0, f"profile worker {group}: exit "
+            f"{p.returncode}\n{p.stderr[-3000:]}")
+    windows = json.loads(p.stdout.strip().splitlines()[-1])
+    print(f"worker {group} ({time.perf_counter() - t0:.0f} s):")
+    for label, w in windows.items():
+        if w is None:
+            print(f"  {label}: no device events traced: device time not "
+                  "measured")
+            continue
+        print(f"  {label}: device {w['ms']:.4f} ms per call in "
+              f"{w['ops']:.2f} device operations; busy "
+              f"{w['busy'] * 100:.1f}% of the window [{card}]")
+        for name, ms in w["by_name"].items():
+            print(f"    {ms:.4f} ms/call  {name[:80]}")
+    return windows
+
+
 def profile_windows(windows):
     """call_profile over each {label: (fn, reps)}, its own output kept
     quiet; per window the numbers and the three largest kernels."""
@@ -672,7 +920,7 @@ def main():
     from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
         dia_fast, dia_fast_halo, dia_fast_plain, dia_launcher, dia_spec,
         ell_fast, ell_fast_halo, ell_fast_plain, ell_launcher, ell_spec,
-        flat_fast, flat_fast_plain, flat_launcher, flat_spec,
+        fast_spec, flat_fast, flat_fast_plain, flat_launcher, flat_spec,
         make_cuda_spmv)
     from abft_sparse_cg_tpu_torch.solver.cg import init_state, make_cg_solver
     from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
@@ -695,19 +943,6 @@ def main():
     f32 = torch.float32
     t_start = time.perf_counter()
 
-    def reset_launches():
-        for fn in (dia_fast, fused_cg_dia, ell_fast, fused_cg_ell,
-                   flat_fast, dia_fast_halo, ell_fast_halo):
-            fn.launches = 0
-        for fn in (dia_fast, ell_fast, flat_fast, dia_fast_halo,
-                   ell_fast_halo):
-            fn.product_launches = 0
-        fused_cg_dia.tail_launches = fused_cg_ell.tail_launches = 0
-        fused_cg_dia.instances.clear()
-        fused_cg_ell.instances.clear()
-        for k in fused_cg_dia.schedules:
-            fused_cg_dia.schedules[k] = 0
-
     # ---- 1. device and card ---------------------------------------------
     phase("1. device")
     kind = torch.cuda.get_device_name(0)
@@ -727,7 +962,11 @@ def main():
           f"({_build.BUILD_DIR}); cooperative grids: kernel B "
           f"{fused_grid(0, 'dia')} blocks ({fused_grid(0, 'dia', True)} with "
           f"the split tail), kernel D {fused_grid(0, 'ell')} "
-          f"({fused_grid(0, 'ell', True)})")
+          f"({fused_grid(0, 'ell', True)}); two signal planes (constraints "
+          f"on COO128): kernel B {fused_grid(0, 'dia', planes=2)} "
+          f"({fused_grid(0, 'dia', True, planes=2)}), kernel D "
+          f"{fused_grid(0, 'ell', planes=2)} "
+          f"({fused_grid(0, 'ell', True, planes=2)})")
     print("every instance's own grid (a lazy one runs on its live "
           "counterpart's): " + ", ".join(
               f"{lay} {'tail ' if tail else ''}{'Jacobi ' if pre else ''}"
@@ -740,18 +979,22 @@ def main():
 
     occ = {}
     for halo in (0, 1):
-        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
-        _build.check(_build.library("ell_spmv_detect").abft_ell_spmv_occupancy(
-            0, halo, ctypes.addressof(per_sm), ctypes.addressof(sms)),
-            "kernel C occupancy")
-        occ[halo] = (per_sm.value, sms.value)
-        require(per_sm.value >= 2, f"kernel C (halo {halo}): "
-                f"{per_sm.value} resident blocks per SM, expected >= 2")
-    print(f"kernel C: {occ[0][0]} resident blocks per SM ({occ[1][0]} in "
-          f"the halo form) on {occ[0][1]} SMs: "
-          f"{ell_grid(221184, occ[0][1], occ[0][0])} blocks for R 221,184, "
-          f"{ell_grid(55296, occ[1][1], occ[1][0])} for a shard of 55,296 "
-          "rows")
+        for planes in (1, 2):
+            per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+            _build.check(_build.library(
+                "ell_spmv_detect").abft_ell_spmv_occupancy(
+                0, halo, planes, ctypes.addressof(per_sm),
+                ctypes.addressof(sms)), "kernel C occupancy")
+            occ[halo, planes] = (per_sm.value, sms.value)
+            require(per_sm.value >= 2, f"kernel C (halo {halo}, {planes} "
+                    f"planes): {per_sm.value} resident blocks per SM, "
+                    "expected >= 2")
+    print(f"kernel C: {occ[0, 1][0]} resident blocks per SM "
+          f"({occ[1, 1][0]} in the halo form; {occ[0, 2][0]} and "
+          f"{occ[1, 2][0]} streaming two signal planes) on {occ[0, 1][1]} "
+          f"SMs: {ell_grid(221184, occ[0, 1][1], occ[0, 1][0])} blocks for "
+          f"R 221,184, {ell_grid(55296, occ[1, 1][1], occ[1, 1][0])} for a "
+          "shard of 55,296 rows")
 
     if not os.path.exists(MATRIX):
         subprocess.run([sys.executable,
@@ -1004,7 +1247,7 @@ def main():
     mats100 = parallel_builds(a100, ("none", "secded"))
     solve_table(f"-b 100 (N={mats100['none'].N})", mats100, 3, 3,
                 dia_iter_bytes)
-    del a100   # mats100 serves phases 23 and 26 too
+    del a100   # mats100 serves phases 23, 26, 29 and 37 too
 
     launchers = {dia_fast: dia_launcher, ell_fast: ell_launcher,
                  flat_fast: flat_launcher}
@@ -1088,8 +1331,7 @@ def main():
     phase("9. ELL matrices, each mode built once, the modes in parallel "
           "(dense-radius-3d -b 4 for the checks, -b 10 for the timed path)")
     from abft_sparse_cg_tpu_torch.utils.matgen import write_mm_triangle
-    from abft_sparse_cg_tpu_torch.utils.matzoo import (
-        dense_radius_3d, zoo_assembled)
+    from abft_sparse_cg_tpu_torch.utils.matzoo import zoo_assembled
 
     shapes = {}
     for name, blocks, force in (("dense-radius-3d", 4, None),
@@ -1131,6 +1373,10 @@ def main():
             "stencil27-shuffled: RCM permutation active")
 
     # ---- 10. kernel C vs plain --------------------------------------------
+    # The CLI runs of phases 12, 18 and 25 on the zoo files start here and
+    # run beside phases 10 and 11, which check and time nothing.
+    cli_pool = cli_pool_start()
+
     phase("10. kernel C (ell_spmv_detect) vs plain, three shapes and the "
           "schedule's edges, every mode")
     c_errs = []
@@ -1197,15 +1443,19 @@ def main():
 
     # ---- 12. ELL main path ------------------------------------------------
     phase("12. ELL main path: run_tests classes, cg-csr -t cuda -f "
-          "dense-radius-3d.mtx -b 4 --seed 11 (-b 10 is timed in 14)")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "dense-radius-3d.mtx")
-        write_mm_triangle(path, *dense_radius_3d())
-        reset_launches()
-        run_tests_classes(main_csr, ["-f", path, "-b", "4", "--seed", "11",
-                                     "-t", "cuda"])
-        ell_launches = {"ell_spmv_detect": ell_fast.launches,
-                        "fused_cg_ell": fused_cg_ell.launches}
+          "dense-radius-3d.mtx -b 4 --seed 11 (-b 10 is timed in 14); with "
+          "it the CLI runs of phases 18 and 25 on the zoo files, each file "
+          "and run group in a worker process, all started in phase 10")
+    cli_runs = cli_pool_wait(cli_pool)
+
+    def cli_job(label):
+        """The lines a CLI_JOBS worker printed, shown here; its counts."""
+        lines, got = cli_runs[label]
+        print("\n".join(lines))
+        return got
+
+    got = cli_job("dense-radius-3d -b 4")["wrappers"]
+    ell_launches = {k: got[k] for k in ("ell_spmv_detect", "fused_cg_ell")}
     for name, n in ell_launches.items():
         print(f"{name}: {n} launches")
         require(n > 0, f"{name} was not launched on the ELL path")
@@ -1401,31 +1651,19 @@ def main():
 
     # ---- 18. the flat and split main paths ---------------------------------
     phase("18. flat and split main paths: run_tests classes, cg-csr -t cuda "
-          "-f <file> -b 10 --seed 11")
+          "-f <file> -b 10 --seed 11 (run in phase 12's workers)")
     path_launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, need in (("powerlaw-graph", ("flat_spmv_detect",)),
-                           ("band+random-1pct", ("ell_spmv_detect",
-                                                 "flat_spmv_detect")),
-                           ("arrowhead", ("fused_cg_dia (split tail)",
-                                          "flat_spmv_detect"))):
-            path = os.path.join(tmp, f"{name}.mtx")
-            write_mm_triangle(path, *ZOO[name][0]())
-            t0 = time.perf_counter()
-            reset_launches()
-            run_tests_classes(main_csr, ["-f", path, "-b", "10", "--seed",
-                                         "11", "-t", "cuda"])
-            got = {"dia_spmv_detect": dia_fast.launches,
-                   "ell_spmv_detect": ell_fast.launches,
-                   "flat_spmv_detect": flat_fast.launches,
-                   "fused_cg_dia (split tail)": fused_cg_dia.tail_launches,
-                   "fused_cg_ell": fused_cg_ell.launches}
-            path_launches[name] = got
-            print(f"{name}: launches {got} ({time.perf_counter() - t0:.0f} "
-                  "s)")
-            for k in need:
-                require(got[k] > 0, f"{k} was not launched on the {name} "
-                        "path")
+    for name, need in (("powerlaw-graph", ("flat_spmv_detect",)),
+                       ("band+random-1pct", ("ell_spmv_detect",
+                                             "flat_spmv_detect")),
+                       ("arrowhead", ("fused_cg_dia (split tail)",
+                                      "flat_spmv_detect"))):
+        job = cli_job(f"{name} -b 10")
+        got = path_launches[name] = job["wrappers"]
+        print(f"{name}: launches {got} ({job['seconds']:.0f} s in its "
+              "worker)")
+        for k in need:
+            require(got[k] > 0, f"{k} was not launched on the {name} path")
 
     # ---- 19. trajectories --------------------------------------------------
     phase("19. float32 cuda trajectories vs float64 plain oracle (on the "
@@ -1912,38 +2150,20 @@ def main():
     base10 = ["-b", "10", "--seed", "11", "-t", "cuda"]
     path_counts = {}   # path label -> {instance: launches}
 
-    def read_counts():
-        got = {f"fused_cg_dia ({k})": v
-               for k, v in fused_cg_dia.instances.items()}
-        got.update({f"fused_cg_ell ({k})": v
-                    for k, v in fused_cg_ell.instances.items()})
-        for fn, name in ((dia_fast, "dia_spmv_detect"),
-                         (ell_fast, "ell_spmv_detect"),
-                         (flat_fast, "flat_spmv_detect")):
-            got[f"{name} (detection-free product)"] = fn.product_launches
-        return got
-
-    def drive(label, runs, need):
-        """Counts reset, the runs, counts read: each instance in ``need``
-        must have launched."""
-        t0 = time.perf_counter()
-        reset_launches()
-        runs()
-        got = read_counts()
-        print(f"{label}: launches {got} ({time.perf_counter() - t0:.0f} s)")
+    def check_path(label, got, seconds, need):
+        """Each instance in ``need`` must have launched on the path."""
+        print(f"{label}: launches {got} ({seconds:.0f} s)")
         for k in need:
             require(got.get(k, 0) > 0, f"{k} was not launched on {label}")
         path_counts[label] = got
 
-    def option_run(base, flags):
-        """One run of the run_tests class 3 with ``flags``: secded -x,
-        corrected, exit 0 (phase 22 holds the fail-stops)."""
-        code, out = run_cli(main_csr, [*base, *flags, "-m", "secded", "-x"])
-        require(code == 0 and total_error(out) < 1.0
-                and "[ECC] corrected" in out,
-                f"{' '.join(flags)} secded -x: exit {code}")
-        print(f"passed {' '.join(flags)} secded -x: corrected, exit 0, total "
-              f"error {total_error(out):f}")
+    def drive(label, runs, need):
+        """Counts reset, the runs, counts read."""
+        t0 = time.perf_counter()
+        reset_launches()
+        runs()
+        check_path(label, launch_counts()[1], time.perf_counter() - t0,
+                   need)
 
     for flags, need in ((["--check-interval", "4"], ["fused_cg_dia (lazy)"]),
                         (["-p", "jacobi"], ["fused_cg_dia (Jacobi)"]),
@@ -1973,36 +2193,22 @@ def main():
               f"{total_error(out):f}")
 
     drive("DIA -b 100", b100_run, ["fused_cg_dia (lazy)"])
-    with tempfile.TemporaryDirectory() as tmp:
-        files = {}
-        for name, gen in (("dense-radius-3d", dense_radius_3d),
-                          ("arrowhead", ZOO["arrowhead"][0]),
-                          ("powerlaw-graph", ZOO["powerlaw-graph"][0]),
-                          ("band+random-1pct", ZOO["band+random-1pct"][0])):
-            files[name] = os.path.join(tmp, f"{name}.mtx")
-            write_mm_triangle(files[name], *gen())
-        for name, blocks, flag_sets, need in (
-                ("dense-radius-3d", "10",
-                 (["--check-interval", "4"], ["-p", "jacobi"],
-                  ["-p", "jacobi", "--check-interval", "4"]),
-                 ["fused_cg_ell (lazy)", "fused_cg_ell (Jacobi)",
-                  "fused_cg_ell (lazy Jacobi)"]),
-                ("arrowhead", "10",
-                 (["--check-interval", "4"], ["-p", "jacobi"],
-                  ["-p", "jacobi", "--check-interval", "4"]),
-                 ["fused_cg_dia (split tail lazy)",
-                  "fused_cg_dia (split tail Jacobi)",
-                  "fused_cg_dia (split tail lazy Jacobi)"]),
-                ("powerlaw-graph", "10", (["--check-interval", "4"],),
-                 ["flat_spmv_detect (detection-free product)"]),
-                ("band+random-1pct", "10", (["--check-interval", "4"],),
-                 ["ell_spmv_detect (detection-free product)",
-                  "flat_spmv_detect (detection-free product)"])):
-            base = ["-f", files[name], "-b", blocks, "--seed", "11", "-t",
-                    "cuda"]
-            drive(f"{name} -b {blocks}",
-                  lambda b_=base, fs=flag_sets: [option_run(b_, f)
-                                                 for f in fs], need)
+    # the other layouts' paths, run in phase 12's workers
+    for name, need in (
+            ("dense-radius-3d", ["fused_cg_ell (lazy)",
+                                 "fused_cg_ell (Jacobi)",
+                                 "fused_cg_ell (lazy Jacobi)"]),
+            ("arrowhead", ["fused_cg_dia (split tail lazy)",
+                           "fused_cg_dia (split tail Jacobi)",
+                           "fused_cg_dia (split tail lazy Jacobi)"]),
+            ("powerlaw-graph", ["flat_spmv_detect (detection-free "
+                                "product)"]),
+            ("band+random-1pct", ["ell_spmv_detect (detection-free "
+                                  "product)",
+                                  "flat_spmv_detect (detection-free "
+                                  "product)"])):
+        job = cli_job(f"{name} -b 10 options")
+        check_path(f"{name} -b 10", job["instances"], job["seconds"], need)
 
     # ---- 26. times of the solver options -----------------------------------
     phase(f"26. solver-option times on {card} (warm, build excluded): "
@@ -2227,69 +2433,74 @@ def main():
     halo_errs = {"dia": [], "ell": []}
     halo_of = {}
 
-    def halo_row_fault(mm):
-        """``mm`` with a bit of the col word flipped in the last row of
-        shard 1, the first row of shard 2's left halo (every detecting
-        mode covers the col word; in the ECC modes the gather masks
-        it)."""
+    def halo_row_fault(mm, word="col"):
+        """``mm`` with bit 2 of ``word`` flipped in the last row of shard
+        1, the first row of shard 2's left halo (every detecting mode
+        covers the col word, constraints on COO128 the row word too; in
+        the ECC modes the gather masks the col word)."""
         row = 2 * (mm.R // NS) - 1
         slot = int(np.flatnonzero(mm.ell_slot % mm.R == row)[0])
         planes = {k: v.copy() for k, v in mm.planes.items()}
-        planes["col"][slot] ^= np.uint32(1 << 2)
+        planes[word][slot] ^= np.uint32(1 << 2)
         return mm.with_planes(planes)
+
+    def halo_case(layout, m0, mode, word, errs):
+        """The halo form of kernel A or C on 4 shards of ``m0``, clean and
+        with ``halo_row_fault(m0, word)``: w bit-exact to the plain
+        versions and, concatenated, to the single-device kernel's; the
+        trigger on the faulted row's shard only."""
+        require(supports_shardmap(m0, f32, NS),
+                f"{layout} {mode}: in the kernel tier's envelope")
+        H, R_loc = _halo(m0), m0.R // NS
+        halo_of[layout] = (H, R_loc)
+        spec = (dia_spec if layout == "dia" else ell_spec)(m0, mode)
+        single = dia_fast if layout == "dia" else ell_fast
+        kern = dia_fast_halo if layout == "dia" else ell_fast_halo
+        plain = dia_fast_plain if layout == "dia" else ell_fast_plain
+        xs = torch.tensor(np.random.default_rng(3).standard_normal(m0.R),
+                          dtype=f32, device=dev)
+        ext = halo_exchange(xs, mesh, H)
+        variants = [("clean", m0)]
+        if mode != "none":
+            variants.append(("halo-row fault", halo_row_fault(m0, word)))
+        for label, mm in variants:
+            mdh = make_matrix_device(mm, f32, dev)
+            shards = shard_rows(mdh, mesh)
+            ws, fired = [], []
+            for s in range(NS):
+                args = (H,) if layout == "dia" else (H, s * R_loc)
+                wk, tk, pk = kern(shards[s], ext[s], spec, *args)
+                wp, tp, pp = plain(shards[s], ext[s], spec, *args)
+                torch.cuda.synchronize()
+                tag = f"{layout} {mode} {label} shard {s}"
+                require(same_w(wk, wp), f"{tag}: w not bit-exact")
+                require(bool(tk) == bool(tp), f"{tag}: trig {bool(tk)} "
+                        f"vs plain {bool(tp)}")
+                prel = pw_rel(pk, pp)
+                require(prel <= 1e-5, f"{tag}: pw rel err {prel:.2e}")
+                fin = torch.isfinite(wp)
+                errs.append(float((wk - wp)[fin].abs().max()))
+                ws.append(wk)
+                fired.append(bool(tk))
+            w1, t1, _ = single(mdh, xs, spec)
+            torch.cuda.synchronize()
+            require(same_w(torch.cat(ws), w1),
+                    f"{layout} {mode} {label}: the shards' w differs "
+                    "from the single-device kernel's")
+            want = ([False] * NS if label == "clean"
+                    else [False, True, False, False])
+            require(fired == want and bool(t1) == any(want),
+                    f"{layout} {mode} {label}: shard triggers {fired}, "
+                    f"single-device {bool(t1)}")
+            print(f"{layout} {m0.fmt} {mode:11s} {label:14s} (H {H}, "
+                  f"R_loc {R_loc}): 4 shards bit-exact to plain and, "
+                  f"concatenated, to the single-device kernel; "
+                  f"triggers {fired}")
+            del mdh, shards
 
     for layout, per in (("dia", mats), ("ell", ell)):
         for mode in MODES:
-            m0 = per[mode]
-            require(supports_shardmap(m0, f32, NS),
-                    f"{layout} {mode}: in the kernel tier's envelope")
-            H, R_loc = _halo(m0), m0.R // NS
-            halo_of[layout] = (H, R_loc)
-            spec = (dia_spec if layout == "dia" else ell_spec)(m0, mode)
-            single = dia_fast if layout == "dia" else ell_fast
-            kern = dia_fast_halo if layout == "dia" else ell_fast_halo
-            plain = dia_fast_plain if layout == "dia" else ell_fast_plain
-            xs = torch.tensor(np.random.default_rng(3).standard_normal(m0.R),
-                              dtype=f32, device=dev)
-            ext = halo_exchange(xs, mesh, H)
-            variants = [("clean", m0)]
-            if mode != "none":
-                variants.append(("halo-row fault", halo_row_fault(m0)))
-            for label, mm in variants:
-                mdh = make_matrix_device(mm, f32, dev)
-                shards = shard_rows(mdh, mesh)
-                ws, fired = [], []
-                for s in range(NS):
-                    args = (H,) if layout == "dia" else (H, s * R_loc)
-                    wk, tk, pk = kern(shards[s], ext[s], spec, *args)
-                    wp, tp, pp = plain(shards[s], ext[s], spec, *args)
-                    torch.cuda.synchronize()
-                    tag = f"{layout} {mode} {label} shard {s}"
-                    require(same_w(wk, wp), f"{tag}: w not bit-exact")
-                    require(bool(tk) == bool(tp), f"{tag}: trig {bool(tk)} "
-                            f"vs plain {bool(tp)}")
-                    prel = pw_rel(pk, pp)
-                    require(prel <= 1e-5, f"{tag}: pw rel err {prel:.2e}")
-                    fin = torch.isfinite(wp)
-                    halo_errs[layout].append(float((wk - wp)[fin].abs()
-                                                   .max()))
-                    ws.append(wk)
-                    fired.append(bool(tk))
-                w1, t1, _ = single(mdh, xs, spec)
-                torch.cuda.synchronize()
-                require(same_w(torch.cat(ws), w1),
-                        f"{layout} {mode} {label}: the shards' w differs "
-                        "from the single-device kernel's")
-                want = ([False] * NS if label == "clean"
-                        else [False, True, False, False])
-                require(fired == want and bool(t1) == any(want),
-                        f"{layout} {mode} {label}: shard triggers {fired}, "
-                        f"single-device {bool(t1)}")
-                print(f"{layout} {mode:11s} {label:14s} (H {H}, R_loc "
-                      f"{R_loc}): 4 shards bit-exact to plain and, "
-                      f"concatenated, to the single-device kernel; "
-                      f"triggers {fired}")
-                del mdh, shards
+            halo_case(layout, per[mode], mode, "col", halo_errs[layout])
 
     # ---- 28. the sharded main path ---------------------------------------
     phase("28. the sharded main path on a 4-shard mesh of one card: "
@@ -2474,12 +2685,11 @@ def main():
                                       for n, v in t.items())
               + f" [{card}]")
         del fns
-    del mats100
 
     # ---- 30. powerlaw-graph -b 100 (HBM-bound), if its build is quick ------
     phase("30. powerlaw-graph -b 100, none and secded")
-    if time.perf_counter() - t_start > 660:
-        print("skipped: the run is past 660 s (the 1200 s limit)")
+    if time.perf_counter() - t_start > 540:
+        print("skipped: the run is past 540 s (the 1200 s limit)")
     else:
         t0 = time.perf_counter()
         a100 = zoo_assembled("powerlaw-graph", 100)
@@ -2500,35 +2710,526 @@ def main():
     phase(f"31. torch.profiler windows over warm calls and solves on {card}, "
           "each group in a fresh worker process")
     device_state(card)
-    import pickle
-
     # dia100 builds the bundled matrix at -b 100 itself (its planes would
     # make a pickle of several hundred MB)
     for group, mm in (("dia", mats["secded"]), ("ell", ell["secded"]),
                       ("split", splits["arrowhead"][1]["secded"]),
                       ("dia100", None)):
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, f"{group}.pickle")
-            with open(path, "wb") as f:
-                pickle.dump(mm, f, protocol=pickle.HIGHEST_PROTOCOL)
-            p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                "--profile-worker", group, path],
-                               capture_output=True, text=True, timeout=400)
-        require(p.returncode == 0, f"profile worker {group}: exit "
-                f"{p.returncode}\n{p.stderr[-3000:]}")
-        windows = json.loads(p.stdout.strip().splitlines()[-1])
-        print(f"worker {group} ({time.perf_counter() - t0:.0f} s):")
-        for label, w in windows.items():
-            if w is None:
-                print(f"  {label}: no device events traced: device time not "
-                      "measured")
-                continue
-            print(f"  {label}: device {w['ms']:.4f} ms per call in "
-                  f"{w['ops']:.2f} device operations; busy "
-                  f"{w['busy'] * 100:.1f}% of the window [{card}]")
-            for name, ms in w["by_name"].items():
-                print(f"    {ms:.4f} ms/call  {name[:80]}")
+        profile_group(group, mm, card)
+    # ---- 32. cg-coo: kernels A, C and E on COO128 planes --------------------
+    phase("32. cg-coo: kernels A, C and E and the halo forms of A and C vs "
+          "their plain versions on COO128 planes, every mode")
+    from abft_sparse_cg_tpu_torch.cli import main_coo
+    from abft_sparse_cg_tpu_torch.utils.coo_faults import (
+        col_row_fault, row_word_flip)
+
+    t0 = time.perf_counter()
+    coo = parallel_builds(a10, MODES, fmt="coo")
+    coo_ell = parallel_builds(zoo_assembled("dense-radius-3d", 1), MODES,
+                              fmt="coo", row_align=4096)
+    coo_flat = parallel_builds(zoo_assembled("powerlaw-graph", 1), MODES,
+                               fmt="coo")
+    for name, per, want in (("DIA -b 10", coo, "dia"),
+                            ("dense-radius-3d -b 1", coo_ell, "ell"),
+                            ("powerlaw-graph -b 1", coo_flat, "flat")):
+        for mode in MODES:
+            mm = per[mode]
+            require(mm.fmt == "coo" and mm.exec_kind == want,
+                    f"COO {name} {mode}: routes {mm.exec_kind}, not {want}")
+        sp = fast_spec(per["constraints"], "constraints")
+        names = per["constraints"].layout.word_names
+        require((names[sp.plane], names[sp.plane2]) == ("col", "row"),
+                f"COO {name} constraints: streams {sp.plane}, {sp.plane2}")
+    print(f"COO128 builds, every mode: DIA -b 10 (R {coo['none'].R}), "
+          f"dense-radius-3d -b 1 (ELL, K {coo_ell['none'].K}, R "
+          f"{coo_ell['none'].R} at row_align 4096), powerlaw-graph -b 1 "
+          f"(flat, E {coo_flat['none'].exec_size}) in "
+          f"{time.perf_counter() - t0:.1f} s; constraints streams the col "
+          "and the row word, each against its own baseline")
+
+    def coo_variants(m, mode):
+        """(label, faulted copy) of a COO matrix: random 1- and 2-bit
+        faults (ECC modes) or an INDEX flip, a row-word flip (only the
+        second plane sees it in constraints) and, in none and
+        constraints, the 4-bit col/row fault (utils/coo_faults.py: its
+        rotated fold is zero, so the ECC modes' fold cannot see it)."""
+        out = [("clean", m)]
+        quiet = dict(echo=lambda s: None)
+        if mode in ECC:
+            out += [(f"{k}-bit", inject_bitflips(
+                m, "ANY", k, np.random.default_rng(20 + k), **quiet))
+                for k in (1, 2)]
+        else:
+            out.append(("index", inject_bitflips(
+                m, "INDEX", 1, np.random.default_rng(23), **quiet)))
+            out.append(("4-bit col/row", col_row_fault(m, m.nnz // 3)))
+        out.append(("row word", row_word_flip(m, m.nnz // 3 + 1)))
+        return out
+
+    def coo_want(mode, label, m, mm):
+        """The trigger the mode's signals must give: any change with a
+        checksum arm, odd-weight changes for parity alone, a change of
+        either index word in constraints."""
+        changed = {n: not np.array_equal(mm.ell[n], m.ell[n])
+                   for n in m.layout.word_names}
+        if mode == "none":
+            return False
+        if mode == "constraints":
+            return changed["col"] or changed["row"]
+        if mode in ("sed", "sec8"):
+            return label not in ("2-bit", "4-bit col/row") and any(
+                changed.values())
+        return any(changed.values())
+
+    def coo_kernel_case(kernel, plain, md_, x_, spec_, tag, want, errs):
+        wk, tk, pk = kernel(md_, x_, spec_)
+        wp, tp, pp = plain(md_, x_, spec_)
+        torch.cuda.synchronize()
+        require(same_w(wk, wp), f"{tag}: w not bit-exact")
+        prel = pw_rel(pk, pp)
+        require(prel <= 1e-5, f"{tag}: pw rel err {prel:.2e} > 1e-5")
+        require(bool(tk) == bool(tp) == want, f"{tag}: trig {bool(tk)}, "
+                f"plain {bool(tp)}, expected {want}")
+        fin = torch.isfinite(wp)
+        err = float((wk - wp)[fin].abs().max())
+        errs.append(err)
+        print(f"{tag:48s} w bit-exact (max|err| {err:.1e}), pw rel "
+              f"{prel:.1e}, trig {bool(tk)}")
+
+    coo_errs = {"A": [], "C": [], "E": [], "halo": []}
+    for key, per, kernel, plain, spec_of in (
+            ("A", coo, dia_fast, dia_fast_plain, dia_spec),
+            ("C", coo_ell, ell_fast, ell_fast_plain, ell_spec),
+            ("E", coo_flat, flat_fast, flat_fast_plain, flat_spec)):
+        for mode in MODES:
+            m = per[mode]
+            spec = spec_of(m, mode)
+            xk = torch.zeros(m.R, dtype=f32, device=dev)
+            xk[: m.N] = torch.tensor(np.random.default_rng(3).random(m.N),
+                                     dtype=f32)
+            for label, mm in coo_variants(m, mode):
+                mdk = make_matrix_device(mm, f32, dev)
+                coo_kernel_case(kernel, plain, mdk, xk, spec,
+                                f"{key} COO {mode} {label}",
+                                coo_want(mode, label, m, mm), coo_errs[key])
+                del mdk
+    # Kernels C and E on COO constraints at the shapes phase 37 times:
+    # dense-radius-3d -b 10 (row_align 4096, as phase 9's CSR build: on
+    # the two-plane grid each block walks several 128-row tiles) and
+    # powerlaw-graph -b 10.
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        f_c = ex.submit(build_protected, "coo", a_ell, "constraints",
+                        row_align=4096)
+        f_e = ex.submit(build_protected, "coo", flat["powerlaw-graph"][0],
+                        "constraints")
+        coo_c10, coo_e10 = f_c.result(), f_e.result()
+    per_block = coo_c10.R / ell_grid(coo_c10.R, occ[0, 2][1], occ[0, 2][0])
+    require(coo_c10.exec_kind == "ell" and coo_e10.exec_kind == "flat"
+            and per_block > 2 * 128,
+            f"COO dense-radius-3d -b 10: {coo_c10.exec_kind}, "
+            f"{per_block:.0f} rows per block; powerlaw-graph -b 10: "
+            f"{coo_e10.exec_kind}")
+    print(f"COO128 constraints builds at -b 10 in "
+          f"{time.perf_counter() - t0:.1f} s: dense-radius-3d (K "
+          f"{coo_c10.K}, R {coo_c10.R}: {per_block:.0f} rows per block of "
+          f"kernel C's two-plane grid, tiles of 128), powerlaw-graph (E "
+          f"{coo_e10.exec_size})")
+    for key, m, kernel, plain, spec_of, name in (
+            ("C -b 10", coo_c10, ell_fast, ell_fast_plain, ell_spec,
+             "dense-radius-3d"),
+            ("E -b 10", coo_e10, flat_fast, flat_fast_plain, flat_spec,
+             "powerlaw-graph")):
+        coo_errs[key] = []
+        spec = spec_of(m, "constraints")
+        xk = torch.zeros(m.R, dtype=f32, device=dev)
+        xk[: m.N] = torch.tensor(np.random.default_rng(3).random(m.N),
+                                 dtype=f32)
+        for label, mm in coo_variants(m, "constraints"):
+            mdk = make_matrix_device(mm, f32, dev)
+            coo_kernel_case(kernel, plain, mdk, xk, spec,
+                            f"{key[0]} COO constraints {name} -b 10 {label}",
+                            coo_want("constraints", label, m, mm),
+                            coo_errs[key])
+            del mdk
+
+    # The halo forms on 4 shards of the card: a row-word fault in the last
+    # row of shard 1 (the first row of shard 2's left halo).
+    for layout, per in (("dia", coo), ("ell", coo_ell)):
+        for mode in MODES:
+            halo_case(layout, per[mode], mode, "row", coo_errs["halo"])
+
+    # ---- 33. cg-coo: kernels B and D on COO128 ------------------------------
+    phase("33. cg-coo: kernels B and D (live, lazy CI 4, Jacobi) and B's "
+          "split tail vs their plain loops on COO128, secded and "
+          "constraints, clean and faulted")
+    coo_arrow = parallel_builds(zoo_assembled("arrowhead", 1),
+                                ("secded", "constraints"), fmt="coo")
+    require(all(mm.exec_kind == "split" and mm.main.exec_kind == "dia"
+                and mm.tail.dense_plan is not None
+                for mm in coo_arrow.values()),
+            "COO arrowhead -b 1: a bordered split with a dense plan")
+
+    def check_failstop(m1, mode, name, label, precond, ci, clean):
+        """A constraints fault through kernel B or D (the solver's classify
+        after the trigger): the same fail-stop, iterations and events as
+        the plain loop on CPU tensors."""
+        solve = make_fused_solver(m1, mode, 1000, CONV, precond=precond,
+                                  check_interval=ci)
+        args = (minv_of(m1, like=clean),) if precond else ()
+        rk = solve(make_matrix_device(m1, f32, dev), bvec_of(m1), *args)
+        cargs = (minv_of(m1, "cpu", like=clean),) if precond else ()
+        rp = solve(make_matrix_device(m1, f32, torch.device("cpu")),
+                   bvec_of(m1, "cpu"), *cargs)
+        require(rk.stats.errcode != 0 and rk.iterations == rp.iterations
+                and tuple(rk.stats) == tuple(rp.stats),
+                f"{label} {name}: kernel {rk.iterations} it "
+                f"{tuple(rk.stats)}, plain {rp.iterations} it "
+                f"{tuple(rp.stats)}")
+        print(f"{label} {name}: fail-stop after {rk.iterations} it, stats "
+              f"{tuple(rk.stats)}, the plain loop's")
+
+    coo_solve_err = {}
+    for label, per, kernel, plain in (
+            ("COO DIA -b 10", coo, fused_cg_dia, fused_cg_dia_plain),
+            ("COO dense-radius-3d -b 1", coo_ell, fused_cg_ell,
+             fused_cg_ell_plain),
+            ("COO arrowhead -b 1", coo_arrow, fused_cg_dia,
+             fused_cg_dia_plain)):
+        for mode in ("secded", "constraints"):
+            mm = per[mode]
+            split = mm.exec_kind == "split"
+            mdv = make_matrix_device(mm, f32, dev)
+            tl = None
+            if split:
+                mdv, tl = mdv[0], (mdv[1], tail_spec(mm, mode))
+            spec_v = fast_spec(mm.main if split else mm, mode)
+            bv, mi = bvec_of(mm), minv_of(mm)
+            faults = ([("1-bit", inject_bitflips(
+                mm, "ANY", 1, np.random.default_rng(12),
+                echo=lambda s: None))] if mode == "secded" else
+                [("row word", row_word_flip(mm, mm.nnz // 3 + 1)),
+                 ("4-bit col/row", col_row_fault(mm, mm.nnz // 3))])
+            for vname, precond, ci in (("live", False, 1), *VARIANTS):
+                name = ("split tail " if split else "") + f"{mode} {vname}"
+                xk = check_variant(kernel, plain, mdv, spec_v, bv, name,
+                                   label, mi if precond else None, ci, tl)
+                coo_solve_err[label, mode] = max(
+                    coo_solve_err.get((label, mode), 0.0),
+                    opt[label, name]["err"])
+                for fname, m1 in faults:
+                    if mode == "secded":
+                        check_faulted_variant(m1, mode, name, label,
+                                              precond, ci, xk,
+                                              vname == "lazy Jacobi", mm)
+                    else:
+                        check_failstop(m1, mode, f"{name} {fname}", label,
+                                       precond, ci, mm)
+            del mdv
+
+    # ---- 34. cg-coo: the main path -----------------------------------------
+    phase("34. cg-coo main path: run_tests classes, cg-coo -t cuda -b 10 "
+          "--seed 11 (main_coo: what bin/cg-coo-torch runs)")
+    reset_launches()
+    coo_base = ["-b", "10", "--seed", "11", "-t", "cuda"]
+    run_tests_classes(main_coo, coo_base)
+    for flags in (["-x", "INDEX"], ["-x", "4", "INDEX"]):
+        code, out = run_cli(main_coo, [*coo_base, "-m", "constraints",
+                                       *flags])
+        require(code == 1 and "violated" in out,
+                f"constraints {' '.join(flags)}: exit {code}")
+        print(f"passed constraints {' '.join(flags)}: exit 1 "
+              f"({[ln for ln in out.splitlines() if 'violated' in ln]})")
+    coo_launches = {
+        "dia_spmv_detect": dia_fast.launches,
+        "dia_spmv_detect (two planes)": dia_fast.two_plane_launches,
+        "fused_cg_dia": fused_cg_dia.launches,
+        "fused_cg_dia (two planes)": fused_cg_dia.instances.get(
+            "live two-plane", 0)}
+    print(f"cg-coo -b 10 launches: {coo_launches}; kernel B by instance "
+          f"{dict(fused_cg_dia.instances)}")
+    for name, n in coo_launches.items():
+        require(n > 0, f"{name} was not launched on the cg-coo main path")
+
+    # ---- 35. cg-coo: one run per other layout ------------------------------
+    phase("35. cg-coo on the other layouts: a secded -x and a constraints "
+          "-x INDEX run each, -t cuda --seed 11, at the smallest -b that "
+          "keeps the zoo file's route")
+    from abft_sparse_cg_tpu_torch import formats as fmts
+
+    def route(mm):
+        if mm.exec_kind == "split":
+            return (f"split {mm.main.exec_kind}+{mm.tail.exec_kind}"
+                    + (" (dense plan)" if mm.tail.dense_plan is not None
+                       else ""))
+        return mm.exec_kind + (" (RCM)" if mm.perm is not None else "")
+
+    # The route each CLI run built, read off its own build (cli._main
+    # imports build_protected from formats at call time): no second build
+    # of each file.
+    built, build0 = [], fmts.build_protected
+
+    def recording_build(*a, **k):
+        built.append(build0(*a, **k))
+        return built[-1]
+
+    fmts.build_protected = recording_build
+    coo_paths = {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as st:
+        st.callback(setattr, fmts, "build_protected", build0)
+        for name, blocks, want, need in (
+                ("dense-radius-3d", 1, "ell", ("fused_cg_ell",)),
+                ("stencil27-shuffled", 5, "ell (RCM)", ("fused_cg_ell",)),
+                ("powerlaw-graph", 1, "flat", ("flat_spmv_detect",)),
+                ("band+random-1pct", 1, "split ell+flat",
+                 ("ell_spmv_detect", "flat_spmv_detect")),
+                ("arrowhead", 1, "split dia+flat (dense plan)",
+                 ("fused_cg_dia (split tail)",))):
+            path = os.path.join(tmp, f"{name}.mtx")
+            write_mm_triangle(path, *ZOO[name][0]())
+            t0 = time.perf_counter()
+            got, routes = {}, {}
+            for flags, ok_code in ((["-m", "secded", "-x"], 0),
+                                   (["-m", "constraints", "-x", "INDEX"],
+                                    1)):
+                reset_launches()
+                code, out = run_cli(main_coo, ["-f", path, "-b",
+                                               str(blocks), "--seed", "11",
+                                               "-t", "cuda", *flags])
+                tag = " ".join(flags[1:])
+                mode = flags[1]
+                require(len(built) > 0 and built[-1].fmt == "coo",
+                        f"{name} {tag}: no COO build recorded")
+                routes[mode] = route(built[-1])
+                built.clear()
+                require(code == ok_code, f"{name} {tag}: exit {code}")
+                require(("[ECC] corrected" in out) if ok_code == 0
+                        else ("violated" in out), f"{name} {tag}: output")
+                got[mode] = {
+                    "dia_spmv_detect": dia_fast.launches,
+                    "ell_spmv_detect": ell_fast.launches,
+                    "flat_spmv_detect": flat_fast.launches,
+                    "fused_cg_dia (split tail)": fused_cg_dia.tail_launches,
+                    "fused_cg_ell": fused_cg_ell.launches,
+                    "two-plane": (dia_fast.two_plane_launches
+                                  + ell_fast.two_plane_launches
+                                  + flat_fast.two_plane_launches
+                                  + sum(n for k, n in
+                                        (*fused_cg_dia.instances.items(),
+                                         *fused_cg_ell.instances.items())
+                                        if k.endswith("two-plane")))}
+                print(f"  {tag}: exit {code}, launches {got[mode]}")
+            print(f"  routes {routes}")
+            require(routes["secded"] == want,
+                    f"{name} -b {blocks} secded routes {routes['secded']}, "
+                    f"not {want}")
+            for k in need:
+                require(got["secded"][k] > 0, f"{k} was not launched on "
+                        f"the COO {name} secded path")
+            require(got["constraints"]["two-plane"] > 0,
+                    f"COO {name} constraints: no two-plane launch")
+            coo_paths[name] = got
+            print(f"  ({time.perf_counter() - t0:.0f} s)")
+
+    # ---- 36. cg-coo: the sharded solve ------------------------------------
+    phase("36. cg-coo: a 4-shard COO constraints solve on the card (halo "
+          "forms of kernel A) vs the single-device solve")
+    for fn in (dia_fast_halo, ell_fast_halo):
+        fn.launches = fn.product_launches = fn.two_plane_launches = 0
+    mcc = coo["constraints"]
+    sharded_case("COO DIA -b 10 constraints", mcc,
+                 np.random.default_rng(11).random(mcc.N))
+    print(f"halo launches: kernel A {dia_fast_halo.launches} "
+          f"({dia_fast_halo.two_plane_launches} two-plane)")
+    require(dia_fast_halo.two_plane_launches > 0,
+            "the sharded COO constraints solve ran no two-plane halo form")
+
+    # ---- 37. cg-coo times -------------------------------------------------
+    phase(f"37. cg-coo times on {card}: COO against CSR solves at -b 10 and "
+          "-b 100 (secded, constraints), interleaved; kernels A, B, C, E on "
+          "COO constraints per call")
+    device_state(card)
+
+    def sig_planes(mm, mode):
+        """Signal planes one iteration streams: the fold (ECC modes), the
+        col word (CSR constraints), col and row (COO constraints)."""
+        spec_ = fast_spec(mm, mode)
+        return sum(p is not None for p in (spec_.plane, spec_.plane2))
+
+    def dia_coo_bytes(mode, mm):
+        """Bytes of one DIA iteration: the value planes, the signal
+        planes and the 8 vector streams (dia_iter_bytes, constraints
+        included)."""
+        D, R = len(mm.dia_offsets), mm.R
+        return (4 * D * (1 + sig_planes(mm, mode)) + 8 * 4) * R
+
+    def b_launch(mm, mode, upto):
+        """One launch of kernel B from the initial state to ``upto``
+        iterations (or convergence), and its iterations."""
+        md_, spec_ = make_matrix_device(mm, f32, dev), dia_spec(mm, mode)
+        s0 = init_state(bvec_of(mm), upto)
+        tr = torch.full_like(s0.trace, float("nan"))
+
+        def go():
+            return fused_cg_dia(md_, spec_, s0.x.clone(), s0.r.clone(),
+                                s0.p.clone(), s0.rr, s0.rz, 0, upto, CONV,
+                                tr, None, None, 1)
+
+        return go, go().itr
+
+    def coo_table(label, table):
+        """Interleaved solves of {name: (matrix, mode)}: the cuda target's
+        whole solve on the host clock (median, spread), and kernel B's
+        launch by CUDA events, full and to 2 iterations: the slope, its
+        bytes and share of the bound; returns {name: (host median ms,
+        iterations, slope, bytes per it)}."""
+        fns, its, kfns, kits = {}, {}, {}, {}
+        for name, (mm, mode) in table.items():
+            fns[name], its[name] = solver_fn(mm, mode)
+            kfns[name], kits[name] = b_launch(mm, mode, 1000)
+            kfns[name + "@2"], _ = b_launch(mm, mode, 2)
+        t = interleave(fns, 5, 5)
+        tk = interleave(kfns, 5, 5, timer=event_ms)
+        med = {n: statistics.median(v) for n, v in t.items()}
+        kmed = {n: statistics.median(v) for n, v in tk.items()}
+        out = {}
+        for name, (mm, mode) in table.items():
+            slope = (kmed[name] - kmed[name + "@2"]) / (kits[name] - 2)
+            nbytes = dia_coo_bytes(mode, mm)
+            bms = nbytes / HBM_BPS * 1e3
+            print(f"{name:18s} solve {label}: {spread(t[name])}, "
+                  f"{its[name]} it; kernel B {kmed[name]:.4f} ms (events), "
+                  f"slope {slope:.4f} ms/it, {nbytes / 1e6:.1f} MB/it, "
+                  f"bound {bms:.4f} ms/it = {bms / slope * 100:.1f}% of "
+                  f"the bound [{card}]")
+            out[name] = (med[name], its[name], slope, nbytes)
+        return out
+
+    coo_t10 = coo_table("-b 10", {
+        "CSR secded": (mats["secded"], "secded"),
+        "COO secded": (coo["secded"], "secded"),
+        "CSR constraints": (mats["constraints"], "constraints"),
+        "COO constraints": (coo["constraints"], "constraints")})
+    a100 = load_matrix(MATRIX, 100)
+    coo100 = parallel_builds(a100, ("secded", "constraints"), fmt="coo")
+    csr100c = build_protected("csr", a100, "constraints")
+    del a100
+    coo_t100 = coo_table("-b 100", {
+        "CSR secded": (mats100["secded"], "secded"),
+        "COO secded": (coo100["secded"], "secded"),
+        "CSR constraints": (csr100c, "constraints"),
+        "COO constraints": (coo100["constraints"], "constraints")})
+    del coo100, csr100c, mats100
+
+    # per call: kernel A and B (COO constraints -b 10 and COO secded -b 10),
+    # C (dense-radius-3d -b 10) and E (powerlaw-graph -b 10), each beside
+    # the same kernel on the CSR build of the matrix
+    coo_rows = []
+    mcc = coo["constraints"]
+    D, R = len(mcc.dia_offsets), mcc.R
+    mdk = make_matrix_device(mcc, f32, dev)
+    xk = torch.zeros(R, dtype=f32, device=dev)
+    xk[: mcc.N] = x.to(dev)
+    med_ac, *bound_ac = kernel_times(
+        dia_fast, dia_fast_plain, mdk, dia_spec(mcc, "constraints"), xk,
+        "kernel A COO constraints -b 10",
+        4 * (3 * D * R + 2 * R + 2 * (R // 8)), 2 * D * R)
+    del mdk
+    coo_rows.append(
+        {"name": "dia_spmv_detect (COO constraints)", "route": "cuda",
+         "source": "abft_sparse_cg_tpu_torch/csrc/dia_spmv_detect.cu",
+         "replaces": "abft_sparse_cg_tpu/ops/spmv_pallas.py:519",
+         "launches": coo_launches["dia_spmv_detect (two planes)"],
+         "max_abs_err": max(coo_errs["A"]), "ms": med_ac["kernel"],
+         "plain_ms": med_ac["plain"], "bound_ms": bound_ac[0],
+         "bound_by": bound_ac[1], "library_ms": med_ac["A @ x"]})
+    for mode, launches_b in (
+            ("constraints", coo_launches["fused_cg_dia (two planes)"]),
+            ("secded", coo_launches["fused_cg_dia"]
+             - coo_launches["fused_cg_dia (two planes)"])):
+        mm = coo[mode]
+        mdk = make_matrix_device(mm, f32, dev)
+        spec_k = dia_spec(mm, mode)
+        bk = bvec_of(mm)
+        tb_ = interleave({"plain": loop_fn(fused_cg_dia_plain, mdk, spec_k,
+                                           bk),
+                          "kernel": loop_fn(fused_cg_dia, mdk, spec_k, bk)},
+                         5, batches=5)
+        ms_k, plain_k = (statistics.median(tb_["kernel"]),
+                         statistics.median(tb_["plain"]))
+        ik_k = coo_t10[f"COO {mode}"][1]   # the cuda target's iterations
+        bound_k = bound(ik_k * dia_coo_bytes(mode, mm),
+                        ik_k * (2 * D * R + 10 * R))
+        print(f"kernel B COO {mode} solve -b 10 ({ik_k} it): kernel "
+              f"{spread(tb_['kernel'])}; plain loop {spread(tb_['plain'])}; "
+              f"bound {bound_k[0]:.4f} ms ({bound_k[1]}) [{card}]")
+        coo_rows.append(
+            {"name": f"fused_cg_dia [{dia_schedule(mm.dia_offsets)}] (COO "
+                     f"{mode})", "route": "cuda",
+             "source": "abft_sparse_cg_tpu_torch/csrc/fused_cg_dia.cu",
+             "replaces": "abft_sparse_cg_tpu/solver/fused.py:1248",
+             "launches": launches_b,
+             "max_abs_err": coo_solve_err["COO DIA -b 10", mode],
+             "ms": ms_k, "plain_ms": plain_k, "bound_ms": bound_k[0],
+             "bound_by": bound_k[1], "library_ms": None})
+        del mdk
+
+    def constraints_call_bytes(mm, spec_):
+        """Bytes one kernel C or E call in constraints mode must move: the
+        values of the nnz valid slots, each signal plane once (padding
+        included) with its baseline (the gather word is one of them: the
+        col word, on COO128 the row word), C's ell_len or E's row
+        pointer, x read and w written."""
+        require(spec_.gather in (spec_.plane, spec_.plane2),
+                "constraints: the gather word is a signal plane")
+        if mm.exec_kind == "ell":   # K x R slots, a word per 8 rows
+            slots, base, index = mm.K * mm.R, mm.R // 8, mm.R
+        else:                       # E slots, a word per 8 slots
+            slots, base, index = mm.exec_size, mm.exec_size // 8, mm.R + 1
+        return (4 * mm.nnz + sig_planes(mm, "constraints") * 4
+                * (slots + base) + 4 * index + 8 * mm.R)
+
+    t0 = time.perf_counter()
+    timed = {}
+    for key, kernel, plain, spec_of, name, pair, gm in (
+            ("C", ell_fast, ell_fast_plain, ell_spec, "dense-radius-3d",
+             (ell["constraints"], coo_c10), "ell_spmv_detect.cu"),
+            ("E", flat_fast, flat_fast_plain, flat_spec, "powerlaw-graph",
+             (flat["powerlaw-graph"][1]["constraints"], coo_e10),
+             "flat_spmv_detect.cu")):
+        for fmt_, mm in zip(("CSR", "COO"), pair):
+            xk = torch.zeros(mm.R, dtype=f32, device=dev)
+            xk[: mm.N] = torch.tensor(
+                np.random.default_rng(3).random(mm.N), dtype=f32)
+            mdk = make_matrix_device(mm, f32, dev)
+            spec_k = spec_of(mm, "constraints")
+            shape = (f"K {mm.K}, R {mm.R}" if key == "C"
+                     else f"E {mm.exec_size}")
+            timed[key, fmt_] = kernel_times(
+                kernel, plain, mdk, spec_k, xk,
+                f"kernel {key} {fmt_} constraints {name} -b 10 ({shape})",
+                constraints_call_bytes(mm, spec_k), 2 * mm.nnz)
+            del mdk
+        med, bms, by = timed[key, "COO"]
+        wrapper = gm.removesuffix(".cu")
+        coo_rows.append(
+            {"name": f"{wrapper} (COO constraints)", "route": "cuda",
+             "source": f"abft_sparse_cg_tpu_torch/csrc/{gm}",
+             "replaces": ("abft_sparse_cg_tpu/ops/spmv_pallas.py:846"
+                          if key == "C" else
+                          "abft_sparse_cg_tpu/ops/spmv_unstructured.py:447"),
+             "launches": sum(coo_paths[n]["constraints"][wrapper]
+                             for n in coo_paths),
+             "max_abs_err": max(coo_errs[f"{key} -b 10"]),
+             "ms": med["kernel"], "plain_ms": med["plain"],
+             "bound_ms": bms, "bound_by": by, "library_ms": med["A @ x"]})
+    print(f"[kernel C and E per call: {time.perf_counter() - t0:.0f} s]")
+    # the device time of each solve, in a fresh profiler worker (phase 31's
+    # way): COO against CSR at -b 10, secded and constraints
+    profile_group("coo", None, card)
+    kernels += coo_rows
     print(f"[all phases done at {time.perf_counter() - t_start:.0f} s]")
 
     print()
@@ -2541,5 +3242,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--profile-worker"]:
         profile_worker(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--cli-worker"]:
+        cli_worker(sys.argv[2])
     else:
         main()

@@ -84,7 +84,7 @@ def main():
           f"{plan.shape[0]} blocks ({int(chunk.sum())} long-row chunks)")
     for label, spec in (("live", sc.flat_spec(m, "secded")),
                         ("product", sc.product_spec(m, "secded"))):
-        plane, base = sc._signal_planes(md, spec)
+        sig = sc._plane_ptrs(sc._signal_planes(md, spec))
         gsrc = md.gidx if spec.gather == "gidx" else md.words[spec.gather]
         want = sc.flat_fast_plain(md, x, spec)[0]
         for variant, part, pl in (
@@ -105,7 +105,7 @@ def main():
                         sc.gather_mask(spec), md.row_ptr.data_ptr(),
                         pl.data_ptr(), nb, carry.data_ptr(),
                         sync.data_ptr(), m.R, x.data_ptr(), w.data_ptr(),
-                        sc._ptr(plane), sc._ptr(base), int(spec.use_parity),
+                        *sig, int(spec.use_parity),
                         int(spec.use_cksum), scratch.data_ptr(),
                         scratch.data_ptr() + 4 * nb, pw.data_ptr(),
                         trig.data_ptr(), 0,

@@ -23,18 +23,14 @@ iteration.  Variants:
 
 Every copy is compiled by nvcc into build/torch_tail_probe/; the as-built
 sources of kernels B and D are compiled once more with -Xptxas -v and
-each instance's registers, stack frame and spills are printed.  With
---sass-against DIR, the instances this tree shares with the checkout DIR
-(the same kernel name: kernel B's split-tail ones and all of D's) are
-compared, instruction for instruction (cuobjdump -sass,
-constant-bank offsets aside), with those built from DIR's sources.  Prints
-the card's name and power limit as nvidia-smi gives them.  Needs one
-CUDA card; exits non-zero without.
+each instance's registers, stack frame and spills are printed
+(scripts/torch_sass_diff.py compares the SASS of two trees' kernels).
+Prints the card's name and power limit as nvidia-smi gives them.  Needs
+one CUDA card; exits non-zero without.
 """
 
 import argparse
 import ctypes
-import difflib
 import os
 import re
 import shutil
@@ -221,68 +217,6 @@ def build_variants():
     return out
 
 
-def sass_functions(so):
-    """{demangled kernel name: its SASS} of a library (cuobjdump -sass),
-    every constant-bank operand written as c[0x0][*]: the kernels'
-    parameter offsets move with any change to a parameter struct.  (The
-    mangled names differ between checkouts: nvcc tags the anonymous
-    namespace with a hash of the file.)"""
-    from abft_sparse_cg_tpu_torch import _build
-
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", so], capture_output=True,
-                          text=True, check=True).stdout
-    out, name = {}, None
-    for line in text.splitlines():
-        m = re.match(r"\s*Function : (\w+)", line)
-        if m:
-            name = m.group(1)
-            out[name] = []
-        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            ins = re.sub(r"^\s*/\*[0-9a-f]+\*/\s*|\s*/\*\s*0x[0-9a-f]+\s*\*/"
-                         r"\s*$", "", line)
-            ins = ins.strip().rstrip(";").strip()
-            out[name].append(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]",
-                                    "c[0x0][*]", ins))
-    return {demangle(k): "\n".join(v) for k, v in out.items()}
-
-
-def _unchanged_key(name):
-    """A kernel's name with the names that kernel B's split-tail
-    instances have had since they got a loop of their own
-    (fused_cg_dia_tail_kernel<P>, fused_cg_dia_tail_lazy_kernel<P>)
-    written as before (fused_cg_dia_kernel<true, P>,
-    fused_cg_dia_lazy_kernel<true, P>), so that a tree of either age
-    pairs with the other."""
-    return re.sub(r"fused_cg_dia_tail(_lazy)?_kernel<", lambda m:
-                  f"fused_cg_dia{m.group(1) or ''}_kernel<(bool)1, ", name)
-
-
-def compare_unchanged(other):
-    """The instances of kernels B and D that this tree shares with the
-    checkout ``other`` (B's split-tail ones, all of D's; the same name,
-    see _unchanged_key), instruction for instruction."""
-    for name in ("fused_cg_dia", "fused_cg_ell"):
-        so = os.path.join(OUT, f"other_{name}.so")
-        subprocess.run(nvcc_cmd(os.path.join(
-            other, "abft_sparse_cg_tpu_torch", "csrc", f"{name}.cu"), so)
-            + ["-I", os.path.join(other, "abft_sparse_cg_tpu_torch", "csrc")],
-            check=True)
-        mine = {_unchanged_key(k): v for k, v in sass_functions(
-            os.path.join(OUT, f"verbose_{name}.so")).items()}
-        theirs = {_unchanged_key(k): v for k, v in sass_functions(so).items()}
-        for fn in sorted(mine):
-            if fn not in theirs:
-                print(f"  {fn[:72]}: not in {other}")
-                continue
-            a, b = theirs[fn].splitlines(), mine[fn].splitlines()
-            diff = [d for d in difflib.unified_diff(a, b, lineterm="", n=0)
-                    if d[:1] in "+-" and d[:3] not in ("+++", "---")]
-            print(f"  {fn[:72]}: {len(b)} instructions ({len(a)} "
-                  f"in {other}), {len(diff)} lines differ"
-                  + "".join(f"\n      {d[:90]}" for d in diff[:6]))
-
-
 class Timed:
     """A kernel B library whose launch entry records CUDA events right
     around the cooperative launch."""
@@ -316,9 +250,6 @@ class Timed:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batches", type=int, default=5)
-    ap.add_argument("--sass-against", metavar="DIR",
-                    help="compare the SASS of the instances this tree "
-                         "shares with the checkout DIR")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -341,8 +272,6 @@ def main():
     os.makedirs(OUT, exist_ok=True)
     print("ptxas -v of the as-built kernels B and D:")
     libs = {v: Timed(p) for v, p in build_variants().items()}
-    if args.sass_against:
-        compare_unchanged(os.path.abspath(args.sass_against))
 
     dev, f32 = torch.device("cuda", 0), torch.float32
     m = build_protected("csr", zoo_assembled("arrowhead", 10), "secded")

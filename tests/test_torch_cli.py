@@ -2,9 +2,11 @@
 for line identity with the JAX CLI's ``-t jnp`` in float64 (on the DIA
 stand-in, a banded-ELL matrix, and flat, band-split and bordered-split
 matrices; with ``-p jacobi``, ``--refine 2`` and ``--check-interval 4``,
-which both targets run live, on DIA and ELL), the default ``cuda``
-target, the unported-flag errors, and the package's independence from
-JAX."""
+which both targets run live, on DIA and ELL), the same for cg-coo
+(``main_coo``, what bin/cg-coo-torch runs, against bin/cg-coo's) on
+every layout in every -x class and a 4-bit INDEX run (the ``coo-``
+cases), the default ``cuda`` target, the unported-flag errors, and the
+package's independence from JAX."""
 
 import ast
 import os
@@ -20,7 +22,12 @@ from abft_sparse_cg_tpu import cli as jcli
 from abft_sparse_cg_tpu.backends import base as jbase
 from abft_sparse_cg_tpu.formats import assemble, build_protected
 from abft_sparse_cg_tpu.ops import spmv as jspmv
-from abft_sparse_cg_tpu.utils.matgen import spd_tridiagonal, write_mm_triangle
+from abft_sparse_cg_tpu.utils.matgen import (
+    shuffle_labels,
+    spd_laplacian_2d,
+    spd_tridiagonal,
+    write_mm_triangle,
+)
 from abft_sparse_cg_tpu.utils.matzoo import (
     arrowhead,
     band_plus_random,
@@ -68,6 +75,21 @@ def test_list(capsys):
     assert code == 0
     impls = re.findall(r"^\t(\S+)-(\S+)$", out, re.M)
     assert [("torch", m) for m in MODES] == impls[:6]
+
+
+def test_coo_list_and_help(capsys):
+    """``main_coo`` (bin/cg-coo-torch): the same --list as cg-csr-torch
+    and the JAX cg-coo's, and a --help that names cg-coo-torch."""
+    code, out, _ = run(cli.main_coo, ["--list"], capsys)
+    _, csr_out, _ = run(cli.main_csr, ["--list"], capsys)
+    assert code == 0 and out == csr_out
+    impls = re.findall(r"^\t(\S+)-(\S+)$", out, re.M)
+    assert [("torch", m) for m in MODES] == impls[:6]
+    code, out, _ = run(cli.main_coo, ["--help"], capsys)
+    assert code == 0
+    assert "Usage: cg-coo-torch [OPTIONS]" in out and "--format" in out
+    jcode, jout, _ = run(jcli.main_coo, ["--help"], capsys)
+    assert jcode == 0 and "Usage: cg-coo" in jout
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -125,16 +147,39 @@ OPTION_RUNS = [[*opt, *fault]
                            ["--check-interval", "4"])
                for fault in (["-m", "secded"], ["-m", "secded", "-x"])]
 
+# The run_tests classes, each -x kind.
+FAULT_RUNS = [["-m", "none"], ["-m", "secded", "-x"], ["-m", "sed", "-x"],
+              ["-m", "secded", "-x", "2"], ["-m", "sec7", "-x", "VALUE"],
+              ["-m", "constraints", "-x", "INDEX"], ["-m", "sec8", "-x", "3"]]
+# cg-coo: the same classes and a 4-bit INDEX flip, which in constraints
+# mode can land on both index words of one element.
+COO = "coo"
+COO_RUNS = [[COO, *f] for f in FAULT_RUNS + [
+    ["-m", "constraints", "-x", "4", "INDEX"]]]
+
+
+def mains(flags):
+    """(JAX main, port main, flags): bin/cg-coo's and bin/cg-coo-torch's
+    ``main_coo`` for a case that starts with COO, else the cg-csr ones."""
+    if flags[:1] == [COO]:
+        return jcli.main_coo, cli.main_coo, flags[1:]
+    return jcli.main_csr, cli.main_csr, flags
+
+
+def run_ids(flags):
+    return "_".join(flags).replace(f"{COO}_", f"{COO}-", 1)
+
 
 @pytest.mark.parametrize("flags", [
     ["-m", "none"], ["-m", "secded", "-x"], ["-m", "sed", "-x"],
     ["-m", "secded", "-x", "2"], ["-m", "sec7", "-x", "VALUE"],
     ["-m", "constraints", "-x", "INDEX"], ["-m", "sec8", "-x", "3"],
-    *OPTION_RUNS], ids=lambda f: "_".join(f))
+    *OPTION_RUNS, *COO_RUNS], ids=run_ids)
 def test_f64_stdout_identical_to_jnp(mtx, flags, capsys):
+    jmain, tmain, flags = mains(flags)
     argv = ["-f", mtx, "-b", "4", "--seed", "5", "--dtype", "f64", *flags]
-    jcode, jout, _ = run(jcli.main_csr, argv + ["-t", "jnp"], capsys)
-    tcode, tout, _ = run(cli.main_csr, argv + ["-t", "torch"], capsys)
+    jcode, jout, _ = run(jmain, argv + ["-t", "jnp"], capsys)
+    tcode, tout, _ = run(tmain, argv + ["-t", "torch"], capsys)
     assert tcode == jcode
     assert contract_lines(tout) == contract_lines(jout)
     assert any(ln.startswith("iteration") for ln in tout.splitlines()) \
@@ -152,8 +197,8 @@ def test_cuda_target_without_card(mtx, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--solver", "pipelined"],
-    ["--checkpoint", "snap.npz"], ["--resume"], ["--profile", "trace"],
-    ["--format", "coo"]], ids=lambda f: f[0])
+    ["--checkpoint", "snap.npz"], ["--resume"], ["--profile", "trace"]],
+    ids=lambda f: f[0])
 def test_unported_flags_fail_with_one_line(mtx, flags, capsys):
     code, out, _ = run(cli.main_csr, ["-f", mtx, "-t", "torch", *flags],
                        capsys)
@@ -161,21 +206,16 @@ def test_unported_flags_fail_with_one_line(mtx, flags, capsys):
     assert out.strip().count("\n") == 0 and "not ported" in out
 
 
-# The run_tests classes, each -x kind.
-FAULT_RUNS = [["-m", "none"], ["-m", "secded", "-x"], ["-m", "sed", "-x"],
-              ["-m", "secded", "-x", "2"], ["-m", "sec7", "-x", "VALUE"],
-              ["-m", "constraints", "-x", "INDEX"], ["-m", "sec8", "-x", "3"]]
-
-
-@pytest.mark.parametrize("flags", FAULT_RUNS, ids=lambda f: "_".join(f))
+@pytest.mark.parametrize("flags", FAULT_RUNS + COO_RUNS, ids=run_ids)
 def test_devices_f64_stdout_identical_to_jnp(mtx, flags, capsys):
     """``--devices 8`` (row-sharded over 8 shards: the port's on the CPU,
     JAX's on the 8-device virtual mesh) in float64: stdout equal line
-    for line, clean and in every -x class."""
+    for line, clean and in every -x class, cg-csr and cg-coo."""
+    jmain, tmain, flags = mains(flags)
     argv = ["-f", mtx, "-b", "4", "--seed", "5", "--dtype", "f64",
             "--devices", "8", *flags]
-    jcode, jout, _ = run(jcli.main_csr, argv + ["-t", "jnp"], capsys)
-    tcode, tout, _ = run(cli.main_csr, argv + ["-t", "torch"], capsys)
+    jcode, jout, _ = run(jmain, argv + ["-t", "jnp"], capsys)
+    tcode, tout, _ = run(tmain, argv + ["-t", "torch"], capsys)
     assert tcode == jcode
     assert contract_lines(tout) == contract_lines(jout)
     assert "iteration" in tout or jcode == 1
@@ -262,20 +302,34 @@ def test_non_dia_matrix_not_ported(tmp_path, capsys):
 
 
 @pytest.fixture(scope="module")
-def layout_mtx(tmp_path_factory):
+def layout_mtx(tmp_path_factory, mtx):
     """.mtx files of a flat (stencil27-shuffled, side 30: flat under its
     RCM permutation), a band-split (band+random-1pct, n = 16384) and a
-    bordered-split (arrowhead, n = 2048) matrix."""
+    bordered-split (arrowhead, n = 2048) matrix; for cg-coo also the DIA
+    stand-in, a banded-ELL (dense-radius-3d, side 8) and an RCM-ELL one
+    (a label-shuffled 2-D Laplacian of side 24: ELL under its RCM
+    permutation in the ECC modes; constraints never permutes)."""
     d = tmp_path_factory.mktemp("layouts")
-    out = {}
+    out = {"dia": mtx}
     for name, tri in (("band-split", band_plus_random(n=16384)),
-                      ("bordered-split", arrowhead(n=2048))):
+                      ("bordered-split", arrowhead(n=2048)),
+                      ("ell", dense_radius_3d(side=8)),
+                      ("rcm-ell", shuffle_labels(*spd_laplacian_2d(24),
+                                                 seed=11))):
         out[name] = str(d / f"{name}.mtx")
         write_mm_triangle(out[name], *tri)
     out["flat"] = str(d / "stencil27.mtx")
     write_mm_triangle(out["flat"], *stencil27_shuffled(side=30))
     return out
 
+
+# cg-coo's bordered split under sec8 -x 3 at --seed 3: the three flips
+# land in one value (two of them in its exponent), sec8 miscorrects a
+# fourth bit, and CG on the corrupted, unsymmetric matrix amplifies
+# rounding about 1e4-fold per iteration.  The two packages' float64 sums
+# differ in order (rr0 by 4e-16), so their rr lines part at iteration 3;
+# test_coo_chaotic_run_agrees_but_its_rr_lines holds that run instead.
+CHAOTIC = ("bordered-split", [COO, "-m", "sec8", "-x", "3"])
 
 LAYOUT_RUNS = [(lay, flags) for lay in ("flat", "band-split",
                                         "bordered-split")
@@ -284,24 +338,105 @@ LAYOUT_RUNS = [(lay, flags) for lay in ("flat", "band-split",
                              ["-m", "constraints", "-x", "INDEX"])] + [
     (lay, [*flags, "--devices", "8"]) for lay in ("flat", "band-split",
                                                   "bordered-split")
-    for flags in (["-m", "secded", "-x"], ["-m", "sed", "-x"])]
+    for flags in (["-m", "secded", "-x"], ["-m", "sed", "-x"])] + [
+    (lay, flags) for lay in ("dia", "ell", "rcm-ell", "flat", "band-split",
+                             "bordered-split") for flags in COO_RUNS
+    if (lay, flags) != CHAOTIC] + [
+    ("ell", [*flags, "--devices", "8"]) for flags in COO_RUNS]
 
 
 @pytest.mark.parametrize("layout,flags", LAYOUT_RUNS,
-                         ids=[f"{lay}-{'_'.join(f)}" for lay, f in
+                         ids=[f"{lay}-{run_ids(f)}" for lay, f in
                               LAYOUT_RUNS])
 def test_layouts_f64_stdout_identical_to_jnp(layout_mtx, layout, flags,
                                              capsys):
     """The flat and split layouts on -t torch in float64: stdout equal to
     -t jnp line for line, clean and in the run_tests -x classes, and
-    row-sharded over 8 shards."""
+    row-sharded over 8 shards; cg-coo on every layout."""
+    jmain, tmain, flags = mains(flags)
     argv = ["-f", layout_mtx[layout], "-b", "1", "--seed", "3", "--dtype",
             "f64", *flags]
-    jcode, jout, _ = run(jcli.main_csr, argv + ["-t", "jnp"], capsys)
-    tcode, tout, _ = run(cli.main_csr, argv + ["-t", "torch"], capsys)
+    jcode, jout, _ = run(jmain, argv + ["-t", "jnp"], capsys)
+    tcode, tout, _ = run(tmain, argv + ["-t", "torch"], capsys)
     assert tcode == jcode
     assert contract_lines(tout) == contract_lines(jout)
     assert "iteration" in tout or jcode == 1
+
+
+def test_coo_chaotic_run_agrees_but_its_rr_lines(layout_mtx, capsys):
+    """The CHAOTIC run: the same exit code, banner, [ECC] events,
+    iteration count and verification lines as -t jnp, and rr lines equal
+    to the printed digit up to the iteration after the correction; the
+    later ones agree to 1e-3 of rr0 (rounding amplified by the corrupted
+    matrix, not a different solve)."""
+    layout, flags = CHAOTIC
+    jmain, tmain, flags = mains(flags)
+    argv = ["-f", layout_mtx[layout], "-b", "1", "--seed", "3", "--dtype",
+            "f64", *flags]
+    jcode, jout, _ = run(jmain, argv + ["-t", "jnp"], capsys)
+    tcode, tout, _ = run(tmain, argv + ["-t", "torch"], capsys)
+    assert tcode == jcode == 0 and "[ECC] corrected" in tout
+    jl, tl = contract_lines(jout), contract_lines(tout)
+    assert len(jl) == len(tl)
+    rr = [(a, b) for a, b in zip(jl, tl) if a.startswith("iteration")]
+    assert [a for a, b in zip(jl, tl) if not a.startswith("iteration")] \
+        == [b for a, b in zip(jl, tl) if not a.startswith("iteration")]
+    assert rr[:3] == [(a, a) for a, _ in rr[:3]]
+    rr0 = float(rr[0][0].split()[-1])
+    for a, b in rr:
+        assert a.split()[:3] == b.split()[:3]
+        assert abs(float(a.split()[-1]) - float(b.split()[-1])) <= 1e-3 * rr0
+
+
+def test_coo_chaotic_rr_lines_follow_summation_order(layout_mtx,
+                                                     monkeypatch, capsys):
+    """Why the CHAOTIC run's rr lines part from -t jnp's: the port's own
+    solve, with only the order of its float64 sums changed (solver.cg's
+    dot and the rr of calc_xr: torch.sum, the reversed vector, NumPy's
+    pairwise sum, the exactly rounded math.fsum), prints four different
+    rr lines at iteration 3 from the same lines before it, every other
+    line equal, and -t jnp's iteration 3 is a fifth value: jnp is one
+    more summation order, not a different solve."""
+    import math
+
+    from abft_sparse_cg_tpu_torch.solver import cg
+
+    layout, flags = CHAOTIC
+    jmain, tmain, flags = mains(flags)
+    argv = ["-f", layout_mtx[layout], "-b", "1", "--seed", "3", "--dtype",
+            "f64", *flags]
+    _, jout, _ = run(jmain, argv + ["-t", "jnp"], capsys)
+    sums = {"torch.sum": torch.sum,
+            "reversed": lambda v: torch.sum(torch.flip(v, [0])),
+            "pairwise": lambda v: torch.tensor(np.sum(v.numpy()),
+                                               dtype=v.dtype),
+            "fsum": lambda v: torch.tensor(math.fsum(v.tolist()),
+                                           dtype=v.dtype)}
+    outs = {}
+    for name, total in sums.items():
+        def calc_xr(x, r, p, w, alpha, total=total):
+            x = x + alpha * p
+            r = r - alpha * w
+            return x, r, total(r * r)
+
+        monkeypatch.setattr(cg, "dot", lambda a, b, t=total: t(a * b))
+        monkeypatch.setattr(cg, "calc_xr", calc_xr)
+        code, out, _ = run(tmain, argv + ["-t", "torch"], capsys)
+        assert code == 0 and "[ECC] corrected" in out, name
+        outs[name] = contract_lines(out)
+    jl = contract_lines(jout)
+
+    def split(lines):
+        rr = [ln for ln in lines if ln.startswith("iteration")]
+        return rr, [ln for ln in lines if not ln.startswith("iteration")]
+
+    jrr, jrest = split(jl)
+    parts = {name: split(lines) for name, lines in outs.items()}
+    assert all(rest == jrest for _, rest in parts.values())
+    assert all(rr[:3] == jrr[:3] for rr, _ in parts.values())
+    third = {name: rr[3] for name, (rr, _) in parts.items()}
+    assert len(set(third.values())) == len(sums)
+    assert jrr[3] not in third.values()
 
 
 @pytest.fixture(scope="module")

@@ -69,9 +69,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def dia_matrix(mode, n=4096, blocks=2):
+def dia_matrix(mode, n=4096, blocks=2, fmt="csr"):
     rows, cols, vals, n = spd_tridiagonal(n)
-    return build_protected("csr", assemble(cols, rows, vals, n, blocks),
+    return build_protected(fmt, assemble(cols, rows, vals, n, blocks),
                            mode)
 
 
@@ -247,12 +247,12 @@ def test_kernel_b_replays_bit_for_bit(dev, shape, schedule):
         assert same_bits(a.cpu(), torch.from_numpy(np.asarray(c)))
 
 
-def ell_matrix(mode, shape="dense-radius"):
+def ell_matrix(mode, shape="dense-radius", fmt="csr"):
     if shape == "dense-radius":
         rows, cols, vals, n = dense_radius_3d(side=16)
-        return build_protected("csr", assemble(cols, rows, vals, n, 2), mode)
+        return build_protected(fmt, assemble(cols, rows, vals, n, 2), mode)
     rows, cols, vals, n = shuffle_labels(*spd_tridiagonal(8192), seed=11)
-    return build_protected("csr", assemble(cols, rows, vals, n, 1), mode,
+    return build_protected(fmt, assemble(cols, rows, vals, n, 1), mode,
                            force_exec="ell")
 
 
@@ -320,7 +320,7 @@ def test_kernel_d_matches_plain(dev, mode, flips, seed, shape):
 # Kernel E, the split tail of kernels B and D, the per-iteration tier
 # --------------------------------------------------------------------------
 
-def flat_matrix(mode, shape):
+def flat_matrix(mode, shape, fmt="csr"):
     """Flat layouts: powerlaw-graph (hub rows), stencil27-shuffled under
     its RCM permutation (the gidx plane), K = 729 dense rows."""
     from abft_sparse_cg_tpu_torch.utils.matzoo import (
@@ -335,7 +335,7 @@ def flat_matrix(mode, shape):
                "k729": (lambda: dense_radius_3d(side=9, rx=4, ry=4, rz=4),
                         {"force_exec": "flat"})}[shape]
     rows, cols, vals, n = tri()
-    m = build_protected("csr", assemble(cols, rows, vals, n, 1), mode, **kw)
+    m = build_protected(fmt, assemble(cols, rows, vals, n, 1), mode, **kw)
     assert m.exec_kind == "flat"
     return m
 
@@ -536,22 +536,33 @@ def test_kernel_c_ragged_edges(dev, mode, case):
             torch.testing.assert_close(pk, pp, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("mode", ["none", "constraints", "secded"])
-def test_kernel_c_many_tiles_per_block(dev, mode):
+@pytest.mark.parametrize("fmt,mode", [
+    ("csr", "none"), ("csr", "constraints"), ("csr", "secded"),
+    ("coo", "constraints")],
+    ids=["none", "constraints", "secded", "coo-constraints"])
+def test_kernel_c_many_tiles_per_block(dev, fmt, mode):
     """Kernel C where every block walks at least three 128-row tiles (R
     past 3 tiles per resident block), so its ring of slabs runs on from
     one tile into the next: 13 diagonals over the first half of the rows,
     a tridiagonal over the rest, 2,000 empty rows between them (tiles of
     4, 1 and 0 value slabs).  Live and as the product, clean and
     faulted: w bit-exact to the plain version, the trigger equal, pw to
-    1e-5."""
+    1e-5.  COO constraints runs the two-plane instance (its fourth ring
+    slab, its own occupancy and grid), with a row-word flip and the
+    4-bit col/row fault besides, each of which must fire it."""
     from abft_sparse_cg_tpu_torch._build import library
     from abft_sparse_cg_tpu_torch.ops.spmv import ELL_TILE_ROWS, ell_grid
     from abft_sparse_cg_tpu_torch.ops.spmv_cuda import product_spec
+    from abft_sparse_cg_tpu_torch.utils.coo_faults import (
+        col_row_fault,
+        row_word_flip,
+    )
 
+    planes = 2 if fmt == "coo" else 1
     per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
     assert library("ell_spmv_detect").abft_ell_spmv_occupancy(
-        dev.index, 0, ctypes.addressof(per_sm), ctypes.addressof(sms)) == 0
+        dev.index, 0, planes, ctypes.addressof(per_sm),
+        ctypes.addressof(sms)) == 0
     n = 3 * ELL_TILE_ROWS * sms.value * per_sm.value + 1000
     h = n // 2
     i = np.arange(h)
@@ -564,22 +575,32 @@ def test_kernel_c_many_tiles_per_block(dev, mode):
     rows.append(r + h + 2000)
     cols.append(c + h + 2000)
     vals.append(v)
-    m = build_protected("csr", assemble(
+    m = build_protected(fmt, assemble(
         np.concatenate(cols), np.concatenate(rows), np.concatenate(vals), n,
         1), mode, force_exec="ell")
     assert m.exec_kind == "ell" and m.K == 13
+    assert (ell_spec(m, mode).plane2 is not None) == (planes == 2)
     grid = ell_grid(m.R, sms.value, per_sm.value)
     assert m.R // grid >= 3 * ELL_TILE_ROWS
     x = torch.tensor(np.random.default_rng(5).standard_normal(m.R),
                      dtype=torch.float32, device=dev)
-    for mm in (m, faulted(m, 1, 31)):
+    cases = [(m, False), (faulted(m, 1, 31), None)]
+    if fmt == "coo":
+        cases += [(row_word_flip(m, m.nnz // 3 + 1), True),
+                  (col_row_fault(m, m.nnz // 3), True)]
+    for mm, fires in cases:
         md = make_matrix_device(mm, torch.float32, dev)
         for spec in (ell_spec(mm, mode), product_spec(mm, mode)):
+            before = ell_fast.two_plane_launches
             wk, tk, pk = ell_fast(md, x, spec)
             wp, tp, pp = ell_fast_plain(md, x, spec)
             assert same_bits(wk, wp), spec.detect
             assert bool(tk) == bool(tp)
             torch.testing.assert_close(pk, pp, rtol=1e-5, atol=1e-6)
+            if spec.detect:
+                assert ell_fast.two_plane_launches == before + (planes == 2)
+                if fires is not None and mode != "none":
+                    assert bool(tk) == fires
 
 
 def bordered(core, k=600, seed=3):
@@ -601,7 +622,7 @@ def bordered(core, k=600, seed=3):
     return rows, cols, vals, n
 
 
-def split_matrix(mode, main):
+def split_matrix(mode, main, fmt="csr"):
     from abft_sparse_cg_tpu_torch.utils.matzoo import (
         arrowhead,
         blockdiag_random,
@@ -609,7 +630,7 @@ def split_matrix(mode, main):
 
     rows, cols, vals, n = (arrowhead(n=8192) if main == "dia"
                            else bordered(blockdiag_random(n=4000)))
-    m = build_protected("csr", assemble(cols, rows, vals, n, 1), mode)
+    m = build_protected(fmt, assemble(cols, rows, vals, n, 1), mode)
     assert m.exec_kind == "split" and m.main.exec_kind == main
     assert m.tail.dense_plan is not None
     return m
@@ -792,7 +813,7 @@ def jacobi_minv(m, device):
     return minv.to(device)
 
 
-def varied_dia_matrix(mode, n=4096, blocks=2):
+def varied_dia_matrix(mode, n=4096, blocks=2, fmt="csr"):
     """dia_matrix with its diagonal scaled row by row by up to 10x: a
     Jacobi M^-1 that is not a multiple of I, so that a Jacobi instance
     that ignored or misindexed it would leave the plain loop."""
@@ -800,16 +821,16 @@ def varied_dia_matrix(mode, n=4096, blocks=2):
     diag = rows == cols
     vals = vals.copy()
     vals[diag] *= 1.0 + 9.0 * np.random.default_rng(2).random(diag.sum())
-    return build_protected("csr", assemble(cols, rows, vals, n, blocks),
+    return build_protected(fmt, assemble(cols, rows, vals, n, blocks),
                            mode)
 
 
-def fused_matrix(layout, mode):
+def fused_matrix(layout, mode, fmt="csr"):
     if layout == "dia":
-        return varied_dia_matrix(mode)
+        return varied_dia_matrix(mode, fmt=fmt)
     if layout == "ell":
-        return ell_matrix(mode)
-    return split_matrix(mode, "dia")
+        return ell_matrix(mode, fmt=fmt)
+    return split_matrix(mode, "dia", fmt)
 
 
 @pytest.mark.parametrize("layout,schedule", [
@@ -934,7 +955,7 @@ def test_per_iteration_lazy(dev, shape):
 
 # ---- the row-sharded kernel tier (parallel/) --------------------------------
 
-def sharded_matrix(mode, layout, n=4):
+def sharded_matrix(mode, layout, n=4, fmt="csr"):
     """A DIA or banded-ELL matrix (dense-radius-3d, band 221) of R a
     multiple of 1024 * n rows, in the kernel tier's envelope."""
     from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
@@ -942,22 +963,24 @@ def sharded_matrix(mode, layout, n=4):
     )
 
     if layout == "dia":
-        m = dia_matrix(mode, n=8192, blocks=2)
+        m = dia_matrix(mode, n=8192, blocks=2, fmt=fmt)
     else:
         rows, cols, vals, N = dense_radius_3d(side=16)
-        m = build_protected("csr", assemble(cols, rows, vals, N, 2), mode,
+        m = build_protected(fmt, assemble(cols, rows, vals, N, 2), mode,
                             row_align=1024 * n)
     assert m.exec_kind == layout and supports_shardmap(m, torch.float32, n)
     return m
 
 
-def halo_fault(m, n, seed=0):
+def halo_fault(m, n, seed=0, word="col"):
     """``m`` with a 1-bit flip in the last row of shard 1 (the first halo
-    row of shard 2), in the col word every detecting mode covers."""
+    row of shard 2), in the col word every detecting mode covers (or
+    ``word``: the row word, which constraints mode on COO128 scans as
+    its second plane)."""
     row = 2 * (m.R // n) - 1
     slot = np.flatnonzero(m.ell_slot % m.R == row)[seed]
     planes = {k: v.copy() for k, v in m.planes.items()}
-    planes["col"][slot] ^= np.uint32(1 << 2)
+    planes[word][slot] ^= np.uint32(1 << 2)
     return m.with_planes(planes)
 
 
@@ -1165,3 +1188,222 @@ def test_sharded_solve_on_one_card(dev, layout):
     lazy = make_sharded_solver(m, mesh, 300, 1e-5, torch.float32,
                                check_interval=4)(md, bdev)
     assert torch.equal(lazy.x, live.x)
+
+
+# --------------------------------------------------------------------------
+# cg-coo: COO128 codewords, the two-plane instances of constraints mode
+# --------------------------------------------------------------------------
+
+def coo_kernel_matrix(kernel, mode):
+    """A COO128 build of the shape each kernel's card test uses: kernel A
+    the tridiagonal, C dense-radius-3d, E powerlaw-graph (flat)."""
+    if kernel == "A":
+        return dia_matrix(mode, fmt="coo")
+    if kernel == "C":
+        return ell_matrix(mode, fmt="coo")
+    return flat_matrix(mode, "powerlaw", fmt="coo")
+
+
+def coo_faults(m, mode):
+    """Clean, a random 1-bit fault (ECC modes) or INDEX flip, a row-word
+    flip and, in none and constraints, the 4-bit col/row fault (its
+    rotated fold is zero)."""
+    from abft_sparse_cg_tpu_torch.utils.coo_faults import (
+        col_row_fault,
+        row_word_flip,
+    )
+
+    out = [("clean", m), ("row word", row_word_flip(m, m.nnz // 3 + 1))]
+    if mode in ("none", "constraints"):
+        out += [("index", faulted(m, 1, 33, "INDEX")),
+                ("4bit col/row", col_row_fault(m, m.nnz // 3))]
+    else:
+        out += [("1bit", faulted(m, 1, 31)), ("2bit", faulted(m, 2, 32))]
+    return out
+
+
+def coo_kernel(kernel):
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
+        flat_fast,
+        flat_fast_plain,
+        flat_spec,
+    )
+
+    return {"A": (dia_fast, dia_fast_plain, dia_spec),
+            "C": (ell_fast, ell_fast_plain, ell_spec),
+            "E": (flat_fast, flat_fast_plain, flat_spec)}[kernel]
+
+
+@pytest.mark.parametrize("kernel", ["A", "C", "E"])
+@pytest.mark.parametrize("mode", MODES)
+def test_coo_kernels_match_plain(dev, mode, kernel):
+    """Kernels A, C and E on COO128 planes against their plain versions:
+    w bit-exact, pw to 1e-5, the trigger equal; constraints mode runs the
+    two-plane instance (one launch each, counted as two-plane) and fires
+    on the row-word flip and the 4-bit col/row fault."""
+    fast, plain, spec_of = coo_kernel(kernel)
+    m0 = coo_kernel_matrix(kernel, mode)
+    spec = spec_of(m0, mode)
+    assert (spec.plane2 is not None) == (mode == "constraints")
+    x = torch.tensor(np.random.default_rng(5).random(m0.R),
+                     dtype=torch.float32, device=dev)
+    for label, m in coo_faults(m0, mode):
+        md = make_matrix_device(m, torch.float32, dev)
+        before = (fast.launches, fast.two_plane_launches)
+        wk, tk, pk = fast(md, x, spec)
+        assert (fast.launches, fast.two_plane_launches) == (
+            before[0] + 1, before[1] + (mode == "constraints"))
+        wp, tp, pp = plain(md, x, spec)
+        assert same_bits(wk, wp), label
+        torch.testing.assert_close(pk, pp, rtol=1e-5, atol=0,
+                                   equal_nan=True)
+        assert bool(tk) == bool(tp), label
+        if mode == "constraints" and label != "clean":
+            assert bool(tk), label
+
+
+@pytest.mark.parametrize("kernel", ["A", "C", "E"])
+def test_coo_row_word_fault_seen_by_the_second_plane_only(dev, kernel):
+    """Constraints mode on COO128, a flip in one element's row word: the
+    two-plane kernel fires, and the same kernel scanning the col word
+    alone (the spec without its second plane: the one-plane instance)
+    does not; on the clean matrix neither does."""
+    from abft_sparse_cg_tpu_torch.utils.coo_faults import row_word_flip
+
+    fast, _, spec_of = coo_kernel(kernel)
+    m0 = coo_kernel_matrix(kernel, "constraints")
+    spec = spec_of(m0, "constraints")
+    one = spec._replace(plane2=None)
+    x = torch.rand(m0.R, device=dev)
+    for m, want in ((m0, False), (row_word_flip(m0, m0.nnz // 2), True)):
+        md = make_matrix_device(m, torch.float32, dev)
+        assert bool(fast(md, x, spec)[1]) == want
+        assert not bool(fast(md, x, one)[1])
+
+
+@pytest.mark.parametrize("layout", ["dia", "ell"])
+@pytest.mark.parametrize("mode", MODES)
+def test_coo_halo_kernels_match_plain(dev, mode, layout):
+    """The halo forms of kernels A and C on 4 shards of a COO128 build:
+    w bit-exact to the plain versions and, concatenated, to the
+    single-device kernel's; with a row-word flip in a halo row, the
+    trigger on that row's shard only (constraints: the second plane)."""
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
+        dia_fast_halo,
+        ell_fast_halo,
+    )
+    from abft_sparse_cg_tpu_torch.parallel.sharded import (
+        default_mesh,
+        shard_rows,
+    )
+    from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
+        _halo,
+        halo_exchange,
+    )
+
+    n = 4
+    m0 = sharded_matrix(mode, layout, n, fmt="coo")
+    R_loc, H = m0.R // n, _halo(m0)
+    spec = (dia_spec if layout == "dia" else ell_spec)(m0, mode)
+    single = dia_fast if layout == "dia" else ell_fast
+    halo_fn = dia_fast_halo if layout == "dia" else ell_fast_halo
+    mesh = default_mesh(n, dev)
+    x = torch.tensor(np.random.default_rng(5).standard_normal(m0.R),
+                     dtype=torch.float32, device=dev)
+    faults = [] if mode == "none" else [halo_fault(m0, n, word="row")]
+    for k, m in enumerate([m0, *faults]):
+        md = make_matrix_device(m, torch.float32, dev)
+        shards = shard_rows(md, mesh)
+        ext = halo_exchange(x, mesh, H)
+        outs, fired = [], []
+        for s in range(n):
+            args = (H,) if layout == "dia" else (H, s * R_loc)
+            wk, tk, pk = halo_fn(shards[s], ext[s], spec, *args)
+            wp, tp, pp = (dia_fast_plain if layout == "dia" else
+                          ell_fast_plain)(shards[s], ext[s], spec, *args)
+            assert same_bits(wk, wp), s
+            assert bool(tk) == bool(tp), s
+            torch.testing.assert_close(pk, pp, rtol=1e-5, atol=0)
+            outs.append(wk)
+            fired.append(bool(tk))
+        assert fired == ([False, True, False, False] if k else [False] * n)
+        w1, _, _ = single(md, x, spec)
+        assert same_bits(torch.cat(outs), w1)
+
+
+@pytest.mark.parametrize("layout", ["dia", "ell", "split"])
+@pytest.mark.parametrize("variant", ["live", "lazy", "Jacobi"])
+@pytest.mark.parametrize("mode", ["constraints", "secded"])
+def test_coo_fused_match_plain(dev, layout, variant, mode):
+    """Kernels B and D (and B's split tail) on COO128 against their plain
+    loops: iterations and events equal, the trace to 1e-5 (1e-4 with
+    Jacobi, 1e-3 above float32's noise floor for the split tail);
+    constraints mode launches the two-plane instance; a clean lazy x
+    equals the live one bit for bit; a corrected 1-bit fault (secded) or
+    a row-word flip (constraints) gives the plain loop's events."""
+    from abft_sparse_cg_tpu_torch.utils.coo_faults import row_word_flip
+
+    m = fused_matrix(layout, mode, fmt="coo")
+    precond, ci = variant == "Jacobi", 4 if variant == "lazy" else 1
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    args = (jacobi_minv(m, dev),) if precond else ()
+    cpu_args = (jacobi_minv(m, CPU),) if precond else ()
+    kernel = fused_cg_ell if layout == "ell" else fused_cg_dia
+    name = " ".join(["split tail"] * (layout == "split")
+                    + ["lazy"] * (ci > 1) + ["Jacobi"] * precond) or "live"
+    name += " two-plane" * (mode == "constraints")
+    fault = (faulted(m, 1, 6) if mode == "secded"
+             else row_word_flip(m, m.nnz // 3 + 1))
+    results = {}
+    for label, mm in (("clean", m), ("fault", fault)):
+        solve = make_fused_solver(mm, mode, 300, 1e-8, precond=precond,
+                                  check_interval=ci)
+        before = kernel.instances.get(name, 0)
+        rk = solve(make_matrix_device(mm, torch.float32, dev), b.to(dev),
+                   *args)
+        assert kernel.instances.get(name, 0) > before, name
+        rp = solve(make_matrix_device(mm, torch.float32, CPU), b, *cpu_args)
+        assert rk.iterations == rp.iterations, label
+        assert tuple(rk.stats) == tuple(rp.stats), label
+        it = rk.iterations
+        t0 = rp.rr_trace[:it].numpy()
+        above, tol = np.ones(it, bool), 1e-4 if precond else 1e-5
+        if layout == "split":
+            above, tol = t0 > (t0[0] * 1e-5 if it else 0), 1e-3
+        np.testing.assert_allclose(rk.rr_trace[:it].cpu().numpy()[above],
+                                   t0[above], rtol=tol)
+        results[label] = rk
+    if ci > 1:
+        live = make_fused_solver(m, mode, 300, 1e-8)(
+            make_matrix_device(m, torch.float32, dev), b.to(dev))
+        assert torch.equal(results["clean"].x, live.x)
+    if mode == "secded":
+        assert results["fault"].stats.corrected_count == 1
+
+
+def test_csr_constraints_keeps_one_plane(dev):
+    """CSR96 constraints mode scans the col word alone: its specs have no
+    second plane, and kernels A and B launch their one-plane instances
+    (no two-plane launch counted), matching their plain versions."""
+    m = dia_matrix("constraints")
+    spec = dia_spec(m, "constraints")
+    assert spec.plane2 is None and spec.plane == m.layout.col_word
+    x = torch.tensor(np.random.default_rng(5).random(m.R),
+                     dtype=torch.float32, device=dev)
+    before = dia_fast.two_plane_launches
+    for mm in (m, faulted(m, 1, 33, "INDEX")):
+        md = make_matrix_device(mm, torch.float32, dev)
+        wk, tk, pk = dia_fast(md, x, spec)
+        wp, tp, pp = dia_fast_plain(md, x, spec)
+        assert same_bits(wk, wp) and bool(tk) == bool(tp)
+    assert dia_fast.two_plane_launches == before
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    names = dict(fused_cg_dia.instances)
+    r = make_fused_solver(m, "constraints", 300, 1e-8)(
+        make_matrix_device(m, torch.float32, dev), b.to(dev))
+    assert r.stats.errcode == 0
+    assert fused_cg_dia.instances.get("live", 0) > names.get("live", 0)
+    assert not any(k.endswith("two-plane") and v != names.get(k, 0)
+                   for k, v in fused_cg_dia.instances.items())

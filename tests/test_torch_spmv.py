@@ -4,7 +4,12 @@ package.
 Inputs: the 1024-row SPD tridiagonal of tests/test_fused.py (DIA, and
 label-shuffled and forced to ELL under its RCM permutation), the
 dense-radius-3d zoo family at side 10 (ELL, K = 175), a seeded x, and
-seeded 1-/2-bit injections.  Kernels A's and C's plain versions are
+seeded 1-/2-bit injections; each in CSR96 codewords and, in the
+``coo-`` cases, COO128 (cg-coo: the ELL product gathers from the row
+word, and constraints mode streams the col and the row word, each
+against its own baseline), with cg-coo's index faults beside them: a
+row-word flip and, in constraints mode, the 4-bit col/row fault whose
+rotated fold is zero (utils/coo_faults.py).  Kernels A's and C's plain versions are
 held against the Pallas kernels run in interpret mode; classify and the
 float64 ``full`` oracle against the jnp implementation.  Tolerances:
 w rtol 1e-6 and pw rtol 1e-5 in float32 (the products sum in the same
@@ -46,6 +51,10 @@ from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
     ell_spec,
     make_cuda_spmv,
 )
+from abft_sparse_cg_tpu_torch.utils.coo_faults import (
+    col_row_fault,
+    row_word_flip,
+)
 
 MODES = ["none", "constraints", "sed", "sec7", "sec8", "secded"]
 CPU = torch.device("cpu")
@@ -53,18 +62,38 @@ CPU = torch.device("cpu")
 # parallel test workers do not oversubscribe the cores.
 torch.set_num_threads(1)
 ECC = ["sed", "sec7", "sec8", "secded"]
+COO_FAULTS = ("row word", "4bit col/row")
 
 
-def dia_matrix(mode, n=1024):
+def fmt_params(modes):
+    """Each mode as a CSR96 case (its id the mode's name) and a COO128
+    one (``coo-<mode>``)."""
+    return ([pytest.param("csr", m, id=m) for m in modes]
+            + [pytest.param("coo", m, id=f"coo-{m}") for m in modes])
+
+
+def coo_faults(m, mode):
+    """cg-coo's index faults of a COO128 matrix: a row-word flip (in
+    constraints mode only the second signal plane sees it) and, in
+    constraints mode, the 4-bit col/row fault; none for CSR96."""
+    if m.fmt != "coo" or mode == "none":
+        return []
+    out = [("row word", row_word_flip(m, m.nnz // 3 + 1))]
+    if mode == "constraints":
+        out.append(("4bit col/row", col_row_fault(m, m.nnz // 3)))
+    return out
+
+
+def dia_matrix(mode, n=1024, fmt="csr"):
     rows, cols, vals, n = spd_tridiagonal(n)
-    m = build_protected("csr", assemble(cols, rows, vals, n, 1), mode)
+    m = build_protected(fmt, assemble(cols, rows, vals, n, 1), mode)
     assert m.exec_kind == "dia" and m.dia_offsets == (-1, 0, 1)
     return m
 
 
-def cases(mode):
+def cases(mode, fmt="csr"):
     """(label, matrix): clean plus the faults the mode is built for."""
-    m = dia_matrix(mode)
+    m = dia_matrix(mode, fmt=fmt)
     out = [("clean", m)]
     if mode in ECC:
         for flips, seed in ((1, 31), (2, 32), (1, 33)):
@@ -74,7 +103,7 @@ def cases(mode):
     if mode == "constraints":
         out.append(("index", inject_bitflips(
             m, "INDEX", 1, np.random.default_rng(34), echo=lambda s: None)))
-    return out
+    return out + coo_faults(m, mode)
 
 
 def xvec(m, dtype=np.float32, seed=5):
@@ -104,19 +133,19 @@ def assert_md_equal(jmd, tmd):
                                       to_numpy_u32(tmd.fold_ck))
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_matrix_device_bit_exact(mode):
-    for _, m in cases(mode):
+@pytest.mark.parametrize("fmt,mode", fmt_params(MODES))
+def test_matrix_device_bit_exact(fmt, mode):
+    for _, m in cases(mode, fmt):
         for jdt, tdt in ((jnp.float32, torch.float32),
                          (jnp.float64, torch.float64)):
             assert_md_equal(jmake_md(m, jdt), make_matrix_device(m, tdt, CPU))
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_dia_fast_plain_matches_pallas_kernel(mode):
+@pytest.mark.parametrize("fmt,mode", fmt_params(MODES))
+def test_dia_fast_plain_matches_pallas_kernel(fmt, mode):
     """Kernel A's plain version vs spmv_pallas._make_dia_fast (interpret):
     same w, pw and trigger, clean and under injected faults."""
-    all_cases = cases(mode)
+    all_cases = cases(mode, fmt)
     # Faults change plane contents, never structure: one compile serves
     # every case.
     kernel = jax.jit(make_pallas_spmv(all_cases[0][1], jnp.float32, mode,
@@ -135,7 +164,7 @@ def test_dia_fast_plain_matches_pallas_kernel(mode):
         if label == "clean":
             assert not bool(ttrig)
         elif mode in ("sec7", "secded") or label.startswith("1bit") \
-                or label == "index":
+                or label == "index" or label in COO_FAULTS:
             assert bool(ttrig), (mode, label)
 
 
@@ -154,11 +183,11 @@ def test_dia_fast_takes_plain_version_only_on_cpu():
         dia_fast(md, x.to("meta"), spec)
 
 
-@pytest.mark.parametrize("mode", ["constraints"] + ECC)
-def test_classify_bit_exact(mode):
+@pytest.mark.parametrize("fmt,mode", fmt_params(["constraints"] + ECC))
+def test_classify_bit_exact(fmt, mode):
     """Stats and scrubbed planes vs the jnp classify, on the JAX
     MatrixDevice carried over by convert.matrix_device_from_numpy."""
-    all_cases = cases(mode)
+    all_cases = cases(mode, fmt)
     jclassify = jax.jit(jmake_spmv(all_cases[0][1], jnp.float32,
                                    mode).classify)
     for label, m in all_cases:
@@ -170,9 +199,9 @@ def test_classify_bit_exact(mode):
         assert_md_equal(jmd2, tmd2)
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_full_f64_matches_jnp(mode):
-    all_cases = cases(mode)
+@pytest.mark.parametrize("fmt,mode", fmt_params(MODES))
+def test_full_f64_matches_jnp(fmt, mode):
+    all_cases = cases(mode, fmt)
     jfull = jax.jit(jmake_spmv(all_cases[0][1], jnp.float64, mode).full)
     for label, m in all_cases:
         x = xvec(m, np.float64)
@@ -197,13 +226,13 @@ def test_cuda_impl_full_matches_plain_on_cpu(mode):
         assert s1 == s2, (mode, label)
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_cuda_impl_full_matches_pallas_full(mode):
+@pytest.mark.parametrize("fmt,mode", fmt_params(MODES))
+def test_cuda_impl_full_matches_pallas_full(fmt, mode):
     """``spmv_once``'s path: the cuda SpmvImpl's full (kernel A's plain
     version on CPU tensors in none/constraints, the check-and-correct
     oracle in the ECC modes) vs make_pallas_spmv(...).full in interpret
     mode, float32, clean and under injected faults."""
-    all_cases = cases(mode)
+    all_cases = cases(mode, fmt)
     jfull = jax.jit(make_pallas_spmv(all_cases[0][1], jnp.float32, mode,
                                      interpret=True).full)
     for label, m in all_cases:
@@ -241,23 +270,23 @@ def test_non_dia_layouts_not_ported():
 # The banded-ELL layout: kernel C's plain version, classify, the oracle
 # --------------------------------------------------------------------------
 
-def ell_matrix(shape, mode):
+def ell_matrix(shape, mode, fmt="csr"):
     """dense-radius-3d at side 10 (N = 1000, K = 175, band 223) or the
     shuffled tridiagonal forced to ELL under its RCM permutation."""
     if shape == "dense-radius":
         rows, cols, vals, n = dense_radius_3d(side=10)
-        m = build_protected("csr", assemble(cols, rows, vals, n, 1), mode)
+        m = build_protected(fmt, assemble(cols, rows, vals, n, 1), mode)
     else:
         rows, cols, vals, n = shuffle_labels(*spd_tridiagonal(1024), seed=11)
-        m = build_protected("csr", assemble(cols, rows, vals, n, 1), mode,
+        m = build_protected(fmt, assemble(cols, rows, vals, n, 1), mode,
                             force_exec="ell")
         assert (m.perm is not None) == (mode != "constraints")
     assert m.exec_kind == "ell" and m.R <= 4096
     return m
 
 
-def ell_cases(shape, mode):
-    m = ell_matrix(shape, mode)
+def ell_cases(shape, mode, fmt="csr"):
+    m = ell_matrix(shape, mode, fmt)
     out = [("clean", m)]
     for flips, seed in ((1, 31), (2, 32), (1, 33), (1, 35)):
         out.append((f"{flips}bit-s{seed}", inject_bitflips(
@@ -265,7 +294,7 @@ def ell_cases(shape, mode):
             echo=lambda s: None)))
     out.append(("index", inject_bitflips(
         m, "INDEX", 1, np.random.default_rng(34), echo=lambda s: None)))
-    return out
+    return out + coo_faults(m, mode)
 
 
 def moved_rows(m0, m1):
@@ -277,10 +306,10 @@ def moved_rows(m0, m1):
 ELL_SHAPES = ["dense-radius", "permuted"]
 
 
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("fmt,mode", fmt_params(MODES))
 @pytest.mark.parametrize("shape", ELL_SHAPES)
-def test_ell_matrix_device_bit_exact(shape, mode):
-    for _, m in ell_cases(shape, mode)[:3]:
+def test_ell_matrix_device_bit_exact(shape, fmt, mode):
+    for _, m in ell_cases(shape, mode, fmt)[:3]:
         for jdt, tdt in ((jnp.float32, torch.float32),
                          (jnp.float64, torch.float64)):
             jmd, tmd = jmake_md(m, jdt), make_matrix_device(m, tdt, CPU)
@@ -294,9 +323,9 @@ def test_ell_matrix_device_bit_exact(shape, mode):
                     np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("fmt,mode", fmt_params(MODES))
 @pytest.mark.parametrize("shape", ELL_SHAPES)
-def test_ell_fast_plain_matches_pallas_kernel(shape, mode):
+def test_ell_fast_plain_matches_pallas_kernel(shape, fmt, mode):
     """Kernel C's plain version vs spmv_pallas._make_ellb_fast run in
     interpret mode: the same trigger, w within 1e-6 of each row's
     absolute sum sum_k |v x| (the two sum up to 175 slots in another
@@ -305,7 +334,7 @@ def test_ell_fast_plain_matches_pallas_kernel(shape, mode):
     row window is clamped to that window there and globally here (the
     jnp oracle's rule, ROADMAP.md queue 3): rows whose index moved are
     held against the jnp ``fast`` instead."""
-    all_cases = ell_cases(shape, mode)
+    all_cases = ell_cases(shape, mode, fmt)
     m0 = all_cases[0][1]
     kernel = jax.jit(make_pallas_spmv(m0, jnp.float32, mode,
                                       interpret=True).fast_pw)
@@ -335,6 +364,8 @@ def test_ell_fast_plain_matches_pallas_kernel(shape, mode):
         assert bool(ttrig) == bool(jtrig), (mode, label)
         if label == "clean" or mode == "none":
             assert not bool(ttrig), (mode, label)
+        elif label in COO_FAULTS:
+            assert bool(ttrig), (mode, label)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -352,12 +383,12 @@ def test_ell_full_f64_matches_jnp(shape, mode):
         assert tuple(tst) == tuple(int(v) for v in jst), (mode, label)
 
 
-@pytest.mark.parametrize("mode", ["constraints"] + ECC)
+@pytest.mark.parametrize("fmt,mode", fmt_params(["constraints"] + ECC))
 @pytest.mark.parametrize("shape", ELL_SHAPES)
-def test_ell_classify_bit_exact(shape, mode):
+def test_ell_classify_bit_exact(shape, fmt, mode):
     """Stats and scrubbed planes (values, checksums, fold, and the gidx
     plane re-derived through perm_pos) vs the jnp classify."""
-    all_cases = ell_cases(shape, mode)
+    all_cases = ell_cases(shape, mode, fmt)
     jclassify = jax.jit(jmake_spmv(all_cases[0][1], jnp.float32,
                                    mode).classify)
     for label, m in all_cases:

@@ -345,7 +345,7 @@ def parity(words):
 def flipped(md, spec, j, bit):
     """``md`` with bit ``bit`` of slot j of ``spec``'s signal plane flipped
     (a clone; the baseline is kept, as an injected fault keeps it)."""
-    plane = _signal_planes(md, spec)[0].clone()
+    plane = _signal_planes(md, spec)[0][0].clone()
     plane[j] ^= torch.tensor(1 << bit, dtype=torch.int64).to(torch.int32)
     if spec.plane == "fold":
         return md._replace(fold=plane)
@@ -372,7 +372,7 @@ def test_signal_blocks_match_plain(mode, main):
         (f"slot {j} bit {b}", flipped(md, ts, j, b))
         for j, b in ((8, 0), (15, 31), (E - 8, 5), (E - 1, 17))]
     for label, mdf in cases:
-        plane, base = _signal_planes(mdf, ts)
+        plane, base = _signal_planes(mdf, ts)[0]
         for grid in (1, 5):
             got, taken = signals_replay(plane.numpy(), base.numpy(),
                                         ts.use_parity, ts.use_cksum, grid)
