@@ -27,8 +27,12 @@ Subpackages:
             derivation, rotated fold
   formats   Matrix Market I/O, assembly, the DIA/ELL protected layouts
   ops       BLAS-1, the plain DIA/ELL SpMV with ABFT, the CUDA wrappers
-  solver    CG (Python loops) and the whole-solve fused CG wrapper
+  solver    CG (Python loops), the whole-solve fused CG wrapper, the
+            segmented solve with snapshots (checkpoint) and pipelined CG
+  parallel  the row-sharded solve over a mesh of shards
   backends  (target, mode) registry behind the CLI
+  scrub     the offline verify-and-repair pass, and a solve's repaired
+            planes as a host matrix
   utils     matrix generators and the zoo of structural families
 """
 

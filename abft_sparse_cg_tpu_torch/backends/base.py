@@ -37,6 +37,9 @@ class HostResult:
     solve_seconds: float = 0.0
     compile_seconds: float = 0.0
     rr_trace: Optional[np.ndarray] = None
+    # The repaired matrix after a corrected solve (scrub.
+    # scrubbed_from_device), when the backend was asked for it.
+    scrubbed: Optional[object] = None
 
     @property
     def failed(self) -> bool:

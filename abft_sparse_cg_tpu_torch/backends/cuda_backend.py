@@ -38,6 +38,14 @@ card, and shards on distinct cards wait (ROADMAP.md queue 1 item 11):
 chip_smoke.py drives a mesh of four shards on one card through
 parallel.sharded.
 
+Both tiers are one routing (``_continue``), which a ``--checkpoint``
+solve runs segment by segment (solver.checkpoint): kernel B or D
+launched once per segment from the restored state (and once more after
+each repair), or the per-iteration loops to each segment's bound.
+``solver="pipelined"`` runs solver.pipelined over the per-iteration
+SpmvImpl (kernel A, C or E, or the sharded one; never B or D), live: a
+check interval > 1 warns on stderr (pallas_backend.py:57-61).
+
 ``spmv_once`` runs the cuda SpmvImpl's ``full`` — kernel A, C or E in
 modes none/constraints, the plain check-and-correct oracle in the ECC
 modes, as the reference's ``_wrap_mode`` does.
@@ -50,14 +58,16 @@ kernel wrapper takes its plain version.
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from ..ops.spmv import not_ported
 from ..ops.spmv_cuda import make_cuda_product, make_cuda_spmv
-from ..solver.cg import make_cg_solver, make_lazy_ci_solver
-from ..parallel.sharded import make_sharded_solver
+from ..parallel.sharded import make_sharded_continue, sharded_spmv
 from ..parallel.sharded_kernel import supports_shardmap
-from ..solver.fused import make_fused_solver, supports_fused
+from ..solver.cg import make_cg_continue, make_lazy_ci_continue
+from ..solver.fused import make_fused_continue, supports_fused
 from . import registry
 from .torch_backend import TorchBackend, warn_live_schedule
 
@@ -84,38 +94,57 @@ class CudaBackend(TorchBackend):
     target = "cuda"
     default_reps = 10
 
-    def _solver(self, mat, dtype, max_itrs, conv, precond=False,
-                check_interval=None):
+    def _continue(self, mat, dtype, conv, precond=False,
+                  check_interval=None, mesh=None):
+        """The one routing of a standard solve, straight or in
+        ``--checkpoint`` segments (pallas_backend.py:141-219, :222-258):
+        kernels B or D when ``supports_fused`` holds, else the
+        per-iteration tier, lazy over the products with a check interval
+        > 1; on a mesh, parallel.sharded's continue."""
         if dtype != torch.float32:
             raise not_ported(f"a {dtype} solve on the cuda target")
+        if mesh is not None:
+            if not supports_shardmap(mat, dtype, mesh.size):
+                warn_live_schedule("cuda (sharded single-device program)",
+                                   check_interval)
+                ci = 1
+            elif check_interval == "auto":
+                ci = 32
+            else:
+                ci = _check_interval(check_interval, mat)
+            return make_sharded_continue(mat, mesh, conv, dtype, self.mode,
+                                         check_interval=ci)
         ci = _check_interval(check_interval, mat)
         if supports_fused(mat, dtype, precond, ci):
-            return make_fused_solver(mat, self.mode, max_itrs, conv,
-                                     precond=precond, check_interval=ci)
+            return make_fused_continue(mat, self.mode, conv,
+                                       precond=precond, check_interval=ci)
         spmv = make_cuda_spmv(mat, dtype, self.mode)
         if ci > 1 and spmv.classify is not None:
-            return make_lazy_ci_solver(
-                spmv, make_cuda_product(mat, dtype, self.mode), ci,
-                max_itrs, conv)
-        return make_cg_solver(spmv, max_itrs, conv)
+            return make_lazy_ci_continue(
+                spmv, make_cuda_product(mat, dtype, self.mode), ci, conv)
+        return make_cg_continue(spmv, conv)
 
-    def _sharded_solver(self, mat, mesh, dtype, max_itrs, conv,
-                        check_interval=None):
+    def _spmv_impl(self, mat, dtype, mesh=None):
         if dtype != torch.float32:
             raise not_ported(f"a {dtype} solve on the cuda target")
-        if not supports_shardmap(mat, dtype, mesh.size):
-            warn_live_schedule("cuda (sharded single-device program)",
-                               check_interval)
-            ci = 1
-        elif check_interval == "auto":
-            ci = 32
-        else:
-            ci = _check_interval(check_interval, mat)
-        return make_sharded_solver(mat, mesh, max_itrs, conv, dtype,
-                                   self.mode, check_interval=ci)
+        if mesh is not None:
+            return sharded_spmv(mat, mesh, dtype, self.mode)
+        return make_cuda_spmv(mat, dtype, self.mode)
 
-    def _spmv_full(self, mat, dtype):
-        return make_cuda_spmv(mat, dtype, self.mode).full
+    def _pipelined_ci(self, check_interval):
+        """The pipelined solver has no lazy variant: a check interval > 1
+        warns and runs live, 'auto' resolves to 1 (pallas_backend.py:
+        41-42, :57-61)."""
+        if check_interval not in (None, "auto") and \
+                int(check_interval) > 1:
+            print("warning: --check-interval has no pipelined-solver "
+                  "variant; running the live detection schedule",
+                  file=sys.stderr)
+
+    def _warm(self):
+        from .._build import build
+
+        build()
 
 
 def _register():

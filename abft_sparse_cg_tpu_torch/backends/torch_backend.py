@@ -1,14 +1,18 @@
 """The ``torch`` target: plain PyTorch SpMV + CG on the CPU.
 
-Counterpart of ``abft_sparse_cg_tpu.backends.jnp_backend`` (:60-351),
-no checkpointing, unpreconditioned or Jacobi (the M^-1 set-up of
-jnp_backend.py:188-229), on one device or, with ``devices=N``, row-
-sharded over N shards of a mesh (parallel.sharded; jnp_backend.py:
-196-216), all on the CPU for this target.  ``time taken`` is measured
-on warm runs; the first run (which pays every one-time cost, a kernel build
-included on the cuda target) is reported as the compile time.  Like the
-jnp target, it has no lazy ``--check-interval`` schedule: it warns once
-and runs live (``warn_live_schedule``, jnp_backend.py:29-51).
+Counterpart of ``abft_sparse_cg_tpu.backends.jnp_backend`` (:60-351):
+unpreconditioned or Jacobi (the M^-1 set-up of jnp_backend.py:188-229),
+the standard or the pipelined solver (solver.pipelined), straight or
+segmented with a snapshot between segments (``checkpoint=``,
+solver.checkpoint), on one device or, with ``devices=N``, row-sharded
+over N shards of a mesh (parallel.sharded; jnp_backend.py:196-216), all
+on the CPU for this target.  A corrected solve returns the repaired
+planes (``HostResult.scrubbed``, scrub.scrubbed_from_device).  ``time
+taken`` is measured on warm runs; the first run (which pays every
+one-time cost, a kernel build included on the cuda target) is reported
+as the compile time; a checkpointed solve runs once.  Like the jnp
+target, it has no lazy ``--check-interval`` schedule: it warns once and
+runs live (``warn_live_schedule``, jnp_backend.py:29-51).
 """
 
 from __future__ import annotations
@@ -24,10 +28,14 @@ from ..ops.spmv import make_matrix_device, make_spmv
 from ..parallel.sharded import (
     _device_put_sharded,
     default_mesh,
-    make_sharded_solver,
+    make_sharded_continue,
     mesh_rows,
+    sharded_spmv,
 )
-from ..solver.cg import make_cg_solver
+from ..scrub import scrubbed_from_device
+from ..solver.cg import make_cg_continue, solver_of
+from ..solver.checkpoint import CheckpointedSolve
+from ..solver.pipelined import make_pipelined_solver
 from . import registry
 from .base import Backend, HostResult, stats_to_messages
 
@@ -73,20 +81,45 @@ class TorchBackend(Backend):
 
     # -- per-target routing (overridden by the cuda target) -------------
 
+    def _continue(self, mat, dtype, conv, precond=False,
+                  check_interval=None, mesh=None):
+        """The segment function of a standard solve (solver.cg's
+        ``continue_`` contract), on ``mesh`` when given: what a straight
+        solve and a ``--checkpoint`` segment both run (jnp_backend.py:
+        99-107)."""
+        warn_live_schedule(self.target, check_interval)
+        if mesh is not None:
+            return make_sharded_continue(mat, mesh, conv, dtype, self.mode)
+        return make_cg_continue(make_spmv(mat, dtype, self.mode), conv)
+
+    def _spmv_impl(self, mat, dtype, mesh=None):
+        """The per-iteration SpmvImpl: the pipelined solver's product and
+        ``spmv_once``'s ``full``."""
+        if mesh is not None:
+            return sharded_spmv(mat, mesh, dtype, self.mode)
+        return make_spmv(mat, dtype, self.mode)
+
+    def _pipelined_ci(self, check_interval):
+        """The pipelined solver has no lazy schedule: warn as -t jnp does
+        (jnp_backend.py:29-51)."""
+        warn_live_schedule(self.target, check_interval)
+
     def _solver(self, mat, dtype, max_itrs, conv, precond=False,
-                check_interval=None):
-        warn_live_schedule(self.target, check_interval)
-        return make_cg_solver(make_spmv(mat, dtype, self.mode), max_itrs,
-                              conv)
+                check_interval=None, mesh=None, solver="standard"):
+        """``solve(md, b, minv=None) -> CGResult``: ``solver`` "standard"
+        (``_continue`` to the limit) or "pipelined" (over ``_spmv_impl``,
+        pallas_backend.py:162-165)."""
+        if solver == "pipelined":
+            self._pipelined_ci(check_interval)
+            return make_pipelined_solver(self._spmv_impl(mat, dtype, mesh),
+                                         max_itrs, conv)
+        if solver != "standard":
+            raise ValueError(f"unknown solver: {solver!r}")
+        return solver_of(self._continue(mat, dtype, conv, precond,
+                                        check_interval, mesh), max_itrs)
 
-    def _sharded_solver(self, mat, mesh, dtype, max_itrs, conv,
-                        check_interval=None):
-        warn_live_schedule(self.target, check_interval)
-        return make_sharded_solver(mat, mesh, max_itrs, conv, dtype,
-                                   self.mode)
-
-    def _spmv_full(self, mat, dtype):
-        return make_spmv(mat, dtype, self.mode).full
+    def _warm(self):
+        """One-time set-up a checkpointed solve reports as compile time."""
 
     def _mesh(self, devices: int):
         """The mesh of a ``devices``-shard solve: on a card, one shard per
@@ -111,20 +144,26 @@ class TorchBackend(Backend):
     # -- Backend API ------------------------------------------------------
 
     def solve(self, mat, b, max_itrs, conv_threshold, dtype="auto",
-              reps=0, precond="none", check_interval=None,
-              devices=0) -> HostResult:
+              reps=0, precond="none", check_interval=None, devices=0,
+              solver="standard", want_scrubbed="auto", checkpoint=None,
+              checkpoint_every=100, resume=False) -> HostResult:
         """``precond``: "none" or "jacobi" (M^-1 in exec order, zero on
         pad rows); ``check_interval``: None, an int or "auto";
-        ``devices`` > 1: row-shard the solve over that many shards."""
+        ``devices`` > 1: row-shard the solve over that many shards;
+        ``solver``: "standard" or "pipelined".  ``checkpoint``: the
+        snapshot path of the segmented solve (solver.checkpoint), state
+        written every ``checkpoint_every`` iterations, ``resume`` from
+        the snapshot if present; it runs once (each segment syncs with
+        the host).  ``want_scrubbed``: return the repaired planes of a
+        corrected solve as ``HostResult.scrubbed`` (True, False, or
+        "auto": on the CPU only; jnp_backend.py:170-320)."""
         dt = compute_dtype(self.target, dtype)
         minv_host = jacobi_minv(mat, precond)
-        r_dev = None
+        r_dev = mesh = None
         if devices and devices > 1:
             mesh = self._mesh(devices)
             md, bdev, put_vec = _device_put_sharded(mat, b, mesh, dt)
             minv = None if minv_host is None else put_vec(minv_host)
-            solve_fn = self._sharded_solver(mat, mesh, dt, max_itrs,
-                                            conv_threshold, check_interval)
             if mat.exec_kind in ("dia", "ell"):
                 # Flat slots are entry positions, which the mesh padding
                 # never shifts; a split keeps R (sharded.py).
@@ -134,23 +173,54 @@ class TorchBackend(Backend):
                     else self._exec_vector(mat, minv_host, dt))
             md = make_matrix_device(mat, dt, self.device)
             bdev = self._exec_vector(mat, b, dt)
-            solve_fn = self._solver(mat, dt, max_itrs, conv_threshold,
-                                    minv is not None, check_interval)
 
-        t0 = time.perf_counter()
-        res = solve_fn(md, bdev, minv)
-        self._sync()
-        t1 = time.perf_counter()
-        reps = reps or self.default_reps
-        for _ in range(reps):
+        if checkpoint:
+            if solver != "standard":
+                raise ValueError(
+                    "--checkpoint requires --solver standard (the "
+                    "pipelined recurrence carries state a snapshot cannot "
+                    "re-seed)")
+            cont = self._continue(mat, dt, conv_threshold, minv is not None,
+                                  check_interval, mesh)
+            state_put = None
+            if mesh is not None:
+                # A snapshot is host .npz: a resumed segment gets its
+                # vectors back on the mesh's device.
+                dev = mesh.devices[0]
+                state_put = lambda v: v.to(dev)  # noqa: E731
+            runner = CheckpointedSolve(None, conv_threshold,
+                                       checkpoint_every, checkpoint,
+                                       continue_fn=cont, state_put=state_put)
+            t0 = time.perf_counter()
+            self._warm()
+            t1 = time.perf_counter()
+            res = runner.run(md, bdev, max_itrs, resume=resume, minv=minv)
+            self._sync()
+            t2 = time.perf_counter()
+            reps = 1
+        else:
+            solve_fn = self._solver(mat, dt, max_itrs, conv_threshold,
+                                    minv is not None, check_interval, mesh,
+                                    solver)
+            t0 = time.perf_counter()
             res = solve_fn(md, bdev, minv)
-        self._sync()
-        t2 = time.perf_counter()
+            self._sync()
+            t1 = time.perf_counter()
+            reps = reps or self.default_reps
+            for _ in range(reps):
+                res = solve_fn(md, bdev, minv)
+            self._sync()
+            t2 = time.perf_counter()
 
         st = res.stats
         msgs, err_index = stats_to_messages(
             mat, st.errcode, st.err_slot, st.first_cor_slot,
             st.first_cor_bit, r_dev=r_dev)
+        scrubbed = None
+        if st.corrected_count > 0 and (
+                want_scrubbed is True
+                or (want_scrubbed == "auto" and self.device.type == "cpu")):
+            scrubbed = scrubbed_from_device(mat, res.md)
         return HostResult(
             x=mat.from_exec_order(res.x.cpu().numpy()[: mat.N]),
             iterations=int(res.iterations),
@@ -164,12 +234,14 @@ class TorchBackend(Backend):
             solve_seconds=(t2 - t1) / reps,
             compile_seconds=t1 - t0,
             rr_trace=res.rr_trace.cpu().numpy(),
+            scrubbed=scrubbed,
         )
 
     def spmv_once(self, mat, x, dtype="auto"):
         dt = compute_dtype(self.target, dtype)
         md = make_matrix_device(mat, dt, self.device)
-        w, st = self._spmv_full(mat, dt)(md, self._exec_vector(mat, x, dt))
+        w, st = self._spmv_impl(mat, dt).full(
+            md, self._exec_vector(mat, x, dt))
         msgs, _ = stats_to_messages(mat, st.errcode, st.err_slot,
                                     st.first_cor_slot, st.first_cor_bit)
         return (mat.from_exec_order(w.cpu().numpy()[: mat.N]), st.errcode,

@@ -22,22 +22,26 @@ stderr and runs live).  ``--refine`` with ``--checkpoint`` is refused, as
 in the JAX CLI.  ``--devices N`` row-shards the solve over N shards
 (parallel.sharded), with R aligned at build time as cli.py:325-340 does:
 on ``torch`` N shards on the CPU; on ``cuda`` one shard per card, and a
-host with fewer cards exits 1 with the JAX message.  Flags of features
-this package has not ported yet print a one-line error and exit 1:
---solver pipelined, --checkpoint/--checkpoint-every/--resume and
---profile.
+host with fewer cards exits 1 with the JAX message.  ``--checkpoint P``
+(``--checkpoint-every N``, ``--resume``) segments the solve and
+snapshots its state to P between segments (solver.checkpoint; the same
+``.npz`` as the JAX CLI's), ``--solver pipelined`` runs
+solver.pipelined, and ``--profile DIR`` writes a torch.profiler trace of
+the solve into DIR (cli.py:375-418).  A solver option a route refuses
+(``--checkpoint`` with pipelined, pipelined with ``-p jacobi``, more
+shards than cards) prints "options unsupported for target '<t>': ..."
+and exits 1, as there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
 import numpy as np
 
 __all__ = ["main", "main_csr", "main_coo", "parse_arguments"]
-
-_ROADMAP = "is not ported to the PyTorch/CUDA package yet (ROADMAP.md queue 1)"
 
 _USAGE_OPTIONS = """Options:
   -h  --help                  Print this message
@@ -55,9 +59,12 @@ _USAGE_OPTIONS = """Options:
       --seed            S     Seed b-vector and injector RNGs
       --dtype           D     Compute dtype: auto | f32 | f64
       --quiet                 Suppress per-iteration residual output
-      --profile         DIR   Write a profiler trace of the solve
+      --profile         DIR   Write a torch.profiler trace of the
+                              solve to DIR/trace.json
       --devices         N     Row-shard the solve over N devices
       --solver          S     CG variant: standard | pipelined
+                              (one reduction point per iteration;
+                              no -p jacobi, no --checkpoint)
       --reps            N     Executions averaged into 'time taken'
                               (default: 10 on cuda, 1 on torch)
       --refine          K     Mixed-precision refinement: up to K
@@ -73,6 +80,7 @@ _USAGE_OPTIONS = """Options:
                               to PATH (.npz) between segments
       --checkpoint-every N    Iterations per segment (default: 100)
       --resume                Resume from --checkpoint PATH if present
+                              (a snapshot of bin/cg-csr or cg-coo too)
   -p  --precond         P     Preconditioner: none | jacobi
 
   The -l|--list argument will provide a list of tuples that describe
@@ -278,15 +286,21 @@ def parse_arguments(argv, fmt):
     return params
 
 
-def _unported_flag(params):
-    """The first flag of ``params`` that selects an unported feature."""
-    if params["solver"] != "standard":
-        return "--solver pipelined"
-    if params["checkpoint"] or params["resume"]:
-        return "--checkpoint/--resume"
-    if params["profile"]:
-        return "--profile"
-    return None
+@contextlib.contextmanager
+def _profile(path, device):
+    """``--profile DIR`` (cli.py:375-380, where jax.profiler.trace
+    writes): a torch.profiler window around the solve, the card's
+    activity too when the solve runs on one, whose Chrome trace is
+    written into ``path`` (created if missing) as ``trace.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(path, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(path, "trace.json"))
 
 
 def main(argv=None, fmt="csr") -> int:
@@ -314,10 +328,6 @@ def _main(params):
         # cli.py:387-389: the refinement's inner solves would share one
         # snapshot path, and a resume would replay a different rhs.
         print("--refine cannot be combined with --checkpoint/--resume")
-        return 1
-    flag = _unported_flag(params)
-    if flag:
-        print(f"{flag} {_ROADMAP}")
         return 1
     try:
         compute_dtype(params["target"], params["dtype"])
@@ -375,28 +385,40 @@ def _main(params):
         mat = inject_bitflips(mat, params["bitflip_kind"],
                               params["num_bit_flips"], inj_rng)
 
+    # --checkpoint reaches the solve only when given (cli.py:391-398).
+    extra = {}
+    if params["checkpoint"]:
+        extra = dict(checkpoint=params["checkpoint"],
+                     checkpoint_every=params["checkpoint_every"],
+                     resume=params["resume"])
     kw = dict(dtype=params["dtype"], precond=params["precond"],
               check_interval=params.get("check_interval"),
-              devices=params["devices"])
-    try:
-        if params.get("refine"):
-            # Mixed-precision refinement: inner solves on the target plus
-            # binary64 true-residual restarts (backends.base.
-            # solve_refined).
-            res = backend.solve_refined(mat, b, params["max_itrs"],
-                                        params["conv_threshold"],
-                                        params["refine"], **kw)
-        else:
-            res = backend.solve(mat, b, params["max_itrs"],
-                                params["conv_threshold"],
-                                reps=params["reps"], **kw)
-    except (ValueError, NotImplementedError) as e:
-        if not params["devices"]:
-            raise
-        # More shards than cards, or a mesh this package does not run:
-        # one line, exit 1 (cli.py:420-429).
-        print(f"options unsupported for target '{params['target']}': {e}")
-        return 1
+              devices=params["devices"], solver=params["solver"], **extra)
+    profile_cm = (_profile(params["profile"], backend.device)
+                  if params["profile"] else contextlib.nullcontext())
+    with profile_cm:
+        try:
+            if params.get("refine"):
+                # Mixed-precision refinement: inner solves on the target
+                # plus binary64 true-residual restarts (backends.base.
+                # solve_refined).
+                res = backend.solve_refined(mat, b, params["max_itrs"],
+                                            params["conv_threshold"],
+                                            params["refine"], **kw)
+            else:
+                res = backend.solve(mat, b, params["max_itrs"],
+                                    params["conv_threshold"],
+                                    reps=params["reps"], **kw)
+        except (TypeError, ValueError, NotImplementedError) as e:
+            if not (params["devices"] or params["solver"] != "standard"
+                    or params["checkpoint"]):
+                raise
+            # More shards than cards, a mesh this package does not run,
+            # or a solver option the route refuses: one line, exit 1
+            # (cli.py:409-418).
+            print(f"options unsupported for target '{params['target']}': "
+                  f"{e}")
+            return 1
 
     # ABFT event messages print first (reference cg.cpp:97 runs before
     # the rr print at cg.cpp:117), then the per-iteration residuals.

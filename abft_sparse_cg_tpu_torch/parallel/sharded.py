@@ -41,11 +41,11 @@ import torch
 
 from ..formats.protected import ProtectedMatrix, not_ported
 from ..ops.spmv import MatrixDevice, make_matrix_device, make_spmv
-from ..solver.cg import make_cg_solver, make_lazy_ci_solver
+from ..solver.cg import make_cg_continue, make_lazy_ci_continue, solver_of
 
 __all__ = ["Mesh", "ShardedDevice", "default_mesh", "pad_rows",
-           "mesh_rows", "shard_rows", "make_sharded_solver",
-           "solve_sharded"]
+           "mesh_rows", "shard_rows", "sharded_spmv",
+           "make_sharded_continue", "make_sharded_solver", "solve_sharded"]
 
 
 class Mesh(NamedTuple):
@@ -183,34 +183,55 @@ def _device_put_sharded(mat, b: np.ndarray, mesh: Mesh, dtype):
     return md, put_vec(b), put_vec
 
 
-def make_sharded_solver(mat: ProtectedMatrix, mesh: Mesh, max_itrs: int,
-                        conv_threshold: float, dtype, mode: str = None,
-                        check_interval: int = 1):
-    """``solve(md, b, minv=None) -> CGResult`` of ``mat`` on ``mesh``,
-    for the upload of ``_device_put_sharded``.  Inside the kernel
-    envelope: solver.cg's loop over the per-shard kernels
-    (``make_shardmap_spmv``), on the lazy schedule over their
-    detection-free form when ``check_interval`` > 1 (as
-    pallas_backend.py:72-125 routes).  Outside it: the single-device
-    program on the mesh-padded planes, live (sharded.py:216)."""
+def sharded_spmv(mat: ProtectedMatrix, mesh: Mesh, dtype, mode: str = None):
+    """The SpmvImpl of ``mat`` on ``mesh``, for the upload of
+    ``_device_put_sharded``: the per-shard kernels inside the kernel
+    envelope (``make_shardmap_spmv``), else the single-device SpmvImpl
+    of the mesh's device on the mesh-padded planes (the cuda one on a
+    card, the plain one on the CPU), which computes what GSPMD's program
+    computes (sharded.py:216)."""
     from .sharded_kernel import make_shardmap_spmv, supports_shardmap
 
     mode = mat.mode if mode is None else mode
     if supports_shardmap(mat, dtype, mesh.size):
-        spmv = make_shardmap_spmv(mat, mesh, dtype, mode)
-        if check_interval > 1 and spmv.classify is not None:
-            product = make_shardmap_spmv(mat, mesh, dtype, mode,
-                                         detect=False)
-            return make_lazy_ci_solver(spmv, product, check_interval,
-                                       max_itrs, conv_threshold)
-        return make_cg_solver(spmv, max_itrs, conv_threshold)
+        return make_shardmap_spmv(mat, mesh, dtype, mode)
     if mesh.devices[0].type == "cuda":
         from ..ops.spmv_cuda import make_cuda_spmv
 
-        spmv = make_cuda_spmv(mat, dtype, mode)
-    else:
-        spmv = make_spmv(mat, dtype, mode)
-    return make_cg_solver(spmv, max_itrs, conv_threshold)
+        return make_cuda_spmv(mat, dtype, mode)
+    return make_spmv(mat, dtype, mode)
+
+
+def make_sharded_continue(mat: ProtectedMatrix, mesh: Mesh,
+                          conv_threshold: float, dtype, mode: str = None,
+                          check_interval: int = 1):
+    """``continue_(md, state, upto, minv=None) -> (CGState, md)`` of
+    ``mat`` on ``mesh`` (solver.cg's contract), as pallas_backend.py:
+    72-125 and :222-258 route: solver.cg's loop over ``sharded_spmv``,
+    on the lazy schedule over the per-shard kernels' detection-free form
+    when ``check_interval`` > 1 inside the kernel envelope; live
+    outside it."""
+    from .sharded_kernel import make_shardmap_spmv, supports_shardmap
+
+    mode = mat.mode if mode is None else mode
+    spmv = sharded_spmv(mat, mesh, dtype, mode)
+    if (check_interval > 1 and spmv.classify is not None
+            and supports_shardmap(mat, dtype, mesh.size)):
+        product = make_shardmap_spmv(mat, mesh, dtype, mode, detect=False)
+        return make_lazy_ci_continue(spmv, product, check_interval,
+                                     conv_threshold)
+    return make_cg_continue(spmv, conv_threshold)
+
+
+def make_sharded_solver(mat: ProtectedMatrix, mesh: Mesh, max_itrs: int,
+                        conv_threshold: float, dtype, mode: str = None,
+                        check_interval: int = 1):
+    """``solve(md, b, minv=None) -> CGResult`` of ``mat`` on ``mesh``,
+    for the upload of ``_device_put_sharded``: solver.cg's loops over
+    ``make_sharded_continue``."""
+    return solver_of(make_sharded_continue(mat, mesh, conv_threshold,
+                                           dtype, mode, check_interval),
+                     max_itrs)
 
 
 def solve_sharded(mat: ProtectedMatrix, b: np.ndarray, max_itrs: int,

@@ -28,7 +28,7 @@ from ..ops.spmv import ERR_BREAKDOWN, ERR_PHANTOM, SpmvImpl, SpmvStats
 
 __all__ = ["CGResult", "CGState", "make_cg_solver", "make_cg_continue",
            "make_lazy_ci_continue", "make_lazy_ci_solver", "init_state",
-           "trace_length"]
+           "trace_length", "solver_of"]
 
 _MAX_TRACE = 100_000
 
@@ -111,10 +111,12 @@ def make_cg_continue(impl: SpmvImpl, conv_threshold: float):
 def make_cg_solver(impl: SpmvImpl, max_itrs: int, conv_threshold: float):
     """``solve(md, b, minv=None) -> CGResult`` around a SpmvImpl;
     ``minv`` is the Jacobi M^-1 diagonal, an (R,) vector, or None."""
-    return _solver(make_cg_continue(impl, conv_threshold), max_itrs)
+    return solver_of(make_cg_continue(impl, conv_threshold), max_itrs)
 
 
-def _solver(cont, max_itrs):
+def solver_of(cont, max_itrs):
+    """``solve(md, b, minv=None) -> CGResult``: a continue function run
+    from the initial state to ``max_itrs``."""
     def solve(md, b, minv=None):
         s, md_out = cont(md, init_state(b, max_itrs, minv), max_itrs, minv)
         return CGResult(x=s.x, iterations=s.itr, rr=s.rr, stats=s.stats,
@@ -317,5 +319,5 @@ def make_lazy_ci_solver(impl: SpmvImpl, product: SpmvImpl,
                         conv_threshold: float):
     """``solve(md, b, minv=None) -> CGResult`` on the per-iteration lazy
     schedule (make_lazy_ci_continue)."""
-    return _solver(make_lazy_ci_continue(impl, product, check_interval,
-                                         conv_threshold), max_itrs)
+    return solver_of(make_lazy_ci_continue(impl, product, check_interval,
+                                           conv_threshold), max_itrs)

@@ -56,7 +56,7 @@ from .cg import (
     _baseline_changed,
     _lazy_exit_resolve,
     _phantom_guard,
-    _solver,
+    solver_of,
 )
 
 __all__ = ["supports_fused", "make_fused_continue", "make_fused_solver",
@@ -622,5 +622,6 @@ def make_fused_solver(mat, mode, max_itrs: int, conv_threshold: float,
     """``solve(md, b, minv=None) -> CGResult`` on kernel B or D;
     ``minv`` must match ``precond``; ``schedule`` as in
     ``make_fused_continue``."""
-    return _solver(make_fused_continue(mat, mode, conv_threshold, precond,
-                                       check_interval, schedule), max_itrs)
+    return solver_of(make_fused_continue(mat, mode, conv_threshold,
+                                         precond, check_interval, schedule),
+                     max_itrs)

@@ -214,7 +214,21 @@ Phases:
      beside their CSR constraints builds (the bound counts the gather
      word once: in constraints it is a signal plane); the device time of
      each -b 10
-     solve in a fresh profiler worker (``--profile-worker coo``).
+     solve in a fresh profiler worker (``--profile-worker coo``);
+ 38. the rest of the CLI on the card, in 8 worker processes (REST_JOBS,
+     ``--cli-worker LABEL``, started after phase 37): --checkpoint P
+     --checkpoint-every 3, and a partial -i 4 run resumed, each equal to
+     the straight run (DIA -b 10 secded -x, also lazy CI 4 and Jacobi;
+     dense-radius-3d -b 4; arrowhead -b 10; powerlaw-graph -b 10; cg-coo
+     DIA -b 10 constraints -x INDEX), kernel B launched once per segment
+     and once per repair; --solver pipelined to the run_tests contract
+     (DIA -b 10 none, secded -x, sed -x; dense-radius-3d -b 4;
+     powerlaw-graph -b 10 at -c 10), launching A, C or E, never B or D;
+     --profile on DIA -b 10 secded, a trace that names kernel B; no
+     kernel's plain version run on these paths; while the workers run,
+     the pipelined float32 trajectories against the float64 plain
+     pipelined solve on the card; then solve times, checkpointed against
+     straight and pipelined against standard.
 
 Any failed check raises, so the script exits non-zero.  The last three
 lines are the card line from nvidia-smi, one JSON object describing the
@@ -600,45 +614,195 @@ CLI_JOBS = {
 }
 
 
+# Phase 38's CLI runs, the rest of the CLI on the card: {label: (zoo file
+# or None for the bundled matrix, -b, codeword format, ((kind, flags),
+# ...))}.  ``checkpoint``: a straight run, the same with --checkpoint P
+# --checkpoint-every 3, and a partial run (-i 4 --checkpoint Q) resumed
+# to the full limit, both held equal to the straight run;
+# ``pipelined``: a --solver pipelined run held to the run_tests
+# contract; ``profile``: --profile DIR, stdout equal to the run without
+# it, a trace in DIR that names kernel B.  Run by cli_worker like
+# CLI_JOBS, in a pool of their own.
+REST_JOBS = {
+    "DIA -b 10 checkpoint": (None, 10, "csr", (
+        ("checkpoint", ["-m", "secded", "-x"]),
+        ("checkpoint", ["-m", "secded", "-x", "--check-interval", "4"]),
+        ("checkpoint", ["-m", "secded", "-x", "-p", "jacobi"]))),
+    "DIA -b 10 pipelined, profile": (None, 10, "csr", (
+        ("pipelined", ["-m", "none"]), ("pipelined", ["-m", "secded", "-x"]),
+        ("pipelined", ["-m", "sed", "-x"]), ("profile", ["-m", "secded"]))),
+    "dense-radius-3d -b 4 checkpoint": ("dense-radius-3d", 4, "csr", (
+        ("checkpoint", ["-m", "secded", "-x"]),)),
+    "dense-radius-3d -b 4 pipelined": ("dense-radius-3d", 4, "csr", (
+        ("pipelined", ["-m", "secded", "-x"]),)),
+    "arrowhead -b 10 checkpoint": ("arrowhead", 10, "csr", (
+        ("checkpoint", ["-m", "secded", "-x"]),)),
+    "powerlaw-graph -b 10 checkpoint": ("powerlaw-graph", 10, "csr", (
+        ("checkpoint", ["-m", "secded", "-x"]),)),
+    # float32 pipelined CG breaks down on powerlaw-graph (the alpha
+    # denominator turns negative) once rr falls to ~1e-5 of rr0 at -b 10
+    # (rr0 ~2.2e5; ~1e-7 at -b 1), long before -c 0.001; so does the JAX
+    # package's in float32: the run stops at -c 10, 4.6e-5 of rr0.
+    "powerlaw-graph -b 10 pipelined": ("powerlaw-graph", 10, "csr", (
+        ("pipelined", ["-m", "secded", "-x", "-c", "10"]),)),
+    "cg-coo DIA -b 10 checkpoint": (None, 10, "coo", (
+        ("checkpoint", ["-m", "constraints", "-x", "INDEX"]),)),
+}
+# The kernel wrappers' plain versions: none may run on phase 38's paths.
+PLAIN_VERSIONS = (("ops.spmv_cuda", "dia_fast_plain"),
+                  ("ops.spmv_cuda", "ell_fast_plain"),
+                  ("ops.spmv_cuda", "flat_fast_plain"),
+                  ("solver.fused", "fused_cg_dia_plain"),
+                  ("solver.fused", "fused_cg_ell_plain"),
+                  ("solver.fused", "split_tail_plain"))
+
+
+def count_plain_calls():
+    """Wrap every kernel's plain version in the port's modules with a
+    counter; returns the {name: calls} it fills."""
+    import importlib
+
+    calls = {}
+    for mod_name, name in PLAIN_VERSIONS:
+        mod = importlib.import_module(f"abft_sparse_cg_tpu_torch.{mod_name}")
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+
+        setattr(mod, name, counted)
+    return calls
+
+
+def contract_lines(out):
+    """stdout less the two time lines."""
+    return [ln for ln in out.splitlines()
+            if not ln.startswith(("compile time", "time taken"))]
+
+
+def iterations_of(out):
+    for line in out.splitlines():
+        if line.startswith("ran for"):
+            return int(line.split()[2])
+    return -1
+
+
+def rest_run(main, base, kind, flags, tmp):
+    """One (kind, flags) of REST_JOBS through ``main`` (see there);
+    raises on a miss.  Returns {"flags", "kind", the launch counts of
+    the checkpointed run or the pipelined one, its iterations and
+    corrections}."""
+    tag = f"{kind} {' '.join(flags)}"
+    if kind == "pipelined":
+        reset_launches()
+        code, out = run_cli(main, [*base, "--solver", "pipelined", *flags])
+        wrappers, instances = launch_counts()
+        if "sed" in flags:
+            require(code == 1 and "error detected at index" in out,
+                    f"{tag}: exit {code}")
+        elif "-x" in flags:     # run_tests class 3: exit 0
+            require(code == 0 and "[ECC] corrected" in out,
+                    f"{tag}: exit {code}")
+        else:
+            require(code == 0 and total_error(out) < 1.0,
+                    f"{tag}: exit {code}, total error {total_error(out)}")
+        print(f"passed {tag}: exit {code}, {iterations_of(out)} it, total "
+              f"error {total_error(out):f}")
+        return {"kind": kind, "flags": flags, "wrappers": wrappers,
+                "instances": instances, "iterations": iterations_of(out)}
+    code0, out0 = run_cli(main, [*base, *flags])
+    require("iteration" in out0, f"{tag}: the straight run solved nothing "
+            f"(exit {code0})")
+    if kind == "profile":
+        pdir = os.path.join(tmp, "profile", "new")
+        code, out = run_cli(main, [*base, *flags, "--profile", pdir])
+        require(code == code0 == 0
+                and contract_lines(out) == contract_lines(out0),
+                f"{tag}: exit {code}, stdout differs from the run without")
+        with open(os.path.join(pdir, "trace.json")) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        b_names = sorted(n for n in names if "fused_cg_dia" in n)
+        require(b_names, f"{tag}: the trace names no kernel B launch")
+        print(f"passed {tag}: exit 0, stdout equal, trace names {b_names}")
+        return {"kind": kind, "flags": flags, "kernel_b": b_names}
+    snap, part = os.path.join(tmp, "seg.npz"), os.path.join(tmp, "part.npz")
+    reset_launches()
+    code1, out1 = run_cli(main, [*base, *flags, "--checkpoint", snap,
+                                 "--checkpoint-every", "3"])
+    wrappers, instances = launch_counts()
+    require(code1 == code0 and contract_lines(out1) == contract_lines(out0),
+            f"{tag}: --checkpoint-every 3 stdout differs from the straight "
+            "run")
+    code2, _ = run_cli(main, [*base, *flags, "-i", "4", "--checkpoint",
+                              part])
+    code3, out3 = run_cli(main, [*base, *flags, "--checkpoint", part,
+                                 "--resume"])
+    require(code3 == code0 and contract_lines(out3) == contract_lines(out0),
+            f"{tag}: -i 4 then --resume differs from the straight run "
+            f"(exits {code2}, {code3})")
+    its = iterations_of(out1)
+    print(f"passed {tag}: exit {code0}, {its} it, segments of 3 and a "
+          f"resumed -i 4 run equal to the straight run")
+    return {"kind": kind, "flags": flags, "wrappers": wrappers,
+            "instances": instances, "iterations": its,
+            "corrections": int("[ECC] corrected" in out1)}
+
+
 def cli_worker(label):
-    """One CLI_JOBS entry in this fresh process: the zoo file written by
-    the port's mmio into a temporary directory, every launch count reset,
-    the runs through main_csr -t cuda --seed 11 (what bin/cg-csr-torch
-    runs), the counts read.  Prints the runs' lines, then one JSON line:
-    the counts and the seconds taken."""
+    """One CLI_JOBS or REST_JOBS entry in this fresh process: the zoo file
+    written by the port's mmio into a temporary directory (or the
+    bundled matrix), every launch count reset, the runs through main_csr
+    or main_coo -t cuda --seed 11 (what bin/cg-csr-torch and
+    bin/cg-coo-torch run), the counts read.  Prints the runs' lines,
+    then one JSON line: the counts (REST_JOBS: per run, and the calls of
+    the kernels' plain versions) and the seconds taken."""
     t0 = time.perf_counter()
     sys.path.insert(0, ROOT)
     from abft_sparse_cg_tpu_torch import _build
-    from abft_sparse_cg_tpu_torch.cli import main_csr
+    from abft_sparse_cg_tpu_torch.cli import main_coo, main_csr
     from abft_sparse_cg_tpu_torch.utils.matgen import write_mm_triangle
     from abft_sparse_cg_tpu_torch.utils.matzoo import ZOO
 
-    name, blocks, flag_sets = CLI_JOBS[label]
     _build.build()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, f"{name}.mtx")
-        write_mm_triangle(path, *ZOO[name][0]())
-        base = ["-f", path, "-b", str(blocks), "--seed", "11", "-t", "cuda"]
-        reset_launches()
-        if flag_sets is None:
-            run_tests_classes(main_csr, base)
+        if label in REST_JOBS:
+            name, blocks, fmt, runs = REST_JOBS[label]
+            path = MATRIX
         else:
-            for flags in flag_sets:
-                option_run(main_csr, base, flags)
-        wrappers, instances = launch_counts()
-    print(json.dumps({"wrappers": wrappers, "instances": instances,
-                      "seconds": time.perf_counter() - t0}))
+            name, blocks, flag_sets = CLI_JOBS[label]
+            fmt = "csr"
+        if name is not None:
+            path = os.path.join(tmp, f"{name}.mtx")
+            write_mm_triangle(path, *ZOO[name][0]())
+        base = ["-f", path, "-b", str(blocks), "--seed", "11", "-t", "cuda"]
+        if label in REST_JOBS:
+            plain = count_plain_calls()
+            main = main_coo if fmt == "coo" else main_csr
+            out = {"runs": [rest_run(main, base, kind, flags, tmp)
+                            for kind, flags in runs], "plain": plain}
+        else:
+            reset_launches()
+            if flag_sets is None:
+                run_tests_classes(main_csr, base)
+            else:
+                for flags in flag_sets:
+                    option_run(main_csr, base, flags)
+            wrappers, instances = launch_counts()
+            out = {"wrappers": wrappers, "instances": instances}
+    print(json.dumps(dict(out, seconds=time.perf_counter() - t0)))
 
 
-def cli_pool_start():
-    """Start every CLI_JOBS entry in a worker process of its own
-    (``--cli-worker LABEL``), all together, each on one host thread (the
-    eight share the host's cores); returns what cli_pool_wait takes.  A
-    worker still running when this process exits is killed."""
+def cli_pool_start(jobs=CLI_JOBS):
+    """Start every entry of ``jobs`` (CLI_JOBS or REST_JOBS) in a worker
+    process of its own (``--cli-worker LABEL``), all together, each on
+    one host thread (the eight share the host's cores); returns what
+    cli_pool_wait takes.  A worker still running when this process exits
+    is killed."""
     tmp = tempfile.mkdtemp()
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = {}
-    for i, label in enumerate(CLI_JOBS):
+    for i, label in enumerate(jobs):
         out = open(os.path.join(tmp, f"{i}.out"), "w+")
         err = open(os.path.join(tmp, f"{i}.err"), "w+")
         p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
@@ -668,13 +832,13 @@ def cli_pool_wait(pool):
         f.close()
         e.close()
     shutil.rmtree(tmp)
-    print(f"[{len(procs)} CLI workers, started in phase 10: "
-          f"{time.perf_counter() - t0:.0f} s]")
+    print(f"[{len(procs)} CLI workers: {time.perf_counter() - t0:.0f} s "
+          "since they started]")
     return out
 
 
 def trajectory(m, b, label, oracle_mat=None, oracle_dev="cpu", conv=1e-6,
-               floor=1e-8, res=None, precond=False):
+               floor=1e-8, res=None, precond=False, solver="standard"):
     """The f32 cuda trajectory against the port's f64 plain solve (on
     ``oracle_mat``, the same matrix built in another mode, if given; on
     ``oracle_dev``: the plain version runs on the card too), both run to
@@ -684,7 +848,9 @@ def trajectory(m, b, label, oracle_mat=None, oracle_dev="cpu", conv=1e-6,
     rule).  A higher floor marks a matrix on which float32 CG itself
     leaves the float64 trajectory there: the counts are then printed,
     not held.  ``res``: the f32 solve to hold (rr_trace, iterations,
-    failed), else the cuda target's; ``precond``: both Jacobi PCG."""
+    failed), else the cuda target's; ``precond``: both Jacobi PCG;
+    ``solver="pipelined"``: both the pipelined solver.  Returns the
+    deviation."""
     import numpy as np
     import torch
 
@@ -696,7 +862,7 @@ def trajectory(m, b, label, oracle_mat=None, oracle_dev="cpu", conv=1e-6,
     pre = "jacobi" if precond else "none"
     if res is None:
         res = CudaBackend(m.mode).solve(m, b, 500, conv, dtype="f32",
-                                        reps=1, precond=pre)
+                                        reps=1, precond=pre, solver=solver)
     f64, odev = torch.float64, torch.device(oracle_dev)
 
     def exec_vec(v):
@@ -706,8 +872,15 @@ def trajectory(m, b, label, oracle_mat=None, oracle_dev="cpu", conv=1e-6,
 
     minv = exec_vec(jacobi_minv(m, pre)) if precond else None
     om = m if oracle_mat is None else oracle_mat
-    ora = make_cg_solver(make_spmv(om, f64, om.mode), 500, conv)(
-        make_matrix_device(om, f64, odev), exec_vec(b), minv)
+    if solver == "pipelined":
+        from abft_sparse_cg_tpu_torch.solver.pipelined import (
+            make_pipelined_solver)
+
+        oracle = make_pipelined_solver(make_spmv(om, f64, om.mode), 500,
+                                       conv)
+    else:
+        oracle = make_cg_solver(make_spmv(om, f64, om.mode), 500, conv)
+    ora = oracle(make_matrix_device(om, f64, odev), exec_vec(b), minv)
     require(not res.failed and ora.stats.errcode == 0
             and res.iterations < 500, "trajectory solves failed")
     if floor <= 1e-8:
@@ -725,6 +898,125 @@ def trajectory(m, b, label, oracle_mat=None, oracle_dev="cpu", conv=1e-6,
           f"over {int(track.sum())}/{ora.iterations} iterations down to rr0 "
           f"* {floor:g} ({res.iterations} vs {ora.iterations} iterations "
           f"to rr < {conv:g})")
+    return tdev
+
+
+def rest_of_cli(dia, ell, pl, card):
+    """Phase 38 (see the module docstring): ``dia``, ``ell`` and ``pl``
+    are {mode: matrix} of the bundled matrix at -b 10, dense-radius-3d
+    and powerlaw-graph -b 10, secded and none at least."""
+    import numpy as np
+    import torch
+
+    from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
+    from abft_sparse_cg_tpu_torch.ops.spmv import make_matrix_device
+    from abft_sparse_cg_tpu_torch.solver.checkpoint import CheckpointedSolve
+
+    dev, f32 = torch.device("cuda", 0), torch.float32
+
+    def bvec_of(mm):
+        v = torch.zeros(mm.R, dtype=f32)
+        v[: mm.N] = torch.tensor(mm.to_exec_order(
+            np.random.default_rng(11).random(mm.N)), dtype=f32)
+        return v.to(dev)
+
+    rest_pool = cli_pool_start(REST_JOBS)
+    # While the CLI workers run: the pipelined float32 trajectories
+    # against the float64 plain pipelined solve on the card (phases 6, 13
+    # and 19's bound) on the main process's matrices (powerlaw-graph to
+    # rr0 * 1e-4: its float32 pipelined solve breaks down at ~1e-5, see
+    # REST_JOBS; its rr is not monotone, and float32 CG, standard or
+    # pipelined, leaves the float64 trajectory at ~1e-4 of rr0 on the CPU
+    # at -b 1: held down to rr0 * 1e-3).
+    for label, mm, om, conv_rel, floor in (
+            ("pipelined DIA -b 10 secded (kernel A)", dia["secded"], None,
+             1e-8, 1e-8),
+            ("pipelined dense-radius-3d -b 10 secded (kernel C)",
+             ell["secded"], ell["none"], 1e-8, 1e-8),
+            ("pipelined powerlaw-graph -b 10 secded (kernel E)",
+             pl["secded"], pl["none"], 1e-4, 1e-3)):
+        bt = np.random.default_rng(11).random(mm.N)
+        trajectory(mm, bt, label, om, oracle_dev=dev,
+                   conv=conv_rel * float(bt @ bt), floor=floor,
+                   solver="pipelined")
+    rest = cli_pool_wait(rest_pool)
+    ran = {}
+    for label, (lines, res_) in rest.items():
+        print(f"-- {label} ({res_['seconds']:.0f} s)")
+        for line in lines:
+            print(f"   {line}")
+        require(not res_["plain"], f"{label}: plain versions ran on the "
+                f"card's paths: {res_['plain']}")
+        for r in res_["runs"]:
+            ran[label, r["kind"], " ".join(r["flags"])] = r
+    seg = ran["DIA -b 10 checkpoint", "checkpoint", "-m secded -x"]
+    want_b = seg["iterations"] // 3 + 1 + seg["corrections"]
+    got_b = seg["instances"].get("fused_cg_dia (live)", 0)
+    print(f"checkpointed DIA -b 10 secded -x, live: {seg['iterations']} it "
+          f"in segments of 3, kernel B launched {got_b} times (one per "
+          f"segment, {seg['iterations'] // 3 + 1}, and one per repair, "
+          f"{seg['corrections']})")
+    require(got_b == want_b, f"kernel B: {got_b} launches, expected "
+            f"{want_b}")
+    for key, counts, name in (
+            (("DIA -b 10 checkpoint", "checkpoint",
+              "-m secded -x --check-interval 4"), "instances",
+             "fused_cg_dia (lazy)"),
+            (("DIA -b 10 checkpoint", "checkpoint", "-m secded -x -p jacobi"),
+             "instances", "fused_cg_dia (Jacobi)"),
+            (("dense-radius-3d -b 4 checkpoint", "checkpoint",
+              "-m secded -x"), "wrappers", "fused_cg_ell"),
+            (("arrowhead -b 10 checkpoint", "checkpoint", "-m secded -x"),
+             "wrappers", "fused_cg_dia (split tail)"),
+            (("powerlaw-graph -b 10 checkpoint", "checkpoint",
+              "-m secded -x"), "wrappers", "flat_spmv_detect"),
+            (("cg-coo DIA -b 10 checkpoint", "checkpoint",
+              "-m constraints -x INDEX"), "instances",
+             "fused_cg_dia (live two-plane)"),
+            (("DIA -b 10 pipelined, profile", "pipelined", "-m secded -x"),
+             "wrappers", "dia_spmv_detect"),
+            (("dense-radius-3d -b 4 pipelined", "pipelined", "-m secded -x"),
+             "wrappers", "ell_spmv_detect"),
+            (("powerlaw-graph -b 10 pipelined", "pipelined",
+              "-m secded -x -c 10"), "wrappers", "flat_spmv_detect")):
+        n = ran[key][counts].get(name, 0)
+        print(f"{key[1]} {key[0]} {key[2]}: {name} {n} launches")
+        require(n > 0, f"{key}: {name} was not launched")
+        if key[1] == "pipelined":
+            whole = ran[key]["wrappers"]
+            require(whole["fused_cg_ell"] == 0 and not any(
+                v for k, v in ran[key]["instances"].items()
+                if k.startswith("fused_cg_dia")),
+                f"{key}: the pipelined solver launched kernel B or D")
+
+    # solve times: checkpointed against straight (kernel B, DIA -b 10
+    # secded), pipelined against standard (DIA -b 10: kernel A per
+    # iteration against kernel B; powerlaw-graph -b 10 at -c 10, where
+    # float32 pipelined CG stands: both on kernel E)
+    tmp38 = tempfile.mkdtemp()
+    fns38 = {}
+    for label, mm, conv in (("DIA -b 10", dia["secded"], CONV),
+                            ("powerlaw-graph -b 10 -c 10",
+                             pl["secded"], 10.0)):
+        be = CudaBackend("secded")
+        md_ = make_matrix_device(mm, f32, dev)
+        bb = bvec_of(mm)
+        std = be._solver(mm, f32, 1000, conv)
+        pip = be._solver(mm, f32, 1000, conv, solver="pipelined")
+        print(f"{label}: standard {std(md_, bb).iterations} it, pipelined "
+              f"{pip(md_, bb).iterations} it")
+        fns38[f"{label} standard"] = lambda s=std, m_=md_, b_=bb: s(m_, b_)
+        fns38[f"{label} pipelined"] = lambda s=pip, m_=md_, b_=bb: s(m_, b_)
+        if label == "DIA -b 10":
+            runner = CheckpointedSolve(
+                None, CONV, 3, os.path.join(tmp38, "t.npz"),
+                continue_fn=be._continue(mm, f32, CONV))
+            fns38[f"{label} checkpoint every 3"] = (
+                lambda r=runner, m_=md_, b_=bb: r.run(m_, b_, 1000))
+    t38 = interleave(fns38, 3, 5)
+    for n, v in t38.items():
+        print(f"{n:36s} solve {spread(v)} [{card}]")
+    shutil.rmtree(tmp38)
 
 
 def profile_worker(group, path):
@@ -3230,6 +3522,12 @@ def main():
     # way): COO against CSR at -b 10, secded and constraints
     profile_group("coo", None, card)
     kernels += coo_rows
+
+    # ---- 38. the rest of the CLI on the card --------------------------------
+    phase("38. the rest of the CLI on the card: --checkpoint/--resume over "
+          "kernels B, D, E, the split tail and two-plane B; --solver "
+          "pipelined over kernels A, C and E; --profile")
+    rest_of_cli(mats, ell, flat["powerlaw-graph"][1], card)
     print(f"[all phases done at {time.perf_counter() - t_start:.0f} s]")
 
     print()

@@ -1407,3 +1407,86 @@ def test_csr_constraints_keeps_one_plane(dev):
     assert fused_cg_dia.instances.get("live", 0) > names.get("live", 0)
     assert not any(k.endswith("two-plane") and v != names.get(k, 0)
                    for k, v in fused_cg_dia.instances.items())
+
+
+# --------------------------------------------------------------------------
+# The segmented solve (--checkpoint) on kernels B and D, the pipelined
+# solver over kernels A, C and E
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["dia", "ell", "split"])
+@pytest.mark.parametrize("ci", [1, 4], ids=["live", "lazy"])
+@pytest.mark.parametrize("flips", [0, 1], ids=["clean", "fault"])
+def test_checkpointed_fused_continue_matches_straight(dev, tmp_path, layout,
+                                                      ci, flips):
+    """make_fused_continue under CheckpointedSolve in segments of 3
+    iterations, one launch of kernel B or D per segment (and one more per
+    repair), each from the state the last one left: the straight solve's
+    iterations, events and x bit for bit, live and lazy alike (the
+    checked iterations are the same, itr % CI == CI - 1, and a launch
+    boundary changes no reduction order); a fault is corrected once."""
+    from abft_sparse_cg_tpu_torch.solver.checkpoint import CheckpointedSolve
+    from abft_sparse_cg_tpu_torch.solver.fused import make_fused_continue
+
+    m = fused_matrix(layout, "secded")
+    mf = faulted(m, 1, 6) if flips else m
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    b = b.to(dev)
+    md = make_matrix_device(mf, torch.float32, dev)
+    straight = make_fused_solver(mf, "secded", 300, 1e-8,
+                                 check_interval=ci)(md, b)
+    kernel = fused_cg_ell if layout == "ell" else fused_cg_dia
+    before = kernel.launches
+    seg = CheckpointedSolve(
+        None, 1e-8, every=3, path=str(tmp_path / "ck.npz"),
+        continue_fn=make_fused_continue(mf, "secded", 1e-8,
+                                        check_interval=ci)).run(
+        make_matrix_device(mf, torch.float32, dev), b, 300)
+    segments = -(-seg.iterations // 3)
+    assert kernel.launches - before >= segments
+    assert seg.iterations == straight.iterations
+    assert tuple(seg.stats) == tuple(straight.stats)
+    assert seg.stats.corrected_count == flips
+    assert torch.equal(seg.x, straight.x)
+    it = seg.iterations
+    assert torch.equal(seg.rr_trace[:it], straight.rr_trace[:it])
+
+
+@pytest.mark.parametrize("shape", ["dia", "ell", "flat"])
+@pytest.mark.parametrize("flips", [0, 1], ids=["clean", "fault"])
+def test_pipelined_on_the_kernels_matches_plain(dev, shape, flips):
+    """The pipelined solver over make_cuda_spmv (kernels A, C, E, one
+    launch per iteration and per restart) against itself over make_spmv,
+    the plain SpmvImpl, on the card: the kernels' w is their plain
+    versions' bit for bit and every other operation is the same torch
+    call, so iterations, events, the trace and x are equal bit for bit;
+    a fault is repaired once and the recurrences restart."""
+    from abft_sparse_cg_tpu_torch.ops.spmv import make_spmv
+    from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
+        flat_fast,
+        make_cuda_spmv,
+    )
+    from abft_sparse_cg_tpu_torch.solver.pipelined import (
+        make_pipelined_solver,
+    )
+
+    m = {"dia": lambda: dia_matrix("secded"),
+         "ell": lambda: ell_matrix("secded"),
+         "flat": lambda: flat_matrix("secded", "stencil27")}[shape]()
+    m = faulted(m, 1, 6) if flips else m
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    b = b.to(dev)
+    kernel = {"dia": dia_fast, "ell": ell_fast, "flat": flat_fast}[shape]
+    before = kernel.launches
+    rk = make_pipelined_solver(make_cuda_spmv(m, torch.float32), 300, 1e-8)(
+        make_matrix_device(m, torch.float32, dev), b)
+    assert kernel.launches - before >= rk.iterations + 1
+    rp = make_pipelined_solver(make_spmv(m, torch.float32), 300, 1e-8)(
+        make_matrix_device(m, torch.float32, dev), b)
+    assert rk.iterations == rp.iterations and rk.stats == rp.stats
+    assert rk.stats.errcode == 0 and rk.stats.corrected_count == flips
+    it = rk.iterations
+    assert same_bits(rk.rr_trace[:it], rp.rr_trace[:it])
+    assert same_bits(rk.x, rp.x)
