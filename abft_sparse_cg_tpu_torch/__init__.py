@@ -16,6 +16,9 @@ Targets:
   ====== ===========================================================
   torch  plain PyTorch on the CPU (float64 by default): the port's
          correctness oracle, line-for-line comparable with ``-t jnp``
+  cpu    the native C++/OpenMP library (native/abft_cg.cpp, float64,
+         built at first use; backends.cpp_backend): stdout identical to
+         ``bin/cg-csr -t cpu``
   cuda   the CUDA kernels of ``csrc/`` on ``cuda:0`` (float32):
          ``dia_spmv_detect``/``ell_spmv_detect`` (ops.spmv_cuda) and
          the whole-solve ``fused_cg_dia``/``fused_cg_ell``

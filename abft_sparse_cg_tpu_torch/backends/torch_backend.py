@@ -146,9 +146,13 @@ class TorchBackend(Backend):
     def solve(self, mat, b, max_itrs, conv_threshold, dtype="auto",
               reps=0, precond="none", check_interval=None, devices=0,
               solver="standard", want_scrubbed="auto", checkpoint=None,
-              checkpoint_every=100, resume=False) -> HostResult:
-        """``precond``: "none" or "jacobi" (M^-1 in exec order, zero on
-        pad rows); ``check_interval``: None, an int or "auto";
+              checkpoint_every=100, resume=False,
+              verbose=True) -> HostResult:
+        """``verbose`` is the CLI's ``not --quiet``, which only the cpu
+        target's live loop reads (here the CLI prints the rr lines from
+        ``rr_trace``); ``precond``: "none" or "jacobi" (M^-1 in exec
+        order, zero on pad rows); ``check_interval``: None, an int or
+        "auto";
         ``devices`` > 1: row-shard the solve over that many shards;
         ``solver``: "standard" or "pipelined".  ``checkpoint``: the
         snapshot path of the segmented solve (solver.checkpoint), state

@@ -6,20 +6,27 @@ the default target where the JAX CLI has ``jnp``), so ``run_tests``
 drives ``bin/cg-csr-torch`` and ``bin/cg-coo-torch`` (``main_csr``,
 ``main_coo``: the CSR96 and COO128 codewords) unchanged: the config
 echo, the injection banner, ``[ECC]`` lines, ``iteration ... rr =``
-lines, ``ran for``, ``time taken``, ``total error``.  Targets: ``cuda`` (the default: the
-kernels on the card, float32) and ``torch`` (plain PyTorch on the CPU,
-float64 by default — asked for explicitly, as the tests do).  Without a
-card ``cuda-<mode>`` is not registered, so a run without ``-t`` prints
-"No implementation found for cuda-<mode>" and exits 1; it never falls
-back to the CPU.  ``main`` returns the exit code.
+lines, ``ran for``, ``time taken``, ``total error``.  Targets, in
+``--list`` order: ``torch`` (plain PyTorch on the CPU, float64 by
+default), ``cpu`` (the native C++/OpenMP library of native/abft_cg.cpp,
+float64, built at first use; stdout identical to ``bin/cg-csr -t cpu``:
+the reference's write-back onto copies of the planes, live only, its rr
+and correction lines printed by the library as it runs) and ``cuda``
+(the default: the kernels on the card, float32).  ``torch`` and ``cpu``
+run only when asked for, as the tests do.  Without a card
+``cuda-<mode>`` is not registered, so a run without ``-t`` prints "No
+implementation found for cuda-<mode>" and exits 1; it never falls back
+to the CPU.  ``main`` returns the exit code.
 
 ``-p jacobi``, ``--check-interval K`` (K > 1 or ``auto``) and
 ``--refine K`` reach the backend (cli.py:382-419): on ``cuda`` the Jacobi
 and lazy instances of the whole-solve kernels, or the per-iteration
-tier's lazy loop over the detection-free products; ``torch`` runs Jacobi
-and refinement and, like ``-t jnp``, has no lazy schedule (it warns on
-stderr and runs live).  ``--refine`` with ``--checkpoint`` is refused, as
-in the JAX CLI.  ``--devices N`` row-shards the solve over N shards
+tier's lazy loop over the detection-free products; ``torch`` and
+``cpu`` run Jacobi and refinement and, like ``-t jnp`` and ``-t cpu``
+there, have no lazy schedule (they warn on stderr and run live).
+``--quiet`` reaches the backend as ``verbose=False`` (the cpu target's
+library then streams nothing).  ``--refine`` with ``--checkpoint`` is
+refused, as in the JAX CLI.  ``--devices N`` row-shards the solve over N shards
 (parallel.sharded), with R aligned at build time as cli.py:325-340 does:
 on ``torch`` N shards on the CPU; on ``cuda`` one shard per card, and a
 host with fewer cards exits 1 with the JAX message.  ``--checkpoint P``
@@ -30,7 +37,8 @@ solver.pipelined, and ``--profile DIR`` writes a torch.profiler trace of
 the solve into DIR (cli.py:375-418).  A solver option a route refuses
 (``--checkpoint`` with pipelined, pipelined with ``-p jacobi``, more
 shards than cards) prints "options unsupported for target '<t>': ..."
-and exits 1, as there.
+and exits 1, as there; ``-t cpu`` refuses ``--devices N``, ``--solver
+pipelined`` and ``--checkpoint`` with the JAX cpu target's texts.
 """
 
 from __future__ import annotations
@@ -53,7 +61,8 @@ _USAGE_OPTIONS = """Options:
   -m  --mode            MODE  ABFT mode
   -t  --target          TARG  Implementation target (default: cuda,
                               the kernels on the card; torch: plain
-                              PyTorch on the CPU)
+                              PyTorch on the CPU; cpu: the native
+                              C++/OpenMP library, float64)
   -x  --inject-bitflip        Inject a random bit-flip into A
       --format          F     Storage format: csr | coo
       --seed            S     Seed b-vector and injector RNGs
@@ -66,7 +75,8 @@ _USAGE_OPTIONS = """Options:
                               (one reduction point per iteration;
                               no -p jacobi, no --checkpoint)
       --reps            N     Executions averaged into 'time taken'
-                              (default: 10 on cuda, 1 on torch)
+                              (default: 10 on cuda, 1 on torch;
+                              cpu: one run, its own clock)
       --refine          K     Mixed-precision refinement: up to K
                               rounds of f32 inner CG + binary64
                               true-residual restart (f64-level final
@@ -391,7 +401,8 @@ def _main(params):
         extra = dict(checkpoint=params["checkpoint"],
                      checkpoint_every=params["checkpoint_every"],
                      resume=params["resume"])
-    kw = dict(dtype=params["dtype"], precond=params["precond"],
+    kw = dict(verbose=not params["quiet"], dtype=params["dtype"],
+              precond=params["precond"],
               check_interval=params.get("check_interval"),
               devices=params["devices"], solver=params["solver"], **extra)
     profile_cm = (_profile(params["profile"], backend.device)

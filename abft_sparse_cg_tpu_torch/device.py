@@ -1,4 +1,4 @@
-"""Device and compute-dtype policy of the two targets.
+"""Device and compute-dtype policy of the three targets.
 
 Replaces ``abft_sparse_cg_tpu.backends.base.default_dtype``: there the
 platform JAX runs on decides; here the target does, and every function
@@ -9,6 +9,8 @@ default device is set anywhere).
   target device    dtype ``auto``
   ====== ========= ====================================================
   torch  cpu       float64 (what ``jnp`` gives on the CPU with x64 on)
+  cpu    cpu       float64 always (the native library's loop; ``--dtype``
+                   is accepted and changes nothing, as on ``-t cpu``)
   cuda   cuda:0    float32 (the kernels are float32-only, as the
                    ``pallas`` target's are)
   ====== ========= ====================================================
@@ -22,7 +24,7 @@ __all__ = ["target_device", "compute_dtype"]
 
 
 def target_device(target: str) -> torch.device:
-    if target == "torch":
+    if target in ("torch", "cpu"):
         return torch.device("cpu")
     if target == "cuda":
         return torch.device("cuda", 0)
@@ -41,4 +43,4 @@ def compute_dtype(target: str, requested: str = "auto") -> torch.dtype:
         return torch.float64
     if requested != "auto":
         raise ValueError(f"unknown dtype {requested!r}")
-    return torch.float64 if target == "torch" else torch.float32
+    return torch.float32 if target == "cuda" else torch.float64

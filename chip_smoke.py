@@ -228,7 +228,20 @@ Phases:
      kernel's plain version run on these paths; while the workers run,
      the pipelined float32 trajectories against the float64 plain
      pipelined solve on the card; then solve times, checkpointed against
-     straight and pipelined against standard.
+     straight and pipelined against standard;
+ 39. the cpu target (the native C++/OpenMP library, float64, built from
+     native/abft_cg.cpp at first use; its build seconds printed) as the
+     cuda target's witness: --list shows torch-*, cpu-*, cuda-* in that
+     order; bin/cg-csr-torch -b 10 --seed 11 secded, secded -x, sed -x,
+     secded -x 2 and bin/cg-coo-torch -b 10 --seed 11 secded -x,
+     constraints -x INDEX (WITNESS_RUNS), each on -t cpu and on -t cuda,
+     a process per run, all started together: equal exit codes, config
+     echo (less the implementation line), injection banner and [ECC]
+     lines; a constraint line's index at most one element apart;
+     iterations within one (float64 against float32); total error < 1 on
+     both; each run's time taken beside the other's, labelled with the
+     host CPU and its thread count and with the card; then the DIA -b 10
+     secded solve of both targets in this process, warm.
 
 Any failed check raises, so the script exits non-zero.  The last three
 lines are the card line from nvidia-smi, one JSON object describing the
@@ -246,6 +259,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1017,6 +1031,171 @@ def rest_of_cli(dia, ell, pl, card):
     for n, v in t38.items():
         print(f"{n:36s} solve {spread(v)} [{card}]")
     shutil.rmtree(tmp38)
+
+
+# Phase 39's pairs: bin/cg-csr-torch and bin/cg-coo-torch -f <bundled
+# matrix> -b 10 --seed 11 with these flags, each run once on -t cpu (the
+# native library, float64, on the host's cores) and once on -t cuda, every
+# run a process of its own, all started together.
+WITNESS_RUNS = (("csr", ["-m", "secded"]), ("csr", ["-m", "secded", "-x"]),
+                ("csr", ["-m", "sed", "-x"]),
+                ("csr", ["-m", "secded", "-x", "2"]),
+                ("coo", ["-m", "secded", "-x"]),
+                ("coo", ["-m", "constraints", "-x", "INDEX"]))
+# stdout lines that a cpu and a cuda run of one case may print apart
+_APART = ("implementation", "iteration", "... (", "ran for", "compile time",
+          "time taken", "total error", "max error")
+# A constraints mode's fail-stop line: the text and the element's index.
+# The native loop reports the first element of a violated pair (the
+# reference's CPU context), the device tiers the element their checks
+# flag, which may be the pair's second (ROADMAP.md queue 3).
+_VIOLATED = re.compile(r"^(.* violated .*?)(\d+)$")
+
+
+def witness_lines(out):
+    """What a cpu run and a cuda run of one case must print alike: the
+    config echo less its implementation line, the injection banner, the
+    [ECC] lines, and a constraint line less its index, in order; and the
+    constraint lines' indices."""
+    lines, indices = [], []
+    for ln in out.splitlines():
+        if not ln or ln.startswith(_APART):
+            continue
+        m = _VIOLATED.match(ln)
+        if m:
+            ln = m.group(1)
+            indices.append(int(m.group(2)))
+        lines.append(ln)
+    return lines, indices
+
+
+def time_taken(out):
+    for line in out.splitlines():
+        if line.startswith("time taken"):
+            return float(line.split()[3])
+    return None
+
+
+def host_cpu():
+    """The host CPU's model name from /proc/cpuinfo, with its family and
+    model numbers where a virtual machine reports the name as unknown."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    name = info.get("model name", "unknown")
+    if "unknown" in name:
+        name += (f" (x86 family {info.get('cpu family', '?')}, model "
+                 f"{info.get('model', '?')})")
+    return name
+
+
+def cpu_witness(dia, card):
+    """Phase 39 (see the module docstring): ``dia`` is {mode: matrix} of
+    the bundled matrix at -b 10, secded among them."""
+    import numpy as np
+
+    from abft_sparse_cg_tpu_torch.backends import available, cpp_backend
+    from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
+
+    t0 = time.perf_counter()
+    lib = cpp_backend.load_library()
+    built = cpp_backend.build_seconds()
+    threads = lib.abft_num_threads()
+    host = f"{host_cpu()}, {threads} OpenMP threads"
+    print(f"cpu target's library: {cpp_backend.library_path()}, "
+          + (f"built in {built:.2f} s" if built is not None
+             else "found built")
+          + f", loaded at {time.perf_counter() - t0:.2f} s [{host}]")
+    targets = [t for t, _ in available()]
+    require(list(dict.fromkeys(targets)) == ["torch", "cpu", "cuda"],
+            f"registered targets {list(dict.fromkeys(targets))}, expected "
+            "torch, cpu, cuda")
+
+    tmp = tempfile.mkdtemp()
+    procs = {}
+    jobs = [("list", "csr", "-", ["--list"])] + [
+        (f"{fmt} {' '.join(flags)}", fmt, target,
+         ["-f", MATRIX, "-b", "10", "--seed", "11", "-t", target, *flags])
+        for fmt, flags in WITNESS_RUNS for target in ("cpu", "cuda")]
+    for i, (label, fmt, target, args) in enumerate(jobs):
+        out = open(os.path.join(tmp, f"{i}.out"), "w+")
+        err = open(os.path.join(tmp, f"{i}.err"), "w+")
+        p = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "bin", f"cg-{fmt}-torch"),
+             *args], stdout=out, stderr=err, text=True)
+        atexit.register(p.kill)
+        procs[label, target] = (p, out, err)
+    res = {}
+    for key, (p, out, err) in procs.items():
+        try:
+            code = p.wait(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            code = "none in time"
+        out.seek(0)
+        err.seek(0)
+        res[key] = (code, out.read(), err.read())
+        out.close()
+        err.close()
+    shutil.rmtree(tmp)
+    print(f"[{len(procs)} CLI processes: {time.perf_counter() - t0:.0f} s "
+          "since the library's load began]")
+
+    code, out, err = res["list", "-"]
+    listed = re.findall(r"^\t(\S+?)-(\S+)$", out, re.M)
+    order = list(dict.fromkeys(t for t, _ in listed))
+    require(code == 0 and order == ["torch", "cpu", "cuda"]
+            and len(listed) == 18, f"bin/cg-csr-torch --list: exit {code}, "
+            f"targets {order}\n{err[-2000:]}")
+    print("bin/cg-csr-torch --list: torch-*, cpu-*, cuda-* (6 modes each)")
+    for fmt, flags in WITNESS_RUNS:
+        label = f"{fmt} {' '.join(flags)}"
+        (cc, co, ce), (gc, go, ge) = res[label, "cpu"], res[label, "cuda"]
+        tag = f"cg-{fmt}-torch -b 10 --seed 11 {' '.join(flags)}"
+        require(cc == gc and cc in (0, 1), f"{tag}: exit {cc} on cpu, {gc} "
+                f"on cuda\n{ce[-2000:]}\n{ge[-2000:]}")
+        (cl, ci), (gl, gi) = witness_lines(co), witness_lines(go)
+        require(cl == gl and len(ci) == len(gi)
+                and all(abs(i - j) <= 1 for i, j in zip(ci, gi)),
+                f"{tag}: cpu and cuda print apart:\n{cl} {ci}\n{gl} {gi}")
+        its = (iterations_of(co), iterations_of(go))
+        if cc == 0:
+            require(abs(its[0] - its[1]) <= 1 and min(its) > 0,
+                    f"{tag}: {its[0]} iterations on cpu, {its[1]} on cuda")
+            require(max(total_error(co), total_error(go)) < 1.0,
+                    f"{tag}: total error {total_error(co)} on cpu, "
+                    f"{total_error(go)} on cuda")
+        events = [ln for ln in cl
+                  if ln.startswith(("***", "[")) or " violated " in ln]
+        if ci:
+            events.append(f"indices {ci} on cpu, {gi} on cuda")
+        print(f"passed {tag}: exit {cc} on both, "
+              + (f"{its[0]} and {its[1]} iterations, total error "
+                 f"{total_error(co):f} and {total_error(go):f}, "
+                 if cc == 0 else "")
+              + f"events {events}; time taken: cpu {time_taken(co)} ms "
+              f"[{host}], cuda {time_taken(go)} ms [{card}]")
+
+    # The same -b 10 secded solve in this process, warm: the cpu target's
+    # first solve here (its OpenMP team's start-up) and three more, and
+    # the cuda target's (kernel B) over three repeats.
+    m = dia["secded"]
+    b = np.random.default_rng(11).random(m.N)
+    be = cpp_backend.CppBackend("secded")
+    cpu_ms = [be.solve(m, b, 1000, CONV, verbose=False).solve_seconds * 1e3
+              for _ in range(4)]
+    gpu = CudaBackend("secded").solve(m, b, 1000, CONV, reps=3)
+    cpu_its = be.solve(m, b, 1000, CONV, verbose=False).iterations
+    require(abs(cpu_its - gpu.iterations) <= 1,
+            f"in-process secded solve: {cpu_its} iterations on cpu, "
+            f"{gpu.iterations} on cuda")
+    print(f"DIA -b 10 secded solve in one process ({cpu_its} and "
+          f"{gpu.iterations} iterations): cpu first {cpu_ms[0]:.3f} ms, "
+          f"then {spread(cpu_ms[1:])} [{host}]; cuda "
+          f"{gpu.solve_seconds * 1e3:.4f} ms per solve over 3 [{card}]")
 
 
 def profile_worker(group, path):
@@ -3528,6 +3707,12 @@ def main():
           "kernels B, D, E, the split tail and two-plane B; --solver "
           "pipelined over kernels A, C and E; --profile")
     rest_of_cli(mats, ell, flat["powerlaw-graph"][1], card)
+
+    # ---- 39. the cpu target as the cuda target's witness -------------------
+    phase("39. the cpu target on the card host as the cuda target's "
+          "witness: cg-csr-torch and cg-coo-torch -b 10 on -t cpu and "
+          "-t cuda, a process per run")
+    cpu_witness(mats, card)
     print(f"[all phases done at {time.perf_counter() - t_start:.0f} s]")
 
     print()
