@@ -28,15 +28,16 @@ decided divergence for matrices past the TPU's resident envelope (DIA
 ``-b 100``), which changes no output (a clean lazy solve equals the live
 one).
 
-With ``devices=N`` a solve is row-sharded over N shards
-(pallas_backend.py:72-125): solver.cg's loop over the per-shard halo
-forms of kernels A and C inside the kernel envelope
-(parallel.sharded_kernel), on the lazy schedule with a check interval
-(``auto``: 32, as there), and otherwise the single-device per-iteration
-program on the mesh-padded planes, live.  A mesh has one shard per
-card, and shards on distinct cards wait (ROADMAP.md queue 1 item 11):
-chip_smoke.py drives a mesh of four shards on one card through
-parallel.sharded.
+With ``devices=N`` a solve is row-sharded over N cards, one shard per
+card (pallas_backend.py:72-125): solver.cg's loop over the per-shard
+halo forms of kernels A and C inside the kernel envelope
+(parallel.sharded_kernel), each shard's planes and vectors on its own
+card and only the halo edges copied between cards, on the lazy schedule
+with a check interval (``auto``: 32, as there); otherwise the
+single-device per-iteration program on the mesh-padded planes on the
+first card, live.  A host with fewer cards than N exits 1.  The same
+code runs N shards on one card (``parallel.sharded.default_mesh(N,
+"cuda:0")``), which is how chip_smoke.py drives it on a one-card host.
 
 Both tiers are one routing (``_continue``), which a ``--checkpoint``
 solve runs segment by segment (solver.checkpoint): kernel B or D

@@ -32,6 +32,7 @@ from ..parallel.sharded import (
     mesh_rows,
     sharded_spmv,
 )
+from ..parallel.vector import ShardedVector
 from ..scrub import scrubbed_from_device
 from ..solver.cg import make_cg_continue, solver_of
 from ..solver.checkpoint import CheckpointedSolve
@@ -68,6 +69,29 @@ def jacobi_minv(mat, precond) -> np.ndarray:
         raise ValueError(f"unknown preconditioner: {precond!r}")
     d = mat.diagonal()
     return np.where(d != 0.0, 1.0 / np.where(d == 0, 1, d), 1.0)
+
+
+def _placer(bdev):
+    """``put(v)``: an exec-order vector of a snapshot (a host tensor)
+    placed as ``bdev`` is, whole on its device or row-sharded over its
+    shards (ShardedVector.scatter).  A snapshot written at another shard
+    count may carry fewer or more zero pad rows past R: they are cut or
+    zero-filled to ``bdev``'s rows, so snapshots resume at any shard
+    count."""
+    R = bdev.shape[0]
+
+    def put(v):
+        v = v.to(bdev.dtype)
+        if v.shape[0] != R:
+            if bool(v[R:].any()):
+                raise ValueError(f"a snapshot of {v.shape[0]} rows does not "
+                                 f"fit a solve of {R}")
+            v = torch.cat([v[:R], v.new_zeros(max(0, R - v.shape[0]))])
+        if isinstance(bdev, ShardedVector):
+            return ShardedVector.scatter(v, bdev.devices)
+        return v.to(bdev.device)
+
+    return put
 
 
 class TorchBackend(Backend):
@@ -132,9 +156,13 @@ class TorchBackend(Backend):
             return default_mesh(devices)
         return default_mesh(devices, self.device)
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, mesh=None):
+        """Wait for the solve's cards: the target's, or every card of
+        ``mesh``, so that ``time taken`` covers them all."""
+        devs = mesh.devices if mesh is not None else (self.device,)
+        for dev in dict.fromkeys(devs):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _exec_vector(self, mat, v, dtype):
         pad = np.zeros(mat.R, dtype=np.float64)
@@ -186,20 +214,15 @@ class TorchBackend(Backend):
                     "re-seed)")
             cont = self._continue(mat, dt, conv_threshold, minv is not None,
                                   check_interval, mesh)
-            state_put = None
-            if mesh is not None:
-                # A snapshot is host .npz: a resumed segment gets its
-                # vectors back on the mesh's device.
-                dev = mesh.devices[0]
-                state_put = lambda v: v.to(dev)  # noqa: E731
             runner = CheckpointedSolve(None, conv_threshold,
                                        checkpoint_every, checkpoint,
-                                       continue_fn=cont, state_put=state_put)
+                                       continue_fn=cont,
+                                       state_put=_placer(bdev))
             t0 = time.perf_counter()
             self._warm()
             t1 = time.perf_counter()
             res = runner.run(md, bdev, max_itrs, resume=resume, minv=minv)
-            self._sync()
+            self._sync(mesh)
             t2 = time.perf_counter()
             reps = 1
         else:
@@ -208,12 +231,12 @@ class TorchBackend(Backend):
                                     solver)
             t0 = time.perf_counter()
             res = solve_fn(md, bdev, minv)
-            self._sync()
+            self._sync(mesh)
             t1 = time.perf_counter()
             reps = reps or self.default_reps
             for _ in range(reps):
                 res = solve_fn(md, bdev, minv)
-            self._sync()
+            self._sync(mesh)
             t2 = time.perf_counter()
 
         st = res.stats

@@ -28,8 +28,10 @@ there, have no lazy schedule (they warn on stderr and run live).
 library then streams nothing).  ``--refine`` with ``--checkpoint`` is
 refused, as in the JAX CLI.  ``--devices N`` row-shards the solve over N shards
 (parallel.sharded), with R aligned at build time as cli.py:325-340 does:
-on ``torch`` N shards on the CPU; on ``cuda`` one shard per card, and a
-host with fewer cards exits 1 with the JAX message.  ``--checkpoint P``
+on ``torch`` N shards on the CPU; on ``cuda`` one shard per card, each
+holding its own rows of the planes and vectors, with only halo edges
+copied between cards, and a host with fewer cards exits 1 with the JAX
+message.  ``--checkpoint P``
 (``--checkpoint-every N``, ``--resume``) segments the solve and
 snapshots its state to P between segments (solver.checkpoint; the same
 ``.npz`` as the JAX CLI's), ``--solver pipelined`` runs
@@ -71,6 +73,8 @@ _USAGE_OPTIONS = """Options:
       --profile         DIR   Write a torch.profiler trace of the
                               solve to DIR/trace.json
       --devices         N     Row-shard the solve over N devices
+                              (cuda: one shard per card, each
+                              shard's rows on its own card)
       --solver          S     CG variant: standard | pipelined
                               (one reduction point per iteration;
                               no -p jacobi, no --checkpoint)

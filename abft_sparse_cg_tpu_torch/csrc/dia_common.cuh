@@ -44,6 +44,25 @@
 #define ABFT_ECC_COL_MASK 0x00ffffffu
 #define ABFT_ERR_BREAKDOWN 7  // ops/spmv.py ERR_BREAKDOWN
 
+// The card of one C entry point's call, the caller's current device
+// restored when it returns (on every path): a launch on card 1 must not
+// leave a later stream query of the process on card 1.
+struct DeviceScope {
+  int prev = -1;
+  cudaError_t err;
+  explicit DeviceScope(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    int cur = -1;
+    if (prev >= 0 && cudaGetDevice(&cur) == cudaSuccess && cur != prev)
+      cudaSetDevice(prev);
+  }
+  DeviceScope(const DeviceScope&) = delete;
+  DeviceScope& operator=(const DeviceScope&) = delete;
+};
+
 // Diagonal offsets, passed by value (kernel parameter space): uniform
 // across the grid and read with no memory traffic.
 struct DiaOffsets {

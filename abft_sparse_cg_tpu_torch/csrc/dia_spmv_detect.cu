@@ -138,7 +138,8 @@ int launch(const float* vals, const int* offsets, int D, int R,
   if (plane2 != nullptr && (plane == nullptr || base2 == nullptr ||
                             ((uintptr_t)plane2 & 15u) != 0))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope on(device);
+  cudaError_t err = on.err;
   if (err != cudaSuccess) return (int)err;
   DiaOffsets offs;
   offs.n = D;

@@ -283,7 +283,8 @@ int launch(const EllArgs& a, Gather gat, float* part, int* flags, float* pw,
       (a.sig.plane2 != nullptr &&
        (a.sig.plane == nullptr || a.sig.base2 == nullptr)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope on(device);
+  cudaError_t err = on.err;
   if (err != cudaSuccess) return (int)err;
   CallOut out{part, flags, pw, trig};
   if (a.sig.plane2 != nullptr)
@@ -329,7 +330,8 @@ extern "C" int abft_ell_spmv_stages(void) { return kStages; }
 extern "C" int abft_ell_spmv_occupancy(int device, int halo, int planes,
                                        int* per_sm, int* sms) {
   if (planes < 1 || planes > 2) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope on(device);
+  cudaError_t err = on.err;
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;

@@ -383,7 +383,8 @@ extern "C" int abft_flat_spmv_detect(const float* vals, const uint32_t* gsrc,
   if (R < 1 || R % 32 != 0 || nblocks < 1 ||
       (plane2 != nullptr && (plane == nullptr || base2 == nullptr)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope on(device);
+  cudaError_t err = on.err;
   if (err != cudaSuccess) return (int)err;
   FlatMatrix m{vals, gsrc, gmask, row_ptr, R};
   DiaSignals sig{plane, base, use_parity, use_cksum, plane2, base2};

@@ -739,7 +739,8 @@ bool aligned16(const void* q) { return ((uintptr_t)q & 15u) == 0; }
 extern "C" int abft_fused_grid(int device, int tail, int precond, int lazy,
                                int planes, int* grid) {
   if (planes < 1 || planes > 2) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope on(device);
+  cudaError_t err = on.err;
   if (err != cudaSuccess) return (int)err;
   int coop = 0, sms = 0;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
@@ -814,7 +815,8 @@ extern "C" int abft_fused_cg_dia(
   }
   // (the launch itself refuses a grid past the co-resident one; the
   // caller's comes from abft_fused_grid, queried once per device)
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope on(device);
+  cudaError_t err = on.err;
   if (err != cudaSuccess) return (int)err;
   DiaOffsets offs;
   offs.n = D;

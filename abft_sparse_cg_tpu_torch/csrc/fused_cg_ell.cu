@@ -336,7 +336,8 @@ const void* instance(bool signals, bool tail, bool precond, bool lazy,
 extern "C" int abft_fused_ell_grid(int device, int tail, int precond,
                                    int lazy, int planes, int* grid) {
   if (planes < 1 || planes > 2) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope on(device);
+  cudaError_t err = on.err;
   if (err != cudaSuccess) return (int)err;
   int coop = 0, sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
@@ -388,6 +389,8 @@ extern "C" int abft_fused_cg_ell(
                       tpart, tmain, tplane, tbase, tplane2, tbase2, use_parity,
                       use_cksum, E, p))
     return (int)cudaErrorInvalidValue;
+  DeviceScope on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   int max_grid = 0;
   int rc =
       abft_fused_ell_grid(device, T > 0, precond, lazy, planes, &max_grid);

@@ -200,7 +200,16 @@ def exec_gather_host(mat) -> np.ndarray:
     return pos[np.clip(g.astype(np.int64), 0, mat.N - 1)].astype(np.int32)
 
 
-def make_matrix_device(mat, dtype: torch.dtype, device: torch.device):
+def perm_positions(mat, device) -> torch.Tensor:
+    """``perm_pos`` of a permuted matrix: (R,) int32 canonical -> exec
+    row, zero on pad rows."""
+    pp = np.zeros(mat.R, dtype=np.int32)
+    pp[: mat.N] = inverse_permutation(mat.perm)
+    return torch.from_numpy(pp).to(device)
+
+
+def make_matrix_device(mat, dtype: torch.dtype, device: torch.device,
+                       rows: tuple = None):
     """Upload a ProtectedMatrix's exec planes to ``device`` and derive
     the value plane (truncating f32 conversion for float32), the fold
     and its checksum baseline — all from the same words — and, under a
@@ -208,27 +217,46 @@ def make_matrix_device(mat, dtype: torch.dtype, device: torch.device):
     also ``flat_group``, the row pointer, kernel E's row-block plan and
     a dense-plan tail's
     ``dense_td``/``dense_tb``, like the reference (ops/spmv.py:333-405).
-    A split matrix uploads as a (main, tail) pair."""
+    A split matrix uploads as a (main, tail) pair.
+
+    ``rows`` (lo, hi), multiples of 8, of a DIA or ELL matrix: only those
+    exec rows of every plane and their checksum blocks, one shard's
+    (parallel.sharded), each derived plane equal to those rows of the
+    whole upload's; the gather plane keeps its global indices and no
+    ``perm_pos`` is uploaded (the repair assembles the whole planes)."""
     if mat.exec_kind == "split":
         return (make_matrix_device(mat.main, dtype, device),
                 make_matrix_device(mat.tail, dtype, device))
+    rs = cs = slice(None)
+    if rows is not None:
+        lo, hi = rows
+        if mat.exec_kind == "flat" or lo % 8 or hi % 8:
+            raise ValueError(f"rows {rows} of a {mat.exec_kind} matrix")
+        rs, cs = slice(lo, hi), slice(lo // 8, hi // 8)
+
+    def host(a, sl):
+        # a shard's rows as an array of its own (never a view of the
+        # whole plane: on the CPU the upload shares its memory)
+        return a if rows is None else np.array(a[..., sl])
+
     names = mat.layout.word_names
-    words = tuple(from_numpy_u32(mat.ell[n], device) for n in names)
+    words = tuple(from_numpy_u32(host(mat.ell[n], rs), device)
+                  for n in names)
     wide = [widen(w) for w in words]
     values = planes_to_value(wide[names.index("value_lo")],
                              wide[names.index("value_hi")], dtype)
-    cksum = from_numpy_u32(mat.ell_cksum, device)
+    cksum = from_numpy_u32(host(mat.ell_cksum, cs), device)
     fold = fold_ck = None
     if mat.mode in ECC_MODES:
         fold = narrow(fold_words(wide))
         fold_ck = narrow(fold_words([widen(c) for c in cksum]))[None, :]
     gidx = perm_pos = None
     if mat.perm is not None and mat.exec_kind in ("ell", "flat"):
-        gidx = torch.from_numpy(exec_gather_host(mat)).to(device)
-        pp = np.zeros(mat.R, dtype=np.int32)
-        pp[: mat.N] = inverse_permutation(mat.perm)
-        perm_pos = torch.from_numpy(pp).to(device)
-    ell_len = torch.from_numpy(np.asarray(mat.ell_len, np.int32)).to(device)
+        gidx = torch.from_numpy(host(exec_gather_host(mat), rs)).to(device)
+        if rows is None:
+            perm_pos = perm_positions(mat, device)
+    ell_len = torch.from_numpy(
+        np.asarray(host(mat.ell_len, rs), np.int32)).to(device)
     md = MatrixDevice(words=words, cksum=cksum, values=values, fold=fold,
                       fold_ck=fold_ck, ell_len=ell_len, gidx=gidx,
                       perm_pos=perm_pos)

@@ -4,31 +4,37 @@ Counterpart of ``abft_sparse_cg_tpu.parallel.sharded`` (see its
 docstring).  The JAX package shards with GSPMD: one program, its
 operands laid out over a 1-D device mesh, XLA inserting the collectives.
 Here a mesh is a tuple of ``torch.device``s, one per shard, that one
-process drives, as JAX's single controller drives its shards.  On one
-card, and on the CPU, every shard of the mesh lives on that device.
+process drives, as JAX's single controller drives its shards.  The
+devices may be distinct cards (``default_mesh(N)``), or every shard may
+live on one card or on the CPU (``default_mesh(N, device)``): the three
+run the same code, and only which device a shard's tensors and launches
+live on differs.
 
-  - ``_device_put_sharded`` uploads the planes padded to a multiple of
-    8 * N rows (JAX's mesh padding; zero codewords, as the build's
-    padding) onto the first shard's device and, for a matrix (a split's
-    banded main part) in the kernel tier's envelope, gives each shard
-    its own contiguous copies of its rows of every plane it reads, on
-    its own device (``ShardedDevice``): what the per-shard kernels of
-    parallel.sharded_kernel read.  The vectors stay whole (R,) tensors
-    on the first shard's device.
-  - ``make_sharded_solver`` runs the per-shard kernel tier inside its
-    envelope (parallel.sharded_kernel.supports_shardmap) and otherwise
-    the single-device program that GSPMD runs, on the mesh-padded
-    planes, through the device's single-device tier (the cuda SpmvImpl
-    on a card, the plain one on the CPU): GSPMD computes the same
-    numbers.  The JAX package entry-shards flat planes and split tails
+  - ``_device_put_sharded`` uploads, for a matrix (a split's banded main
+    part) in the kernel tier's envelope, each shard's rows of every plane
+    from the host straight onto its own device (``upload_shards``: a
+    ``ShardedDevice``), and puts every vector per shard
+    (parallel.vector.ShardedVector): b, Jacobi's M^-1, and so the
+    solvers' x, r, p and w.  Between repairs no device holds a whole
+    plane or a whole vector; the rare paths assemble the planes on the
+    first shard's device for the repair only (``assemble_rows``,
+    parallel.sharded_kernel).  A split's flat tail uploads onto the first
+    shard's device, where kernel E runs it.
+  - ``make_sharded_solver`` runs solver.cg's loops over the per-shard
+    kernel tier inside its envelope (parallel.sharded_kernel.
+    supports_shardmap); the scalars of the solve (rr, rz, alpha, beta,
+    the trace) live on the first shard's device.
+  - Outside the envelope (flat, float64, R not a multiple of 1024 N) the
+    planes, mesh-padded to a multiple of 8 N rows (JAX's mesh padding;
+    zero codewords, as the build's padding), and the vectors stay whole
+    on the first shard's device, where the single-device program runs
+    through that device's single-device tier (the cuda SpmvImpl on a
+    card, the plain one on the CPU): GSPMD computes the same numbers.
+    The JAX package entry-shards flat planes and split tails
     (``_put_flat``, padding the entries to 8 * N); that moves where
     partial sums are taken, not what the program computes, and the flat
     planes here keep their build-time length, which kernel E's row plan
-    requires.
-
-Shards on distinct cards need per-shard vectors and peer copies, which
-no machine here can verify: a mesh of distinct devices is refused
-(ROADMAP.md queue 1 item 11).
+    requires (a decided divergence, ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -39,12 +45,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..formats.protected import ProtectedMatrix, not_ported
-from ..ops.spmv import MatrixDevice, make_matrix_device, make_spmv
+from ..formats.protected import ProtectedMatrix
+from ..ops.spmv import (
+    MatrixDevice,
+    make_matrix_device,
+    make_spmv,
+    perm_positions,
+)
 from ..solver.cg import make_cg_continue, make_lazy_ci_continue, solver_of
+from .vector import ShardedVector
 
-__all__ = ["Mesh", "ShardedDevice", "default_mesh", "pad_rows",
-           "mesh_rows", "shard_rows", "sharded_spmv",
+__all__ = ["Mesh", "ShardedDevice", "ShardedVector", "default_mesh",
+           "pad_rows", "mesh_rows", "shard_rows", "upload_shards",
+           "assemble_rows", "sharded_spmv",
            "make_sharded_continue", "make_sharded_solver", "solve_sharded"]
 
 
@@ -87,20 +100,15 @@ def mesh_rows(mat, n: int) -> int:
 
 
 class ShardedDevice(NamedTuple):
-    """A row-sharded DIA or banded-ELL matrix on a mesh.  ``md``: the
-    whole (mesh-padded) planes on the first shard's device, which the
-    rare paths read (classify, correct and scrub, the ECC ``full``);
-    ``shards``: one MatrixDevice per shard, on its device, holding its
-    own contiguous rows of words, values, fold, ell_len, gidx and the
-    checksum baselines (re-derived from ``md`` after a scrub)."""
+    """A row-sharded DIA or banded-ELL matrix on a mesh: one MatrixDevice
+    per shard, on its device, holding its own contiguous R / N rows of
+    words, values, fold, ell_len and gidx and its R / 8N blocks of the
+    checksum baselines.  No device holds the whole planes: the repair
+    assembles them on the first shard's device for the classify only
+    (``assemble_rows``) and splits the scrubbed planes back
+    (``shard_rows``)."""
 
-    md: MatrixDevice
     shards: tuple
-
-    @property
-    def cksum(self):
-        """The stored-checksum baseline (solver.cg's repair check)."""
-        return self.md.cksum
 
 
 def shard_rows(md: MatrixDevice, mesh: Mesh) -> tuple:
@@ -129,6 +137,45 @@ def shard_rows(md: MatrixDevice, mesh: Mesh) -> tuple:
         for s, dev in enumerate(mesh.devices))
 
 
+def upload_shards(mat: ProtectedMatrix, mesh: Mesh, dtype) -> ShardedDevice:
+    """Each shard's rows of every plane of ``mat`` (R a multiple of 8 N)
+    uploaded from the host straight onto its own device, derived there
+    (ops.spmv.make_matrix_device's ``rows``): equal to ``shard_rows`` of
+    the whole upload, without the whole upload."""
+    n = mesh.size
+    if mat.R % (8 * n):
+        raise ValueError(f"{mat.R} rows do not split into {n} shards of "
+                         "whole 8-row checksum blocks")
+    R_loc = mat.R // n
+    return ShardedDevice(tuple(
+        make_matrix_device(mat, dtype, dev, rows=(s * R_loc, (s + 1) * R_loc))
+        for s, dev in enumerate(mesh.devices)))
+
+
+def assemble_rows(smd: ShardedDevice, mat: ProtectedMatrix,
+                  device) -> MatrixDevice:
+    """The whole planes of ``smd`` on ``device`` (and ``mat``'s
+    ``perm_pos`` under a permutation): what the rare paths of a repair
+    read (classify, the ECC ``full``, the constraints check), dropped
+    when they return."""
+    parts = smd.shards
+
+    def cat(get, dim=-1):
+        ts = [get(md) for md in parts]
+        if ts[0] is None:
+            return None
+        return torch.cat([t.to(device) for t in ts], dim)
+
+    return MatrixDevice(
+        words=tuple(cat(lambda md, i=i: md.words[i])
+                    for i in range(len(parts[0].words))),
+        cksum=cat(lambda md: md.cksum), values=cat(lambda md: md.values),
+        fold=cat(lambda md: md.fold), fold_ck=cat(lambda md: md.fold_ck),
+        ell_len=cat(lambda md: md.ell_len), gidx=cat(lambda md: md.gidx),
+        perm_pos=(perm_positions(mat, device) if mat.perm is not None
+                  and mat.exec_kind == "ell" else None))
+
+
 def _pad_matrix(mat: ProtectedMatrix, R_pad: int) -> ProtectedMatrix:
     """``mat`` with R_pad rows: zero codewords appended to every row
     plane, zero checksum blocks, exec slots k * R + r moved to k * R_pad
@@ -145,21 +192,22 @@ def _pad_matrix(mat: ProtectedMatrix, R_pad: int) -> ProtectedMatrix:
 
 
 def _device_put_sharded(mat, b: np.ndarray, mesh: Mesh, dtype):
-    """``(md, b, put_vec)``: the mesh-padded upload of ``mat`` onto
-    ``mesh`` (sharded.py:120), b in execution order, and the function
-    that puts any canonical (N,) vector so.  A matrix (a split's main
-    part) in the kernel tier's envelope uploads as a ShardedDevice;
-    any other as the whole planes only."""
+    """``(md, b, put_vec)``: the upload of ``mat`` onto ``mesh``
+    (sharded.py:120), b in execution order, and the function that puts
+    any canonical (N,) vector so.  A matrix (a split's main part) in the
+    kernel tier's envelope uploads each shard's rows straight onto its
+    device (a ShardedDevice) and its vectors as ShardedVectors; a split's
+    flat tail uploads onto the first shard's device.  Any other matrix
+    uploads its mesh-padded planes, and its vectors whole, onto the first
+    shard's device, where the single-device program runs."""
     from .sharded_kernel import supports_shardmap
 
     n = mesh.size
-    if len(set(mesh.devices)) > 1:
-        raise not_ported("a mesh of shards on distinct devices", "11")
     dev = mesh.devices[0]
     if mat.exec_kind == "split":
         # The composite's slot offset (main.exec_size) is baked against
-        # the single-device exec grid: the mesh must not re-pad the
-        # main part's rows.
+        # the single-device exec grid: the mesh must not re-pad the main
+        # part's rows.
         if mat.R % (8 * n):
             raise ValueError(
                 f"bordered-split sharding needs R ({mat.R}) divisible by "
@@ -170,15 +218,21 @@ def _device_put_sharded(mat, b: np.ndarray, mesh: Mesh, dtype):
         return ((md_main, make_matrix_device(mat.tail, dtype, dev)), bdev,
                 put_vec)
     R_pad = mesh_rows(mat, n)
-    md = make_matrix_device(_pad_matrix(mat, R_pad), dtype, dev)
-    if supports_shardmap(mat, dtype, n):
-        md = ShardedDevice(md, shard_rows(md, mesh))
+    sharded = supports_shardmap(mat, dtype, n)
+    if sharded:
+        md = upload_shards(mat, mesh, dtype)
+    else:
+        md = make_matrix_device(_pad_matrix(mat, R_pad), dtype, dev)
 
     def put_vec(v):
-        """Canonical (N,) host vector -> exec-order, padded."""
+        """Canonical (N,) host vector -> exec-order, padded, placed as
+        the matrix is."""
         vpad = np.zeros(R_pad, dtype=np.float64)
         vpad[: mat.N] = mat.to_exec_order(np.asarray(v, np.float64))
-        return torch.tensor(vpad, dtype=dtype, device=dev)
+        t = torch.tensor(vpad, dtype=dtype)
+        if sharded:
+            return ShardedVector.scatter(t, mesh.devices)
+        return t.to(dev)
 
     return md, put_vec(b), put_vec
 
@@ -239,7 +293,8 @@ def solve_sharded(mat: ProtectedMatrix, b: np.ndarray, max_itrs: int,
     """Row-sharded CG over all CUDA cards, or over ``mesh``.  ``b`` is in
     canonical order; the returned ``CGResult.x`` is in execution order
     and mesh-padded (map back with ``mat.from_exec_order`` after
-    stripping the padding)."""
+    stripping the padding), a ShardedVector on the kernel tier (``.cpu()``
+    gathers it)."""
     if mesh is None:
         mesh = default_mesh()
     dtype = dtype or torch.float32

@@ -4,30 +4,35 @@ exchange.
 Counterpart of ``abft_sparse_cg_tpu.parallel.sharded_kernel`` (see its
 docstring), whose ``shard_map`` body runs the per-iteration Pallas
 kernels per shard.  Here one process drives every shard of a mesh
-(parallel.sharded.Mesh), with one launch per shard:
+(parallel.sharded.Mesh), with one launch per shard, each on its shard's
+device; the vectors are parallel.vector.ShardedVectors:
 
   - each shard holds its own contiguous rows of the planes
     (parallel.sharded.ShardedDevice), placed by
     ``_device_put_sharded``;
-  - ``halo_exchange`` builds each shard's x_ext, its R_loc rows of x with
-    the neighbour shards' H edge rows on each side and zeros at the
-    global ends, as the two ``lax.ppermute`` edges do
-    (sharded_kernel.py:173-175 of the JAX package).  It is the one place
-    that shards on distinct cards would replace with peer copies;
+  - ``halo_exchange`` fills each shard's preallocated x_ext, its R_loc
+    rows of x with the neighbour shards' H edge rows on each side and
+    zeros at the global ends: only the edges cross a device boundary
+    (``copy_edge``), as the two ``lax.ppermute`` edges do
+    (sharded_kernel.py:173-174 of the JAX package);
   - kernel A's halo form (``dia_fast_halo``) or kernel C's halo form
     (``ell_fast_halo``, the shard's first row as ``base``), each through a
     launcher resolved once per shard, computes the shard's w, trigger and
-    pw in one device launch;
+    pw in one device launch; w stays on the shard;
   - the trigger is the OR over shards and pw the sum over shards in shard
-    order, as the ``lax.psum``s (:190-191);
-  - classify, correct and scrub run on the whole planes, as JAX's GSPMD
-    classify does, and the shard copies are re-derived from the scrubbed
-    planes before the loop resumes.
+    order, on the first shard's device, as the ``lax.psum``s (:190-191);
+  - a split's flat tail runs on the first shard's device (kernel E), on
+    p gathered there, and its w is added back into each shard's rows;
+  - classify, correct and scrub run on the whole planes, assembled on the
+    first shard's device for the repair only, as JAX's GSPMD classify
+    names the same element and slot; the scrubbed rows go back to their
+    shards and nothing whole stays resident.
 
-All shard launches go on the current stream of the first shard's device,
-one after another: the one-launch epilogue of kernels A and C counts
-blocks with one counter per library (csrc/dia_common.cuh::finish_call),
-so two launches of one kernel must never run at once.
+Shards on one card launch in turn on that card's current stream: the
+one-launch epilogue of kernels A and C counts blocks with one counter per
+library per card (csrc/dia_common.cuh::finish_call), so two launches of
+one kernel must never run at once on a card.  Shards on distinct cards
+launch on their own cards' streams and may run at once.
 """
 
 from __future__ import annotations
@@ -53,9 +58,11 @@ from ..ops.spmv_cuda import (
     make_cuda_spmv,
     product_spec,
 )
-from .sharded import ShardedDevice, shard_rows
+from .sharded import ShardedDevice, assemble_rows, shard_rows
+from .vector import ShardedVector
 
-__all__ = ["supports_shardmap", "make_shardmap_spmv", "halo_exchange"]
+__all__ = ["supports_shardmap", "make_shardmap_spmv", "halo_exchange",
+           "ext_buffers", "copy_edge"]
 
 
 def _halo(mat) -> int:
@@ -90,18 +97,41 @@ def supports_shardmap(mat, dtype, ndev: int) -> bool:
     return _halo(mat) <= R_loc
 
 
-def halo_exchange(x: torch.Tensor, mesh, halo: int) -> list:
-    """Each shard's x_ext of ``mesh``: [left neighbour's last ``halo``
-    rows | the shard's R / N rows | right neighbour's first ``halo``
-    rows], zeros past the global ends, on the shard's device."""
-    n = mesh.size
-    R_loc = x.shape[0] // n
-    zeros = x.new_zeros(halo)
-    out = []
-    for s, dev in enumerate(mesh.devices):
-        lo = x[s * R_loc - halo:s * R_loc] if s else zeros
-        hi = x[(s + 1) * R_loc:(s + 1) * R_loc + halo] if s < n - 1 else zeros
-        out.append(torch.cat([lo, x[s * R_loc:(s + 1) * R_loc], hi]).to(dev))
+def copy_edge(dst: torch.Tensor, src: torch.Tensor):
+    """One neighbour edge of a halo exchange: ``src``'s rows (on the
+    neighbour's device) into ``dst`` (rows of an x_ext on the shard's):
+    the rows that cross a device boundary, one ``lax.ppermute`` edge.
+    torch orders a copy between two cards against the current streams of
+    both."""
+    dst.copy_(src, non_blocking=True)
+
+
+def ext_buffers(x: ShardedVector, halo: int) -> list:
+    """One zeroed x_ext of R_loc + 2 ``halo`` rows per shard of ``x``, on
+    its device: ``halo_exchange``'s preallocated output (the rows past the
+    global ends are never written, so stay zero)."""
+    R_loc = x.parts[0].shape[0]
+    return [p.new_zeros(R_loc + 2 * halo) for p in x.parts]
+
+
+def halo_exchange(x: ShardedVector, halo: int, out: list = None) -> list:
+    """Each shard's x_ext of ``x``: [left neighbour's last ``halo`` rows |
+    the shard's R_loc rows | right neighbour's first ``halo`` rows],
+    zeros past the global ends, on the shard's device, written into
+    ``out`` (``ext_buffers``; allocated when None).  Only the 2 ``halo``
+    edge rows of an interior shard cross a device boundary (``copy_edge``,
+    the two ``lax.ppermute`` edges of sharded_kernel.py:173-174); its own
+    rows are a copy on its device."""
+    if out is None:
+        out = ext_buffers(x, halo)
+    parts, n = x.parts, len(x.parts)
+    R_loc = parts[0].shape[0]
+    for s, ext in enumerate(out):
+        ext[halo:halo + R_loc].copy_(parts[s])
+        if halo and s:
+            copy_edge(ext[:halo], parts[s - 1][R_loc - halo:])
+        if halo and s < n - 1:
+            copy_edge(ext[halo + R_loc:], parts[s + 1][:halo])
     return out
 
 
@@ -142,8 +172,8 @@ def make_shardmap_spmv(mat, mesh, dtype=torch.float32, mode: str = None,
         tail = (make_cuda_spmv if detect else make_cuda_product)(
             mat.tail, dtype, mode)
         return combine_impls(
-            make_shardmap_spmv(mat.main, mesh, dtype, mode, detect), tail,
-            mat.main.exec_size)
+            make_shardmap_spmv(mat.main, mesh, dtype, mode, detect),
+            _on_first(tail, mesh), mat.main.exec_size)
     R_loc = mat.R // n
     H = _halo(mat)
     is_dia = mat.exec_kind == "dia"
@@ -151,19 +181,24 @@ def make_shardmap_spmv(mat, mesh, dtype=torch.float32, mode: str = None,
     if not detect:
         spec = product_spec(mat, mode)
     last = [None, None]       # the ShardedDevice, its shard callables
+    bufs = []                 # the shards' x_ext, allocated at first use
+    first = mesh.devices[0]
 
-    def fast_pw(smd: ShardedDevice, x):
+    def fast_pw(smd: ShardedDevice, x: ShardedVector):
         if last[0] is not smd:
             last[:] = smd, _shard_kernels(smd, spec, H, is_dia, R_loc)
+        if not bufs:
+            bufs.extend(ext_buffers(x, H))
         outs = [f(xe) for f, xe in
-                zip(last[1], halo_exchange(x, mesh, H))]
-        dev = x.device
-        w = torch.cat([o[0].to(dev) for o in outs])
-        trig, pw = outs[0][1].to(dev), outs[0][2].to(dev)
+                zip(last[1], halo_exchange(x, H, bufs))]
+        # The trigger's OR and pw's sum over shards, in shard order, on
+        # the first shard's device (the lax.psum's, :190-191); w stays
+        # on the shards.
+        trig, pw = outs[0][1], outs[0][2]
         for _, t, p in outs[1:]:
-            trig = trig | t.to(dev)
-            pw = pw + p.to(dev)
-        return w, trig, pw
+            trig = trig | t.to(first)
+            pw = pw + p.to(first)
+        return ShardedVector(o[0] for o in outs), trig, pw
 
     def fast(smd, x):
         w, trig, _ = fast_pw(smd, x)
@@ -174,16 +209,42 @@ def make_shardmap_spmv(mat, mesh, dtype=torch.float32, mode: str = None,
     return _wrap_mode(mat, dtype, mode, mesh, fast, fast_pw)
 
 
+def _on_first(impl: SpmvImpl, mesh) -> SpmvImpl:
+    """A split's flat tail on the first shard's device (kernel E): p
+    gathered there, the one all-gather of JAX's sharded.py docstring,
+    and the tail's w added back into each shard's rows.  The tail's
+    planes and classify stay as the single-device tier has them."""
+    first = mesh.devices[0]
+
+    def whole(fn):
+        if fn is None:
+            return None
+
+        def call(md, x):
+            w, *rest = fn(md, x.gather(first))
+            return (ShardedVector.scatter(w, mesh.devices), *rest)
+
+        return call
+
+    return SpmvImpl(full=whole(impl.full), fast=whole(impl.fast),
+                    classify=impl.classify, fast_pw=whole(impl.fast_pw))
+
+
 def _wrap_mode(mat, dtype, mode, mesh, fast, fast_pw) -> SpmvImpl:
     """SpmvImpl around the sharded ``fast``/``fast_pw`` (spmv_cuda.
-    _wrap_mode): the rare paths run the plain ops.spmv ones on the whole
-    planes, and a classify hands back shard copies re-derived from the
-    scrubbed planes."""
+    _wrap_mode): the rare paths assemble the whole planes on the first
+    shard's device (parallel.sharded.assemble_rows), run the plain
+    ops.spmv ones there, and hand back shard copies of the scrubbed
+    planes; nothing whole outlives the call."""
     plain = make_spmv(mat, dtype, mode)
+    first = mesh.devices[0]
+
+    def whole(smd):
+        return assemble_rows(smd, mat, first)
 
     def classify(smd):
-        stats, md = plain.classify(smd.md)
-        return stats, ShardedDevice(md, shard_rows(md, mesh))
+        stats, md = plain.classify(whole(smd))
+        return stats, ShardedDevice(shard_rows(md, mesh))
 
     if mode == "none":
         def full_none(smd, x):
@@ -194,9 +255,14 @@ def _wrap_mode(mat, dtype, mode, mesh, fast, fast_pw) -> SpmvImpl:
         check = make_constraints_check(mat)
 
         def full_cons(smd, x):
-            return fast(smd, x)[0], check(smd.md)
+            return fast(smd, x)[0], check(whole(smd))
 
         return SpmvImpl(full=full_cons, fast=fast, classify=classify,
                         fast_pw=fast_pw)
-    return SpmvImpl(full=lambda smd, x: plain.full(smd.md, x), fast=fast,
-                    classify=classify, fast_pw=fast_pw)
+
+    def full(smd, x):
+        w, st = plain.full(whole(smd), x.gather(first))
+        return ShardedVector.scatter(w, mesh.devices), st
+
+    return SpmvImpl(full=full, fast=fast, classify=classify,
+                    fast_pw=fast_pw)

@@ -29,9 +29,9 @@ def scrubbed_from_device(mat, md):
 
     ``md`` is the device matrix a solver returned (``CGResult.md``): a
     MatrixDevice, a split's (main, tail) pair, or a mesh upload
-    (``parallel.sharded.ShardedDevice``, whose whole planes ``.md`` the
-    repair scrubs).  After a repaired solve those planes are the
-    scrubbed data, the reference's in-place write-back
+    (``parallel.sharded.ShardedDevice``, whose shards' rows are
+    gathered here in shard order).  After a repaired solve those planes
+    are the scrubbed data, the reference's in-place write-back
     (CSR/CPUContext.cpp:275-277): the caller holds a repaired,
     self-consistent matrix, its checksums refreshed."""
     if mat.exec_kind == "split":
@@ -44,11 +44,12 @@ def scrubbed_from_device(mat, md):
             g[mat.idx_tail] = tail.planes[n]
             planes[n] = g
         return mat.with_scrubbed_planes(planes)
-    md = getattr(md, "md", md)
+    shards = getattr(md, "shards", (md,))
     shape0 = mat.ell[mat.layout.word_names[0]].shape
     planes = {}
-    for name, w in zip(mat.layout.word_names, md.words):
-        arr = to_numpy_u32(w)
+    for i, name in enumerate(mat.layout.word_names):
+        arr = np.concatenate([to_numpy_u32(sh.words[i]) for sh in shards],
+                             axis=-1)
         # Mesh-padded planes (parallel.sharded._pad_matrix) append zero
         # rows past R (the last axis): strip them so that the exec slots
         # line up with the canonical slot map.  Flat planes keep their

@@ -66,8 +66,10 @@ class CheckpointedSolve:
         (state, md)``, e.g. ``solver.fused.make_fused_continue`` for
         kernels B and D (``impl`` may be None then), or ``make_cg_continue``
         over a sharded SpmvImpl.  ``state_put`` places the (x, r, p) of a
-        resumed state (a snapshot is host .npz), as a mesh-sharded solve
-        needs; a fresh state takes its placement from ``b``."""
+        resumed state from the host (a snapshot is .npz), as a
+        mesh-sharded solve needs (its shards' rows onto their devices);
+        without it they load onto ``b``'s device.  A fresh state takes
+        its placement from ``b``."""
         self.every = int(every)
         self.path = path
         self.state_put = state_put
@@ -78,7 +80,13 @@ class CheckpointedSolve:
     def run(self, md, b, max_itrs: int, resume: bool = False,
             minv=None) -> CGResult:
         if resume and os.path.exists(self.path):
-            state = load_state(self.path, b.dtype, b.device)
+            # With ``state_put`` the vectors stay on the host until it
+            # places them (a mesh's shards each get their own rows).
+            state = load_state(self.path, b.dtype,
+                               "cpu" if self.state_put else b.device)
+            state = state._replace(rr=state.rr.to(b.device),
+                                   rz=state.rz.to(b.device),
+                                   trace=state.trace.to(b.device))
             # The snapshot's trace is sized for the run that wrote it:
             # resuming with another max_itrs grows it (nan) or cuts it.
             tlen = trace_length(max_itrs)

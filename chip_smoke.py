@@ -33,8 +33,10 @@ CUDA kernel against its plain PyTorch version on the card:
   - the row-sharded solve (parallel/: ``solve_sharded``,
     ``make_shardmap_spmv`` under solver.cg's loops) on a mesh of 4 shards
     on the one card, DIA -b 10, dense-radius-3d -b 10 (row_align 4096)
-    and arrowhead -b 10: the halo forms of kernels A and C per shard (the
-    CLI's --devices N, like the JAX one, needs N cards).
+    and arrowhead -b 10: the halo forms of kernels A and C per shard,
+    each shard's planes and vectors its own rows only, the code path of
+    shards on distinct cards (the CLI's --devices N, like the JAX one,
+    needs N cards), and parallel.dryrun.dryrun_multichip.
 
 Phases:
 
@@ -159,7 +161,9 @@ Phases:
      radius-3d -b 10 (live, lazy CI 4) and arrowhead -b 10 (clean,
      injected), each against the single-device cuda solve and the f64
      oracle's trajectory bound, a lazy x equal to the live one bit for
-     bit; the halo kernels' launch counts reset before and read after;
+     bit; each shard's planes, x and returned planes its own rows only
+     after the repaired solve; the halo kernels' launch counts reset
+     before and read after;
  29. sharded times: per sharded SpMV (4 shards and the exchange) against
      the single-device kernels and ``A @ x``; one shard's halo kernel
      call against its plain version, the shard's ``A @ x_ext`` and its
@@ -241,7 +245,14 @@ Phases:
      iterations within one (float64 against float32); total error < 1 on
      both; each run's time taken beside the other's, labelled with the
      host CPU and its thread count and with the card; then the DIA -b 10
-     secded solve of both targets in this process, warm.
+     secded solve of both targets in this process, warm;
+ 40. parallel.dryrun.dryrun_multichip(4, cuda:0): the ten
+     configurations of the JAX function's dry run at 4 shards on the
+     card (strict convergence, one correction, a corrected and a lazy x
+     equal to the clean x bit for bit), one line each with the tier that
+     ran it; on a host with two or more cards, dryrun_multichip(min(8,
+     cards)) on distinct cards, else the line "distinct cards: not run
+     (1 card)".
 
 Any failed check raises, so the script exits non-zero.  The last three
 lines are the card line from nvidia-smi, one JSON object describing the
@@ -1232,6 +1243,7 @@ def profile_worker(group, path):
         _device_put_sharded, default_mesh, make_sharded_solver)
     from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
         _halo, halo_exchange, make_shardmap_spmv)
+    from abft_sparse_cg_tpu_torch.parallel.vector import ShardedVector
 
     _build.build()
     dev, f32 = torch.device("cuda", 0), torch.float32
@@ -1292,13 +1304,15 @@ def profile_worker(group, path):
         return
     spmv, solve = ("A", "B") if group == "dia" else ("C", "D")
     mesh = default_mesh(4, dev)
-    smd, bd, put = _device_put_sharded(m, b, mesh, f32)
-    minv = put(jacobi_minv(m, "jacobi"))
+    smd, bsh, put = _device_put_sharded(m, b, mesh, f32)
+    assert isinstance(bsh, ShardedVector)
+    bd = bsh.gather(dev)                  # the single-device vectors
+    minv = put(jacobi_minv(m, "jacobi")).gather(dev)
     live = make_cuda_spmv(m, f32, "secded").fast_pw
     prod = make_cuda_product(m, f32, "secded").fast_pw
     sharded = make_shardmap_spmv(m, mesh).fast_pw
     H = _halo(m)
-    ext1 = halo_exchange(bd, mesh, H)[1]
+    ext1 = halo_exchange(bsh, H)[1]
     spec = fast_spec(m, "secded")
     shard1 = (dia_launcher(smd.shards[1], spec, dev, H) if group == "dia"
               else ell_launcher(smd.shards[1], spec, dev, H, m.R // 4))
@@ -1315,14 +1329,14 @@ def profile_worker(group, path):
         f"{spmv} secded call": (lambda: live(md, bd), 50),
         f"{spmv} product call": (lambda: prod(md, bd), 50),
         "A @ x": (lambda: a_csr @ xcol, 50),
-        "sharded SpMV, 4 shards": (lambda: sharded(smd, bd), 50),
+        "sharded SpMV, 4 shards": (lambda: sharded(smd, bsh), 50),
         f"{spmv} halo, shard 1 of 4": (lambda: shard1(ext1), 50),
         "A @ x_ext, shard 1 of 4": (lambda: s_csr @ ecol, 50),
         f"{solve} secded solve": (lambda: s_live(md, bd), 10),
         f"{solve} lazy CI 4 solve": (lambda: s_lazy(md, bd), 10),
         f"{solve} Jacobi solve": (lambda: s_jac(md, bd, minv), 10),
         f"{solve} lazy Jacobi solve": (lambda: s_lazy_jac(md, bd, minv), 10),
-        "sharded solve, 4 shards": (lambda: s_sh(smd, bd), 10),
+        "sharded solve, 4 shards": (lambda: s_sh(smd, bsh), 10),
     }
     print(json.dumps(profile_windows(windows)))
 
@@ -2898,6 +2912,7 @@ def main():
         solve_sharded)
     from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
         _halo, halo_exchange, make_shardmap_spmv, supports_shardmap)
+    from abft_sparse_cg_tpu_torch.parallel.vector import ShardedVector
 
     NS = 4
     mesh = default_mesh(NS, dev)
@@ -2930,7 +2945,7 @@ def main():
         plain = dia_fast_plain if layout == "dia" else ell_fast_plain
         xs = torch.tensor(np.random.default_rng(3).standard_normal(m0.R),
                           dtype=f32, device=dev)
-        ext = halo_exchange(xs, mesh, H)
+        ext = halo_exchange(ShardedVector.scatter(xs, mesh.devices), H)
         variants = [("clean", m0)]
         if mode != "none":
             variants.append(("halo-row fault", halo_row_fault(m0, word)))
@@ -3033,6 +3048,17 @@ def main():
     require(fixed.stats.corrected_count == 1
             and torch.equal(fixed.x, live_dia.x),
             "DIA halo-row fault: corrected once, x equal to the clean solve")
+    r_loc = mdia.R // NS
+    require(isinstance(fixed.x, ShardedVector)
+            and [tuple(p.shape) for p in fixed.x.parts] == [(r_loc,)] * NS
+            and all(t.shape[-1] in (r_loc, r_loc // 8)
+                    for sh in fixed.md.shards
+                    for t in (*sh.words, sh.cksum, sh.values, sh.fold,
+                              sh.fold_ck)),
+            "DIA halo-row fault: x and the repaired planes are per-shard "
+            f"tensors of {r_loc} rows")
+    print(f"after the repair: x and every plane of the returned matrix "
+          f"are per-shard tensors of {r_loc} rows (checksums {r_loc // 8})")
     lazy = sharded_case("DIA -b 10 secded, lazy CI 4", mdia, b_dia, ci=4)
     require(torch.equal(lazy.x, live_dia.x),
             "DIA lazy CI 4: x differs from the live sharded solve")
@@ -3069,12 +3095,14 @@ def main():
         spec = (dia_spec if layout == "dia" else ell_spec)(mm, "secded")
         mdsh, xsh, _ = _device_put_sharded(
             mm, np.random.default_rng(3).random(mm.N), mesh, f32)
+        # the single-device kernel's and A @ x's operands, whole
+        md_one, x_one = make_matrix_device(mm, f32, dev), xsh.gather(dev)
         sh = make_shardmap_spmv(mm, mesh).fast_pw
         one = make_cuda_spmv(mm, f32, "secded").fast_pw
-        a_csr, _ = csr_yardstick(mdsh.md, spec)
-        xcol = xsh[:, None]
+        a_csr, _ = csr_yardstick(md_one, spec)
+        xcol = x_one[:, None]
         t = interleave({"sharded": lambda: sh(mdsh, xsh),
-                        "single": lambda: one(mdsh.md, xsh),
+                        "single": lambda: one(md_one, x_one),
                         "A @ x": lambda: a_csr @ xcol}, 20, batches=5,
                        timer=event_ms)
         med = {n: statistics.median(v) for n, v in t.items()}
@@ -3083,7 +3111,7 @@ def main():
               f"{spread(t['single'])}; A @ x {spread(t['A @ x'])} [{card}]")
         # One shard's call (shard 1: halos on both sides).
         md1 = mdsh.shards[1]
-        ext1 = halo_exchange(xsh, mesh, H)[1]
+        ext1 = halo_exchange(xsh, H)[1]
         args = (H,) if layout == "dia" else (H, R_loc)
         if layout == "dia":
             call = dia_launcher(md1, spec, dev, H)
@@ -3126,7 +3154,7 @@ def main():
              "max_abs_err": max(halo_errs[layout]), "ms": meds["kernel"],
              "plain_ms": meds["plain"], "bound_ms": bms, "bound_by": by,
              "library_ms": meds["A @ x"]})
-        del mdsh, sh, a_csr
+        del mdsh, sh, a_csr, md_one, x_one
     kernels += halo_rows
 
     def solve_fns(mm):
@@ -3135,16 +3163,17 @@ def main():
         per-iteration tier over kernel A."""
         b_ = np.random.default_rng(11).random(mm.N)
         mdsh, bsh, _ = _device_put_sharded(mm, b_, mesh, f32)
+        md_one, b_one = make_matrix_device(mm, f32, dev), bsh.gather(dev)
         sh = make_sharded_solver(mm, mesh, 1000, CONV, f32)
         whole = CudaBackend("secded")._solver(mm, f32, 1000, CONV)
         per_it = make_cg_solver(make_cuda_spmv(mm, f32, "secded"), 1000,
                                 CONV)
         its = {"sharded": sh(mdsh, bsh).iterations,
-               "kernel B": whole(mdsh.md, bsh).iterations,
-               "per-iteration": per_it(mdsh.md, bsh).iterations}
+               "kernel B": whole(md_one, b_one).iterations,
+               "per-iteration": per_it(md_one, b_one).iterations}
         return ({"sharded": lambda: sh(mdsh, bsh),
-                 "kernel B": lambda: whole(mdsh.md, bsh),
-                 "per-iteration": lambda: per_it(mdsh.md, bsh)}, its)
+                 "kernel B": lambda: whole(md_one, b_one),
+                 "per-iteration": lambda: per_it(md_one, b_one)}, its)
 
     for label, mm, reps, batches in (("DIA -b 10", mdia, 5, 5),
                                      ("DIA -b 100", mats100["secded"], 2,
@@ -3713,6 +3742,25 @@ def main():
           "witness: cg-csr-torch and cg-coo-torch -b 10 on -t cpu and "
           "-t cuda, a process per run")
     cpu_witness(mats, card)
+
+    # ---- 40. the multi-device dry run ---------------------------------------
+    phase("40. dryrun_multichip: the JAX dry run's ten configurations at 4 "
+          "shards on the card, and on distinct cards where the host has "
+          "them")
+    from abft_sparse_cg_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    runs = dryrun_multichip(4, dev)
+    require(len(runs) == 10, f"dryrun_multichip(4): {len(runs)} lines")
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        runs = dryrun_multichip(min(8, cards))
+        require(len(runs) == 10, f"dryrun_multichip on {cards} cards: "
+                f"{len(runs)} lines")
+        print(f"distinct cards: ran on {min(8, cards)} cards")
+    else:
+        print(f"distinct cards: not run ({cards} card)")
     print(f"[all phases done at {time.perf_counter() - t_start:.0f} s]")
 
     print()

@@ -43,6 +43,7 @@ without.
 
 import argparse
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -157,7 +158,10 @@ def worker(root, batches):
         m, np.random.default_rng(3).random(m.N), mesh, f32)
     H, R_loc = _halo(m), m.R // 4
     spec = fast_spec(m, "secded")
-    ext1 = halo_exchange(xs, mesh, H)[1]
+    if "out" in inspect.signature(halo_exchange).parameters:
+        ext1 = halo_exchange(xs, H)[1]          # xs: a ShardedVector
+    else:
+        ext1 = halo_exchange(xs, mesh, H)[1]    # trees before per-shard x
     md1 = smd.shards[1]
     if hasattr(spmv_cuda, "ell_launcher"):
         one = spmv_cuda.ell_launcher(md1, spec, dev, H, R_loc)

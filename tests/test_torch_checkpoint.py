@@ -53,6 +53,7 @@ from abft_sparse_cg_tpu_torch.parallel.sharded import (
 from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
     supports_shardmap,
 )
+from abft_sparse_cg_tpu_torch.parallel.vector import ShardedVector
 from abft_sparse_cg_tpu_torch.scrub import scrub, scrubbed_from_device
 from abft_sparse_cg_tpu_torch.solver.cg import init_state
 from abft_sparse_cg_tpu_torch.solver.checkpoint import (
@@ -409,8 +410,9 @@ def test_shardmap_kernel_tier_checkpointed(tmp_path, inject):
         md, _ = _put(tm, b)
     path = tmp_path / "d.npz"
     assert _runner(tm, path, 2).run(md, bdev, 4).iterations == 4
-    dev = _mesh().devices[0]
-    r2 = _runner(tm, path, 50, state_put=lambda v: v.to(dev)).run(
+    devs = _mesh().devices
+    r2 = _runner(tm, path, 50,
+                 state_put=lambda v: ShardedVector.scatter(v, devs)).run(
         md, bdev, 100, resume=True)
     assert r2.stats.errcode == 0
     assert r2.stats.corrected_count == (2 if inject else 0)

@@ -70,6 +70,7 @@ from abft_sparse_cg_tpu_torch.parallel.sharded_kernel import (
     make_shardmap_spmv,
     supports_shardmap,
 )
+from abft_sparse_cg_tpu_torch.parallel.vector import ShardedVector
 
 MODES = ["none", "constraints", "sed", "sec7", "sec8", "secded"]
 CPU = torch.device("cpu")
@@ -118,6 +119,12 @@ def both(config, mode="secded"):
     tm = build_protected("csr", assemble(cols, rows, vals, N, 1), mode,
                          **kw)
     return jm, tm, n
+
+
+def _exchange(x, mesh, H):
+    """``halo_exchange`` of a whole vector ``x``, put on the shards of
+    ``mesh`` first."""
+    return halo_exchange(ShardedVector.scatter(x, mesh.devices), H)
 
 
 def bvec(m, seed=2):
@@ -173,7 +180,7 @@ def test_shard_plain_matches_pallas_halo_kernels(config, mode, detect):
         spec = product_spec(tm0, mode)
     mesh = default_mesh(n, CPU)
     x = np.random.default_rng(1).standard_normal(tm0.R).astype(np.float32)
-    x_ext = halo_exchange(torch.tensor(x), mesh, H)
+    x_ext = _exchange(torch.tensor(x), mesh, H)
     cases = [("clean", jm0, tm0)]
     if mode != "none":
         # A col bit: in every detecting mode's signals, and (ECC byte
@@ -211,11 +218,11 @@ def test_halo_plain_reads_only_the_window():
     H, R_loc = _halo(tm), tm.R // n
     md = shard_rows(make_matrix_device(tm, F32, CPU), default_mesh(n, CPU))
     x = torch.ones(tm.R)
-    ext = halo_exchange(x, default_mesh(n, CPU), H)[3]
+    ext = _exchange(x, default_mesh(n, CPU), H)[3]
     w = dia_fast_plain(md[3], ext, dia_spec(tm, "secded"), H)[0]
     x[: 3 * R_loc - H] = float("nan")
     x[4 * R_loc + H:] = float("nan")
-    ext2 = halo_exchange(x, default_mesh(n, CPU), H)[3]
+    ext2 = _exchange(x, default_mesh(n, CPU), H)[3]
     assert torch.equal(dia_fast_plain(md[3], ext2, dia_spec(tm, "secded"),
                                       H)[0], w)
 
@@ -239,7 +246,7 @@ def test_halo_exchange_matches_ppermute_edges(n):
 
     want = np.asarray(jax.shard_map(body, mesh=mesh, in_specs=P(axis),
                                     out_specs=P(axis))(jnp.asarray(x)))
-    got = halo_exchange(torch.tensor(x), default_mesh(n, CPU), H)
+    got = _exchange(torch.tensor(x), default_mesh(n, CPU), H)
     assert len(got) == n
     for s in range(n):
         np.testing.assert_array_equal(
@@ -399,8 +406,9 @@ def test_shardmap_impl_full_and_constraints():
     impl = make_shardmap_spmv(tm, mesh, F32)
     w, st = impl.full(md, bdev)
     assert st.errcode == 0
-    assert torch.equal(w, dia_fast_plain(md.md, bdev,
-                                         dia_spec(tm, "constraints"))[0])
+    assert torch.equal(w.cpu(), dia_fast_plain(
+        make_matrix_device(tm, F32, CPU), bdev.cpu(),
+        dia_spec(tm, "constraints"))[0])
     bad = flip(tm, 5 * tm.R // n + 7, word="col", bit=22)
     mdb, _, _ = _device_put_sharded(bad, bvec(tm), mesh, F32)
     assert bool(impl.fast(mdb, bdev)[1])
@@ -458,7 +466,7 @@ def test_out_of_window_index_clamps_into_the_window():
     shards = shard_rows(md, mesh)
     x = torch.tensor(np.random.default_rng(5).standard_normal(tm.R),
                      dtype=F32)
-    ext = halo_exchange(x, mesh, H)
+    ext = _exchange(x, mesh, H)
     spec = ell_spec(bad, "none")
     w_shard = ell_fast_plain(shards[1], ext[1], spec, H, R_loc)[0]
     w_single = ell_fast_plain(md, x, spec)[0][R_loc:2 * R_loc]
