@@ -82,9 +82,13 @@ _SIGNATURES = {
     },
     "fused_cg_ell": {
         "abft_fused_ell_grid": [_I, _I, _I, _I, _I, _P],
+        # ... the tail-free schedule: the window's halo rows, or -1 (l2)
         "abft_fused_cg_ell": [_P, _P, _U, _P, _I, _I, _P, _P, _P, _P,
                               *_SIG, _I, _I, _P, _P, _P, _I, _P, _P, _P,
-                              _P, _P, _I, _F, *_TAIL, *_OPTS, _I, _P],
+                              _P, _P, _I, _F, *_TAIL, *_OPTS, _I, _I, _P],
+        # device, signal planes, dynamic shared memory, blocks per SM
+        # out, SMs out
+        "abft_fused_ell_occupancy": [_I, _I, _I, _P, _P],
     },
     "flat_spmv_detect": {
         "abft_flat_spmv_detect": [_P, _P, _U, _P, _P, _I, _P, _P, _I, _P,

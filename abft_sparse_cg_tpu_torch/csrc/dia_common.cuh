@@ -4,8 +4,8 @@
 // the banded-ELL gather rule of one shard of a row-sharded solve), the
 // live ABFT signals, fixed-order block and grid reductions, the one-launch
 // epilogue of kernels A, C and E, the split tail of the fused kernels,
-// and kernel B's grid barrier that reduces (grid_reduce) with its
-// 16-byte row helpers.
+// and the grid barrier that reduces (grid_reduce) of kernels B and D's
+// tail-free instances, with their 16-byte row helpers.
 //
 // Arithmetic order.  The row products sum the diagonals (d = 0..D-1) or
 // the slots (k = 0..ell_len[r]-1) in order with explicitly rounded
@@ -242,9 +242,9 @@ __device__ __forceinline__ int dia_row_signals(const DiaSignals& s, int D,
 // ell_row and dia_row_signals in ONE pass over the K slots of row r:
 // each slot's signal word is loaded beside its value and gather word
 // (the product still stops at ell_len[r]), so the three plane streams
-// are in flight together.  Same results as the two calls; kernel D
-// uses it because a separate signal pass made its secded solve much
-// slower (PERF.md §6).  Nonzero ``*bad`` if the signals fired;
+// are in flight together.  Same results as the two calls; kernel D's
+// split-tail instances use it (a separate signal pass made the first
+// design's secded solve much slower, PERF.md §6).  Nonzero ``*bad`` if the signals fired;
 // the warp-shuffle rule of dia_row_signals applies.
 template <bool kCoherent, int kPlanes = 1>
 __device__ __forceinline__ float ell_row_signals(
@@ -721,7 +721,8 @@ struct CgOpts {
 // every block after a grid sync (__ldcg: other blocks wrote them): the
 // split-tail instances of kernel B and kernel D.  Every block reads all
 // the partials, so a grid of G blocks reads G^2 of them per reduction;
-// kernel B's tail-free instances reduce with grid_reduce below instead.
+// kernels B and D's tail-free instances reduce with grid_reduce below
+// instead.
 __device__ __forceinline__ float grid_total(const float* part, float* buf) {
   float v = 0.0f;
   for (int i = threadIdx.x; i < (int)gridDim.x; i += blockDim.x)
@@ -736,7 +737,7 @@ __device__ __forceinline__ int grid_any(const int* part, int* buf) {
   return block_any(v, buf);
 }
 
-// ---- Kernel B's tail-free instances: the grid barrier that reduces -------
+// ---- Kernels B and D's tail-free instances: the grid barrier that reduces
 //
 // One barrier and one fixed-order reduction in a single step.  Each block
 // sums its threads' values (warp butterflies, then the warps in order,

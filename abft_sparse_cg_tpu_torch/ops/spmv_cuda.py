@@ -145,7 +145,10 @@ class EllSpec(NamedTuple):
     plane holding the gather index; ``mask_ecc``: mask the ECC byte off
     that word (the ECC modes, spmv_pallas.py:610-612); ``plane`` as in
     DiaSpec; ``rows``: the matrix's R, the row count of the gather rule
-    (a shard's halo form gathers by the global rule from a window)."""
+    (a shard's halo form gathers by the global rule from a window);
+    ``band``: the exec-space bandwidth of the clean build (formats.
+    protected band: every valid gather lies within it of its row), which
+    sizes kernel D's window of p (solver.fused.ell_row_plan)."""
 
     K: int
     use_parity: bool
@@ -156,6 +159,7 @@ class EllSpec(NamedTuple):
     detect: bool = True
     rows: int = 0
     plane2: object = None
+    band: int = 0
 
 
 def _gather_source(mat, mode) -> dict:
@@ -174,7 +178,7 @@ def ell_spec(mat, mode) -> EllSpec:
     if mat.exec_kind != "ell":
         raise ValueError(f"ell_spec: a {mat.exec_kind!r} matrix")
     return EllSpec(mat.K, **_signal_plane(mode, mat),
-                   **_gather_source(mat, mode), rows=mat.R)
+                   **_gather_source(mat, mode), rows=mat.R, band=mat.band)
 
 
 class FlatSpec(NamedTuple):

@@ -63,7 +63,9 @@ __all__ = ["supports_fused", "make_fused_continue", "make_fused_solver",
            "fused_cg_dia", "fused_cg_dia_plain", "fused_cg_ell",
            "fused_cg_ell_plain", "TailSpec", "tail_spec", "split_tail_plain",
            "tail_chunk", "tail_tiles", "Snapshot", "FusedOut", "SCHEDULES",
-           "FOLD_MAX_HALO", "dia_schedule", "dia_block_rows"]
+           "FOLD_MAX_HALO", "dia_schedule", "dia_block_rows",
+           "ELL_SCHEDULES", "ELL_MAX_BLOCKS_PER_SM", "ell_ring_bytes",
+           "ell_halo", "ell_window_rows", "ell_row_plan", "ell_plan"]
 
 _MAX_K = 512        # csrc/dia_common.cuh ABFT_MAX_K
 _MAX_T = 64         # csrc/dia_common.cuh ABFT_MAX_T
@@ -76,6 +78,20 @@ TILE_ROWS = 128     # the rows of one window-mask tile (dia_common.cuh)
 # was the faster schedule at every halo up to that cap (PERF.md §6).
 SCHEDULES = ("fold", "three-sync")
 FOLD_MAX_HALO = 512
+# Kernel D's tail-free schedules (csrc/fused_cg_ell.cu): in the modes with
+# signals, the staged plane stream, gathering p from a band window in
+# shared memory that each block stages after the barrier publishing p
+# (its rows of ops.spmv.ell_block_rows and ell_halo(band) rows on either
+# side: "window") or from device memory ("l2"), in blocks of 128 threads,
+# at most ELL_MAX_BLOCKS_PER_SM per SM (kMaxRowBlocksPerSM), as many as
+# their ring (ell_ring_bytes: kernel C's 4 stages of 4-slot slabs of the
+# value, gather and signal planes) and window leave room for
+# (ell_row_plan); in mode none, the first design's loop, one row per
+# thread, grid-strided ("grid-stride": it was the faster there, PERF.md
+# §6).
+ELL_SCHEDULES = ("window", "l2", "grid-stride")
+ELL_MAX_BLOCKS_PER_SM = 7
+ELL_MAX_SMEM = 232448          # 227 KB: the most one block may take
 
 
 def supports_fused(mat, dtype, precond=False, check_interval=1) -> bool:
@@ -107,6 +123,83 @@ def dia_schedule(offsets) -> str:
     offsets, resolved once per matrix."""
     return ("fold" if max(abs(int(o)) for o in offsets) <= FOLD_MAX_HALO
             else "three-sync")
+
+
+def ell_halo(band: int) -> int:
+    """The rows kernel D's window holds on either side of a block's rows:
+    the band rounded up to a multiple of 4 (16-byte copies)."""
+    return -(-int(band) // 4) * 4
+
+
+def ell_ring_bytes(planes: int = 1) -> int:
+    """The shared-memory ring of kernel D's staged stream: 4 stages of
+    4-slot slabs of 128 rows of the value and gather planes and each
+    signal plane (csrc/fused_cg_ell.cu kRingBytes)."""
+    return 4 * (2 + planes) * 4 * 128 * 4
+
+
+def ell_window_rows(R: int, grid: int, band: int) -> int:
+    """The rows of p the largest block of kernel D's tail-free grid
+    stages under the window schedule: its rows of ops.spmv.ell_block_rows
+    and ell_halo(band) on either side (csrc/fused_cg_ell.cu row_smem)."""
+    return -(-(R // 32) // grid) * 32 + 2 * ell_halo(band)
+
+
+def ell_row_plan(R: int, band: int, planes: int, sms: int, occupancy,
+                 schedule=None):
+    """(grid, schedule) of kernel D's staged stream for an ELL matrix of
+    R rows and this exec-space band, streaming ``planes`` signal planes,
+    on a card of ``sms`` SMs, where ``occupancy(smem)`` gives the resident
+    blocks per SM of the instances at ``smem`` bytes of dynamic shared
+    memory (abft_fused_ell_occupancy).  The window schedule takes the most blocks per SM (at
+    most ELL_MAX_BLOCKS_PER_SM, at most one per warp of rows) at which
+    the ring and the largest block's window fit; the l2 schedule those
+    the ring alone allows.  Unforced, "window" wherever it reaches half
+    the l2 schedule's blocks per SM, else "l2" (on dense-radius-3d -b 10
+    the l2 gathers at 7 blocks per SM took 1.5-4.3% longer than the
+    window at 5, scripts/torch_d_probe.py; the threshold itself is not
+    probed).  The same for every instance of one matrix and plane
+    count."""
+    W = R // 32
+    ring = ell_ring_bytes(planes)
+    l2 = min(ELL_MAX_BLOCKS_PER_SM, occupancy(ring))
+    for per_sm in range(ELL_MAX_BLOCKS_PER_SM, 0, -1):
+        if schedule == "l2" or (schedule is None and 2 * per_sm < l2):
+            break
+        grid = max(1, min(sms * per_sm, W))
+        smem = ring + 4 * ell_window_rows(R, grid, band)
+        if smem <= ELL_MAX_SMEM and occupancy(smem) >= per_sm:
+            return grid, "window"
+    if schedule == "window":
+        raise ValueError(f"fused_cg_ell: a band of {band} leaves no room "
+                         f"for the window")
+    return max(1, min(sms * l2, W)), "l2"
+
+
+_plans = {}
+
+
+def ell_plan(device_index: int, R: int, band: int, planes: int = 1,
+             schedule=None):
+    """``ell_row_plan`` on a card, with its occupancy query (cached per
+    matrix shape, signal planes and card)."""
+    key = (device_index, R, band, planes, schedule)
+    if key not in _plans:
+        from .._build import check, library
+
+        lib = library("fused_cg_ell")
+        per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+
+        def occupancy(smem):
+            check(lib.abft_fused_ell_occupancy(
+                device_index, planes, smem, ctypes.addressof(per_sm),
+                ctypes.addressof(sms)), "fused_cg_ell occupancy query")
+            return per_sm.value
+
+        occupancy(0)
+        _plans[key] = ell_row_plan(R, band, planes, sms.value, occupancy,
+                                   schedule)
+    return _plans[key]
 
 
 def dia_block_rows(R: int, grid: int) -> int:
@@ -346,8 +439,10 @@ def _opts_args(what, minv, ci, grid, x, r, p):
 
 
 def _launch_args(what, md, spec, x, r, p, rr, rz, itr, upto, trace,
-                 tail=None, minv=None, ci=1):
-    """Validated tensors and the scratch one cooperative launch needs."""
+                 tail=None, minv=None, ci=1, schedule=None):
+    """Validated tensors and the scratch one cooperative launch needs;
+    kernel D's tail-free instances take their grid and schedule from
+    ``ell_plan`` (``schedule`` forces one)."""
     D, R, pairs, gsrc = _check_cuda_args(md, p, spec, what)
     for name, t in (("x", x), ("r", r), ("p", p), ("trace", trace)):
         if (t.dtype != torch.float32 or t.device != p.device
@@ -366,17 +461,30 @@ def _launch_args(what, md, spec, x, r, p, rr, rz, itr, upto, trace,
     # A lazy instance runs on its live counterpart's grid: the same
     # partition of the rows, so the same reduction order and, on a clean
     # solve, the live instance's x bit for bit.
-    grid = fused_grid(dev, layout, tail is not None, minv is not None,
-                      planes=planes)
-    if ci > 1 and fused_grid(dev, layout, tail is not None,
-                             minv is not None, True, planes) < grid:
-        raise RuntimeError(f"{what}: the lazy instance does not fit the "
-                           f"live instance's grid of {grid} blocks")
+    # Kernel D's tail-free instances: the staged stream in the modes with
+    # signals (ell_plan's grid and schedule), the first design's loop in
+    # mode none.
+    stream = layout == "ell" and tail is None and bool(pairs)
+    sched = None
+    if layout == "ell" and tail is None:
+        if schedule is not None and (schedule == "grid-stride") == stream:
+            raise ValueError(f"{what}: the grid-stride schedule runs mode "
+                             f"none, and only it")
+        sched = "grid-stride"
+    if stream:
+        grid, sched = ell_plan(dev, R, spec.band, planes, schedule)
+    else:
+        grid = fused_grid(dev, layout, tail is not None, minv is not None,
+                          planes=planes)
+        if ci > 1 and fused_grid(dev, layout, tail is not None,
+                                 minv is not None, True, planes) < grid:
+            raise RuntimeError(f"{what}: the lazy instance does not fit the "
+                               f"live instance's grid of {grid} blocks")
     f32 = dict(dtype=torch.float32, device=p.device)
     i32 = dict(dtype=torch.int32, device=p.device)
     return dict(
         D=D, R=R, sig=_plane_ptrs(pairs), planes=planes, gsrc=gsrc, dev=dev,
-        grid=grid,
+        grid=grid, schedule=sched,
         w=torch.empty(R, **f32),
         part_pw=torch.empty(grid, **f32), part_rr=torch.empty(grid, **f32),
         part_flag=torch.empty(grid, **i32),
@@ -477,17 +585,29 @@ fused_cg_dia.schedules = dict.fromkeys(SCHEDULES, 0)   # tail-free launches
 
 
 def fused_cg_ell(md, spec: EllSpec, x, r, p, rr, rz, itr: int, upto: int,
-                 conv: float, trace, tail=None, minv=None,
-                 ci: int = 1) -> FusedOut:
-    """Kernel D: kernel B's contract over a banded-ELL matrix."""
+                 conv: float, trace, tail=None, minv=None, ci: int = 1,
+                 schedule=None) -> FusedOut:
+    """Kernel D: kernel B's contract over a banded-ELL matrix.
+    ``schedule`` forces a tail-free schedule of ELL_SCHEDULES (default:
+    "grid-stride" in mode none, else ``ell_plan``'s for ``spec.band``);
+    "window" needs a band that fits, and mode none runs "grid-stride"
+    only."""
+    if schedule is not None and schedule not in ELL_SCHEDULES:
+        raise ValueError(f"fused_cg_ell: schedule {schedule!r} is not one "
+                         f"of {ELL_SCHEDULES}")
     if x.device.type == "cpu":
         return fused_cg_ell_plain(md, spec, x, r, p, rr, rz, itr, upto,
                                   conv, trace, tail, minv, ci)
     from .._build import check, library
 
+    if tail is not None and schedule is not None:
+        raise ValueError("fused_cg_ell: the split-tail instances have one "
+                         "schedule")
     ci = _lazy_ci(spec, ci)
     a = _launch_args("fused_cg_ell", md, spec, x, r, p, rr, rz, itr, upto,
-                     trace, tail, minv, ci)
+                     trace, tail, minv, ci, schedule)
+    sched = a["schedule"]
+    hb = ell_halo(spec.band) if sched == "window" else -1
     rc = library("fused_cg_ell").abft_fused_cg_ell(
         md.values.data_ptr(), a["gsrc"].data_ptr(), gather_mask(spec),
         md.ell_len.data_ptr(), a["D"], a["R"], x.data_ptr(), r.data_ptr(),
@@ -497,15 +617,18 @@ def fused_cg_ell(md, spec: EllSpec, x, r, p, rr, rz, itr: int, upto: int,
         a["iscal_in"].data_ptr(), a["fscal_in"].data_ptr(),
         a["iscal_out"].data_ptr(), a["fscal_out"].data_ptr(),
         trace.data_ptr(), trace.shape[0], float(conv), *a["tail"]["ptrs"],
-        *a["opts"]["ptrs"], a["dev"], a["stream"])
+        *a["opts"]["ptrs"], hb, a["dev"], a["stream"])
     check(rc, "fused_cg_ell cooperative launch")
     _count(fused_cg_ell, tail, minv, ci, a["planes"])
+    if sched is not None:
+        fused_cg_ell.schedules[sched] += 1
     return _launch_result(a)
 
 
 fused_cg_ell.launches = 0
 fused_cg_ell.tail_launches = 0
 fused_cg_ell.instances = {}
+fused_cg_ell.schedules = dict.fromkeys(ELL_SCHEDULES, 0)   # tail-free
 
 _grids = {}
 
@@ -516,10 +639,12 @@ def fused_grid(device_index: int, layout: str, tail: bool = False,
     """Co-resident grid of an instance of kernel B ("dia") or D ("ell"):
     tail-free or with the split tail, live or lazy, unpreconditioned or
     Jacobi, streaming one signal plane or two (constraints on COO128), on
-    a device (SMs x blocks per SM).  Each instance has its own: the live
-    tail-free instance must keep its occupancy whatever the others need.
-    A lazy instance is launched with its live counterpart's grid
-    (``_launch_args``), which its own must hold."""
+    a device (SMs x blocks per SM).  Each split-tail instance has its
+    own; every tail-free instance of kernel B has the same (kRowBlocksPerSM
+    per SM); kernel D's tail-free grid is mode none's (the first design's
+    loop): its staged stream launches on ``ell_plan``'s.  A lazy instance
+    is launched with its live counterpart's grid (``_launch_args``), which
+    its own must hold."""
     key = (device_index, layout, tail, precond, lazy, planes)
     if key not in _grids:
         from .._build import check, library
@@ -546,7 +671,8 @@ def make_fused_continue(mat, mode, conv_threshold, precond=False,
     signals, resolved by solver.cg's ``_lazy_exit_resolve`` with the
     phantom guard (fused.py:2150-2164; the kernel closes the exit window
     itself, so the resolve's verify is a no-op).  ``schedule`` forces
-    kernel B's tail-free schedule (``fused_cg_dia``)."""
+    the tail-free schedule of kernel B (SCHEDULES, ``fused_cg_dia``) or D
+    (ELL_SCHEDULES, ``fused_cg_ell``)."""
     split = mat.exec_kind == "split"
     spec = fast_spec(mat.main if split else mat, mode)
     tspec = tail_spec(mat, mode) if split else None

@@ -72,12 +72,16 @@ Phases:
      rows; built in phase 9), every mode, clean and with injected 1- and
      2-bit faults (and an index flip in none/constraints): w bit-exact,
      pw within 1e-5;
- 11. kernel D vs its plain loop: a clean and a faulted secded solve on
-     dense-radius-3d -b 10;
+ 11. kernel D vs its plain loop: a clean secded solve on dense-radius-3d
+     -b 10 under each schedule of its staged stream (the band window,
+     which the matrix's plan takes, and the l2 gathers) and a faulted
+     one;
  12. the ELL main path: the four run_tests classes through main_csr with
      -t cuda -f <file> -b 4 --seed 11, the .mtx file written by the
      port's mmio into a temporary directory; launch counts reset before
-     and read after.  The CLI runs on the zoo files of this phase and of
+     and read after, kernel D's by schedule (the window; mode none's
+     runs the first design's grid-stride loop).  The CLI runs on the zoo
+     files of this phase and of
      18 and 25 run in one worker process per file and run group
      (``--cli-worker LABEL``, CLI_JOBS), all started before phase 10
      (phases 10 and 11 check and time nothing) and awaited here: their
@@ -109,7 +113,8 @@ Phases:
  19. their float32 trajectories against the float64 plain solve (run
      on the card), to rr0 * 1e-8;
  20. wide-band ELL (stencil27-shuffled -b 10): kernel C vs plain, kernel
-     D vs its plain loop, a secded CLI run, solve times;
+     D vs its plain loop, a secded CLI run (kernel D on its l2 schedule),
+     solve times;
  21. flat and split times: per-iteration and split-tail solves with
      slope and GB/s, kernel E per call against its plain version,
      ``A @ x`` and its bound, the secded-over-none price of kernel E's
@@ -591,13 +596,15 @@ def reset_launches():
     fused_cg_dia.tail_launches = fused_cg_ell.tail_launches = 0
     fused_cg_dia.instances.clear()
     fused_cg_ell.instances.clear()
-    for k in fused_cg_dia.schedules:
-        fused_cg_dia.schedules[k] = 0
+    for sched in (fused_cg_dia.schedules, fused_cg_ell.schedules):
+        for k in sched:
+            sched[k] = 0
 
 
 def launch_counts():
-    """({wrapper: launches}, {kernel B or D instance, or a detection-free
-    product: launches}) since the last reset_launches."""
+    """({wrapper: launches}, {kernel B or D instance, kernel D's tail-free
+    schedule ("fused_cg_ell [window]", "[l2]", "[grid-stride]"), or a
+    detection-free product: launches}) since the last reset_launches."""
     from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
         dia_fast, ell_fast, flat_fast)
     from abft_sparse_cg_tpu_torch.solver.fused import (
@@ -612,6 +619,9 @@ def launch_counts():
                  for k, v in fused_cg_dia.instances.items()}
     instances.update({f"fused_cg_ell ({k})": v
                       for k, v in fused_cg_ell.instances.items()})
+    # kernel D's tail-free launches by schedule (solver.fused.ell_plan)
+    instances.update({f"fused_cg_ell [{k}]": v
+                      for k, v in fused_cg_ell.schedules.items()})
     for fn, name in ((dia_fast, "dia_spmv_detect"),
                      (ell_fast, "ell_spmv_detect"),
                      (flat_fast, "flat_spmv_detect")):
@@ -1410,9 +1420,9 @@ def main():
     from abft_sparse_cg_tpu_torch.solver.cg import init_state, make_cg_solver
     from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
     from abft_sparse_cg_tpu_torch.solver.fused import (
-        SCHEDULES, dia_schedule, fused_cg_dia, fused_cg_dia_plain,
-        fused_cg_ell, fused_cg_ell_plain, fused_grid, make_fused_solver,
-        tail_spec)
+        SCHEDULES, dia_schedule, ell_plan, fused_cg_dia,
+        fused_cg_dia_plain, fused_cg_ell, fused_cg_ell_plain, fused_grid,
+        make_fused_solver, tail_spec)
     from abft_sparse_cg_tpu_torch.utils.ell_edges import (
         ROW_CUT, cut_rows, ell_edge_cases)
 
@@ -1453,7 +1463,9 @@ def main():
           f"{fused_grid(0, 'ell', planes=2)} "
           f"({fused_grid(0, 'ell', True, planes=2)})")
     print("every instance's own grid (a lazy one runs on its live "
-          "counterpart's): " + ", ".join(
+          "counterpart's; kernel D's tail-free ones: mode none's, and its "
+          "staged stream's largest, which ell_plan sizes per matrix): "
+          + ", ".join(
               f"{lay} {'tail ' if tail else ''}{'Jacobi ' if pre else ''}"
               f"{'lazy' if lazy else 'live'} {fused_grid(0, lay, tail, pre, lazy)}"
               for lay in ("dia", "ell") for tail in (False, True)
@@ -1554,11 +1566,12 @@ def main():
     def run_loop(fn, md_, spec_, bvec, upto=1000, tail=None, minv=None,
                  ci=1, schedule=None):
         """One launch of ``fn`` from init_state; ``schedule`` forces kernel
-        B's tail-free schedule (the plain loops have none)."""
+        B's or D's tail-free schedule (the plain loops have none)."""
         s = init_state(bvec, upto, minv)
         x_, r_, p_ = s.x.clone(), s.r.clone(), s.p.clone()
         tr = torch.full_like(s.trace, float("nan"))
-        kw = {} if schedule is None or fn is not fused_cg_dia else {
+        kw = {} if schedule is None or fn not in (fused_cg_dia,
+                                                  fused_cg_ell) else {
             "schedule": schedule}
         out = fn(md_, spec_, x_, r_, p_, s.rr, s.rz, 0, upto, CONV, tr, tail,
                  minv, ci, **kw)
@@ -1920,8 +1933,21 @@ def main():
     bde = torch.zeros(m.R, dtype=f32, device=dev)
     bde[: m.N] = torch.tensor(b_ell, dtype=f32)
     mde = make_matrix_device(m, f32, dev)
-    ik_d, d_err, _ = check_loops(fused_cg_ell, fused_cg_ell_plain, mde, spec,
-                              bde, "clean")
+    # Kernel D's stream in its two schedules (p gathered from a band
+    # window in shared memory, or from device memory), both against the
+    # plain loop (each on its own plan's grid: 5 and 7 blocks per SM here,
+    # so their sums' order differs).
+    d_grid, d_sched = ell_plan(dev.index, m.R, spec.band)
+    print(f"the matrix's schedule: {d_sched} (band {spec.band}), grid "
+          f"{d_grid} blocks")
+    require(d_sched == "window", f"dense-radius-3d -b 10: kernel D's "
+            f"schedule {d_sched}, expected window")
+    d_err = 0.0
+    for sched in ("window", "l2"):
+        ik_d, err_s, _ = check_loops(
+            fused_cg_ell, fused_cg_ell_plain, mde, spec, bde,
+            f"clean [{sched}]", schedule=sched)
+        d_err = max(d_err, err_s)
     check_faulted(inject_bitflips(m, "ANY", 1, np.random.default_rng(12),
                                   echo=lambda s: None), "secded",
                   "1-bit flip")
@@ -1939,11 +1965,20 @@ def main():
         print("\n".join(lines))
         return got
 
-    got = cli_job("dense-radius-3d -b 4")["wrappers"]
+    job = cli_job("dense-radius-3d -b 4")
+    got = job["wrappers"]
     ell_launches = {k: got[k] for k in ("ell_spmv_detect", "fused_cg_ell")}
     for name, n in ell_launches.items():
         print(f"{name}: {n} launches")
         require(n > 0, f"{name} was not launched on the ELL path")
+    d_by = {k: v for k, v in job["instances"].items()
+            if k.startswith("fused_cg_ell [")}
+    print(f"fused_cg_ell launches by schedule: {d_by}")
+    n_window = d_by.get("fused_cg_ell [window]", 0)
+    n_none = d_by.get("fused_cg_ell [grid-stride]", 0)
+    require(n_window > 0 and n_window + n_none == ell_launches[
+        "fused_cg_ell"], "kernel D's main-path launches did not all take "
+            "the window (mode none: the grid-stride loop)")
 
     # ---- 13. ELL trajectory -----------------------------------------------
     phase("13. float32 cuda trajectory vs float64 plain oracle, "
@@ -2216,12 +2251,15 @@ def main():
         code, out = run_cli(main_csr, ["-f", path, "-b", "10", "--seed",
                                        "11", "-t", "cuda", "-m", "secded"])
         te = total_error(out)
-        require(code == 0 and te < 1.0 and fused_cg_ell.launches > 0,
+        require(code == 0 and te < 1.0 and fused_cg_ell.launches > 0
+                and fused_cg_ell.schedules["l2"] == fused_cg_ell.launches,
                 f"wide-band CLI secded: exit {code}, total error {te}, "
-                f"kernel D launches {fused_cg_ell.launches}")
+                f"kernel D launches {fused_cg_ell.launches} by schedule "
+                f"{fused_cg_ell.schedules}")
         print(f"cg-csr -t cuda -m secded -f stencil27-shuffled.mtx -b 10: "
               f"exit 0, total error {te:f}, kernel D launches "
-              f"{fused_cg_ell.launches}")
+              f"{fused_cg_ell.launches} by schedule "
+              f"{fused_cg_ell.schedules} (band {mw.band})")
     solve_table("wide-band ELL stencil27-shuffled -b 10", wide, 3, 5,
                 ell_iter_bytes)
     del wide, a_st

@@ -1,28 +1,32 @@
 #!/usr/bin/env python3
-"""Kernel B solves of two checkouts of the PyTorch/CUDA port, in turns on
-one card.
+"""Kernel B and D solves of two checkouts of the PyTorch/CUDA port, in
+turns on one card.
 
-    python3 scripts/torch_live_ab.py A_DIR B_DIR [--rounds 1]
+    python3 scripts/torch_live_ab.py A_DIR B_DIR [--rounds 1] [--only ell]
 
-Compares kernel B's solves of two trees, e.g. a parent commit unpacked
-with ``git archive`` and the change on top of it.  Each turn is one
+Compares the whole-solve kernels' solves of two trees, e.g. a parent
+commit unpacked with ``git archive`` and the change on top of it.  Each turn is one
 worker process started in one checkout, with that checkout's package and
 kernels (built from its own csrc/ into its own build directory, excluded
 from the times); the turns run A, B, B, A per round, so that a drift of
 the card or host over the run falls on both.  A worker builds the bundled
-matrix at -b 10 and -b 100 (DIA: kernel B) and the zoo's arrowhead at -b
-10 (a bordered split: kernel B's split-tail instances) in modes none and
-secded, and solves each configuration of CONFIGS through
+matrix at -b 10 and -b 100 (DIA: kernel B), the zoo's arrowhead at -b 10
+(a bordered split: kernel B's split-tail instances) and dense-radius-3d
+at -b 10 (banded ELL, band 1,627: kernel D) in modes none and secded, and
+stencil27-shuffled at -b 10 in secded (ELL under RCM, band 4,681: kernel
+D past its window), and solves each configuration of CONFIGS through
 ``CudaBackend(mode)._solver`` (the tier the cuda target picks): live, and
 in secded also lazy CI 4, Jacobi and lazy Jacobi (and, at DIA -b 100,
-lazy CI 32).  Per configuration, full and 2-iteration solves:
+lazy CI 32).  ``--only`` keeps the configurations of the layouts it names
+("dia", "split", "ell"; both trees' turns run the same ones).  Per
+configuration, full and 2-iteration solves:
 
   - by host clock around synchronised calls, in interleaved batches;
   - the kernel's own device time per solve: CUDA events recorded right
     around each cooperative launch (the worker wraps the tree's kernel B
-    library), summed over the solve's launches; the slope per iteration
-    from full minus 2-iteration solves, beside the bytes an iteration
-    must move over 3.35 TB/s (its bound);
+    and D libraries), summed over the solve's launches; the slope per
+    iteration from full minus 2-iteration solves, beside the bytes an
+    iteration must move over 3.35 TB/s (its bound);
   - on the configurations of PROFILED, a torch.profiler window of 10
     warm full solves (chip_smoke.py's call_profile): device time and
     device operations per solve, and the device's busy share of the
@@ -46,6 +50,17 @@ import sys
 import time
 
 # (label, matrix, blocks, mode, Jacobi, check interval)
+ELL_CONFIGS = [
+    ("dense-radius-3d -b 10", "dense-radius-3d", 10, "none", False, 1),
+    ("dense-radius-3d -b 10", "dense-radius-3d", 10, "secded", False, 1),
+    ("dense-radius-3d -b 10 lazy CI 4", "dense-radius-3d", 10, "secded",
+     False, 4),
+    ("dense-radius-3d -b 10 Jacobi", "dense-radius-3d", 10, "secded", True,
+     1),
+    ("dense-radius-3d -b 10 lazy Jacobi", "dense-radius-3d", 10, "secded",
+     True, 4),
+    ("stencil27-shuffled -b 10", "stencil27-shuffled", 10, "secded", False,
+     1)]
 CONFIGS = [("-b 10", "dia", 10, "none", False, 1),
            ("-b 10", "dia", 10, "secded", False, 1),
            ("-b 10 lazy CI 4", "dia", 10, "secded", False, 4),
@@ -63,13 +78,28 @@ CONFIGS = [("-b 10", "dia", 10, "none", False, 1),
             4),
            ("arrowhead -b 10 Jacobi", "arrowhead", 10, "secded", True, 1),
            ("arrowhead -b 10 lazy Jacobi", "arrowhead", 10, "secded", True,
-            4)]
+            4)] + ELL_CONFIGS
+LAYOUTS = {"dia": ("dia",), "split": ("arrowhead",),
+           "ell": ("dense-radius-3d", "stencil27-shuffled")}
 PROFILED = ("-b 10 secded", "-b 10 lazy CI 4 secded", "-b 10 Jacobi secded",
             "-b 10 lazy Jacobi secded", "-b 100 secded",
             "-b 100 lazy CI 32 secded", "arrowhead -b 10 secded",
             "arrowhead -b 10 lazy CI 4 secded",
             "arrowhead -b 10 Jacobi secded",
-            "arrowhead -b 10 lazy Jacobi secded")
+            "arrowhead -b 10 lazy Jacobi secded",
+            "dense-radius-3d -b 10 none", "dense-radius-3d -b 10 secded",
+            "dense-radius-3d -b 10 lazy CI 4 secded",
+            "dense-radius-3d -b 10 Jacobi secded",
+            "dense-radius-3d -b 10 lazy Jacobi secded",
+            "stencil27-shuffled -b 10 secded")
+
+
+def selected(only):
+    """The CONFIGS of the layouts named in ``only`` (all when None)."""
+    if only is None:
+        return CONFIGS
+    keep = {m for lay in only.split(",") for m in LAYOUTS[lay]}
+    return [c for c in CONFIGS if c[1] in keep]
 CONV = 1e-3
 HBM_BPS = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 
@@ -90,11 +120,18 @@ def smoke_helpers():
 
 def iter_bytes(m, mode, precond, ci):
     """Bytes one iteration must move: the DIA value planes (and fold
-    planes in the ECC modes), a split's td and tb and its tail signal
-    plane with its baseline (detecting modes), 8 vector streams (M^-1
-    twice more with Jacobi); a lazy schedule reads the signal planes on
-    one iteration in ``ci``."""
+    planes in the ECC modes), or the ELL value and gather words of the
+    valid slots, ell_len and (detecting modes) the K x R signal plane and
+    its baseline; a split's td and tb and its tail signal plane with its
+    baseline (detecting modes); 8 vector streams (M^-1 twice more with
+    Jacobi); a lazy schedule reads the signal planes on one iteration in
+    ``ci``."""
     ecc = mode in ("sed", "sec7", "sec8", "secded")
+    if m.exec_kind == "ell":
+        K, R = m.K, m.R
+        sig = 4 * K * R + R // 2 if mode != "none" else 0
+        return (8 * m.nnz + 4 * R + sig / ci
+                + (32 + (8 if precond else 0)) * R)
     main = m.main if m.exec_kind == "split" else m
     D, R = len(main.dia_offsets), m.R
     planes, sig = 4 * D * R, (4 * D * R if ecc else 0)
@@ -106,7 +143,7 @@ def iter_bytes(m, mode, precond, ci):
     return planes + sig / ci + (32 + (8 if precond else 0)) * R
 
 
-def worker(root, batches, reps):
+def worker(root, batches, reps, only):
     """One turn in checkout ``root``: JSON of per-call ms lists."""
     sys.path.insert(0, root)
     from concurrent.futures import ThreadPoolExecutor
@@ -127,14 +164,15 @@ def worker(root, batches, reps):
     events = []
 
     class Timed:
-        """Kernel B's library, its launch entry bracketed by events."""
+        """Kernel B's or D's library, its launch entry bracketed by
+        events."""
 
         def __init__(self, lib):
             self.lib = lib
 
         def __getattr__(self, name):
             fn = getattr(self.lib, name)
-            if name != "abft_fused_cg_dia":
+            if name not in ("abft_fused_cg_dia", "abft_fused_cg_ell"):
                 return fn
 
             def call(*args):
@@ -147,24 +185,30 @@ def worker(root, batches, reps):
                 return rc
             return call
 
-    _build._libs["fused_cg_dia"] = Timed(_build._libs["fused_cg_dia"])
+    for lib in ("fused_cg_dia", "fused_cg_ell"):
+        _build._libs[lib] = Timed(_build._libs[lib])
     dev, f32 = torch.device("cuda", 0), torch.float32
-    path = os.path.join(root, "matrices", "shallow_water1",
-                        "shallow_water1.mtx")
-    if not os.path.exists(path):
-        subprocess.run([sys.executable, os.path.join(
-            root, "matrices", "make_matrix.py")], check=True,
-            stdout=subprocess.DEVNULL)
-    asm = {("dia", b): load_matrix(path, b) for b in (10, 100)}
-    asm["arrowhead", 10] = zoo_assembled("arrowhead", 10)
-    keys = sorted({(name, b, mode) for _, name, b, mode, _, _ in CONFIGS})
+    configs = selected(only)
+    asm = {}
+    for name, b in sorted({(c[1], c[2]) for c in configs}):
+        if name == "dia":
+            path = os.path.join(root, "matrices", "shallow_water1",
+                                "shallow_water1.mtx")
+            if not os.path.exists(path):
+                subprocess.run([sys.executable, os.path.join(
+                    root, "matrices", "make_matrix.py")], check=True,
+                    stdout=subprocess.DEVNULL)
+            asm[name, b] = load_matrix(path, b)
+        else:
+            asm[name, b] = zoo_assembled(name, b)
+    keys = sorted({(name, b, mode) for _, name, b, mode, _, _ in configs})
     with ThreadPoolExecutor(max_workers=len(keys)) as ex:
         futs = {k: ex.submit(build_protected, "csr", asm[k[:2]], k[2])
                 for k in keys}
         mats = {k: f.result() for k, f in futs.items()}
 
     fns, its, nbytes = {}, {}, {}
-    for label, name, b, mode, precond, ci in CONFIGS:
+    for label, name, b, mode, precond, ci in configs:
         m = mats[name, b, mode]
         md = make_matrix_device(m, f32, dev)
         bb = torch.zeros(m.R, dtype=f32, device=dev)
@@ -207,7 +251,7 @@ def worker(root, batches, reps):
             kern[n].append(kernel_ms(fns[n]))
     sm = smoke_helpers()
     prof = {}
-    for n in PROFILED:
+    for n in (n for n in PROFILED if n in fns):
         with contextlib.redirect_stdout(io.StringIO()):
             w = sm.call_profile(fns[n], n, "", reps=10)
         prof[n] = None if w is None else {k: w[k] for k in ("ms", "ops",
@@ -227,11 +271,14 @@ def main():
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--batches", type=int, default=7)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", help="the layouts to run, comma-separated "
+                    "of " + ", ".join(LAYOUTS) + " (default: all)")
     ap.add_argument("--worker", action="store_true",
                     help="run one turn in A_DIR and print its JSON")
     args = ap.parse_args()
     if args.worker:
-        worker(os.path.abspath(args.a_dir), args.batches, args.reps)
+        worker(os.path.abspath(args.a_dir), args.batches, args.reps,
+               args.only)
         return
     dirs = {"A": os.path.abspath(args.a_dir),
             "B": os.path.abspath(args.b_dir)}
@@ -246,8 +293,9 @@ def main():
             res = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), dirs[tree],
                  "--worker", "--batches", str(args.batches), "--reps",
-                 str(args.reps)], cwd=dirs[tree], capture_output=True,
-                text=True)
+                 str(args.reps)] + (["--only", args.only] if args.only
+                                    else []), cwd=dirs[tree],
+                capture_output=True, text=True)
             if res.returncode:
                 sys.stderr.write(res.stderr)
                 raise SystemExit(f"torch_live_ab: the turn in {dirs[tree]} "
@@ -255,9 +303,10 @@ def main():
             runs[tree].append(json.loads(res.stdout.strip().splitlines()[-1]))
             print(f"turn {tree} ({dirs[tree]}): "
                   f"{time.perf_counter() - t0:.0f} s", flush=True)
+    configs = selected(args.only)
     med, slope = {}, {}
     for tree, turns in runs.items():
-        for label, _, _, mode, _, _ in CONFIGS:
+        for label, _, _, mode, _, _ in configs:
             name = f"{label} {mode}"
             full = [v for t in turns for v in t["ms"][name]]
             per_turn = [statistics.median(t["ms"][name]) for t in turns]
@@ -277,7 +326,7 @@ def main():
                   f"{slope[tree, name]:.4f} ms/it against a bound of "
                   f"{bound:.4f} ({turns[0]['bytes'][name] / 1e6:.1f} MB/it)"
                   f" = {bound / slope[tree, name] * 100:.1f}% [{card}]")
-        for name in PROFILED:
+        for name in (n for n in PROFILED if n in turns[0]["profile"]):
             ws = [t["profile"][name] for t in turns
                   if t["profile"][name] is not None]
             if not ws:
@@ -291,13 +340,16 @@ def main():
                   f"device operations, busy "
                   f"{statistics.median(w['busy'] for w in ws) * 100:.1f}% "
                   f"(turns {turn_ms}) [{card}]")
-        tail = (slope[tree, "arrowhead -b 10 secded"]
-                - slope[tree, "-b 10 secded"])
-        print(f"{tree} split tail's share of the secded slope: {tail:.4f} "
-              f"ms/it (arrowhead -b 10 minus DIA -b 10, kernel events) = "
-              f"{tail / slope[tree, 'arrowhead -b 10 secded'] * 100:.1f}% "
-              f"[{card}]")
-    for label, _, _, mode, _, _ in CONFIGS:
+        if (tree, "arrowhead -b 10 secded") in slope and (
+                tree, "-b 10 secded") in slope:
+            tail = (slope[tree, "arrowhead -b 10 secded"]
+                    - slope[tree, "-b 10 secded"])
+            print(f"{tree} split tail's share of the secded slope: "
+                  f"{tail:.4f} ms/it (arrowhead -b 10 minus DIA -b 10, "
+                  f"kernel events) = "
+                  f"{tail / slope[tree, 'arrowhead -b 10 secded'] * 100:.1f}"
+                  f"% [{card}]")
+    for label, _, _, mode, _, _ in configs:
         name = f"{label} {mode}"
         # turn k of A and turn k of B ran next to each other (A B, B A)
         faster = sum(statistics.median(b["ms"][name])

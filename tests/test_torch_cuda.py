@@ -303,8 +303,12 @@ def test_kernel_d_matches_plain(dev, mode, flips, seed, shape):
     b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
     solve = make_fused_solver(m, mode, 300, 1e-8)
     before = fused_cg_ell.launches
+    # mode none keeps the first design's loop; the rest run the stream
+    sched = "grid-stride" if mode == "none" else "window"
+    on_schedule = fused_cg_ell.schedules[sched]
     rk = solve(make_matrix_device(m, torch.float32, dev), b.to(dev))
     assert fused_cg_ell.launches > before
+    assert fused_cg_ell.schedules[sched] > on_schedule
     rp = solve(make_matrix_device(m, torch.float32, CPU), b)
     assert rk.iterations == rp.iterations
     assert tuple(rk.stats) == tuple(rp.stats)
@@ -314,6 +318,113 @@ def test_kernel_d_matches_plain(dev, mode, flips, seed, shape):
     rk2 = solve(make_matrix_device(m, torch.float32, dev), b.to(dev))
     assert torch.equal(rk2.rr_trace[:it], rk.rr_trace[:it])
     assert torch.equal(rk2.x, rk.x)
+
+
+def kernel_d_grid(md, spec):
+    """Kernel D's tail-free grid and schedule on this card for ``md``
+    (solver.fused.ell_plan)."""
+    from abft_sparse_cg_tpu_torch.solver.fused import ell_plan
+
+    return ell_plan(0, md.values.shape[1], spec.band,
+                    2 if spec.plane2 is not None else 1)
+
+
+def test_kernel_d_plan_on_the_card(dev):
+    """The card's occupancy gives the plan tests/test_torch_fused_ell_
+    plan.py holds on its model of the H100: dense-radius-3d -b 10 at 5
+    blocks per SM with one signal plane, 4 with two, the window;
+    stencil27-shuffled -b 10 the l2 schedule at 7."""
+    from test_torch_fused_ell_plan import h100_occupancy
+
+    from abft_sparse_cg_tpu_torch.solver.fused import ell_plan, ell_row_plan
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for R, band, planes in ((221184, 1627, 1), (221184, 1627, 2),
+                            (640000, 4681, 1)):
+        assert ell_plan(dev.index, R, band, planes) == \
+            ell_row_plan(R, band, planes, sms, h100_occupancy)
+
+
+@pytest.mark.parametrize("case", [
+    "narrow band", "narrow band Jacobi",
+    "lazy window closing mid-run", "trigger at the first check",
+    "two planes", "RCM gidx", "band over the cap", "breakdown", "edge R32",
+    "edge K1", "edge K13", "edge empty-tiles", "corrupted index"])
+def test_kernel_d_replays_bit_for_bit(dev, case):
+    """Kernel D's tail-free instances on the card's grid against tests/
+    test_torch_fused_ell_plan.py's NumPy replay of their schedule and
+    fixed-order reductions: exit state, trace, x, r and p bit for bit (the
+    lazy snapshot too).  Covers the window and the l2 schedule (a band
+    over the cap), RCM gidx, Jacobi, lazy CI 4, two planes, a trigger, a
+    breakdown, kernel C's edge shapes (utils.ell_edges, R 32 cut from a
+    built matrix) and an index moved far outside its block's window with
+    the signal plane left blind to it (read from device memory: the
+    replay's w is ops.spmv.ell_product's)."""
+    from test_torch_fused_ell_plan import Partition, replay_solve, setup
+
+    from abft_sparse_cg_tpu_torch.solver.fused import ell_halo
+
+    md, spec, b, minv, _, _, ci, upto, _ = setup(case)
+    if case == "edge R32":
+        md, b = cut_rows(md, ROW_CUT["R32"]), b[: ROW_CUT["R32"]]
+    grid, schedule = kernel_d_grid(md, spec)
+    assert schedule == ("l2" if case == "band over the cap" else "window")
+    if case == "corrupted index":
+        # setup moved slot 0 of row 5 to row R - 7: past block 0's window
+        part = Partition(md.values.shape[1], grid)
+        assert md.values.shape[1] - 7 >= part.hi[0] + ell_halo(spec.band)
+    itr, trig, err, x, r, p, trace, snap = replay_solve(
+        md, spec, b, minv, grid, schedule, upto, 1e-8, ci)
+    s = init_state(b, upto, minv)
+    xk, rk, pk = (v.to(dev) for v in (s.x, s.r, s.p))
+    tk = torch.full((upto + 1,), float("nan"), device=dev)
+    before = fused_cg_ell.schedules[schedule]
+    mdk = md._replace(**{f: None if getattr(md, f) is None else
+                         (tuple(t.to(dev) for t in getattr(md, f))
+                          if f == "words" else getattr(md, f).to(dev))
+                         for f in md._fields})
+    out = fused_cg_ell(mdk, spec, xk, rk, pk, s.rr.to(dev), s.rz.to(dev),
+                       0, upto, 1e-8, tk, None,
+                       None if minv is None else minv.to(dev), ci,
+                       schedule=schedule)
+    torch.cuda.synchronize()
+    assert fused_cg_ell.schedules[schedule] == before + 1
+    assert (out.itr, out.trig, out.err) == (itr, trig, err)
+    assert same_bits(tk[:itr].cpu(), torch.from_numpy(trace))
+    for a, c in zip((xk, rk, pk), (x, r, p)):
+        assert same_bits(a.cpu(), torch.from_numpy(np.asarray(c)))
+    if snap is not None and out.snap.itr > 0:
+        for a, c in zip((out.snap.x, out.snap.r, out.snap.p), snap):
+            assert same_bits(a.cpu(), torch.from_numpy(np.asarray(c)))
+
+
+@pytest.mark.parametrize("variant", ["lazy", "lazy Jacobi"])
+@pytest.mark.parametrize("schedule", ["window", "l2"])
+def test_kernel_d_clean_lazy_equals_live(dev, variant, schedule):
+    """A clean lazy (CI 4) solve on kernel D equals the live one bit for
+    bit (one grid, one partition, one reduction order for every instance
+    of the stream), under each schedule; and, where the two schedules'
+    plans give one grid (this matrix: one block per warp of rows), the
+    two schedules' x are the same bits."""
+    from abft_sparse_cg_tpu_torch.solver.fused import ell_plan
+
+    m = ell_matrix("secded")
+    precond = "Jacobi" in variant
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    args = (jacobi_minv(m, dev),) if precond else ()
+    xs = {}
+    for ci in (1, 4):
+        for sched in ("window", "l2"):
+            solve = make_fused_solver(m, "secded", 300, 1e-8,
+                                      precond=precond, check_interval=ci,
+                                      schedule=sched)
+            xs[ci, sched] = solve(make_matrix_device(m, torch.float32, dev),
+                                  b.to(dev), *args).x
+    assert torch.equal(xs[4, schedule], xs[1, schedule])
+    assert ell_plan(0, m.R, m.band, 1, "window")[0] == \
+        ell_plan(0, m.R, m.band, 1, "l2")[0]
+    assert torch.equal(xs[1, "window"], xs[1, "l2"])
 
 
 # --------------------------------------------------------------------------
