@@ -36,6 +36,7 @@ Subpackages:
   backends  (target, mode) registry behind the CLI
   scrub     the offline verify-and-repair pass, and a solve's repaired
             planes as a host matrix
+  tracing   the spans and counts of the host build and the solve path
   utils     matrix generators and the zoo of structural families
 """
 

@@ -49,12 +49,12 @@ import sys
 import time
 
 import numpy as np
-from torch.profiler import record_function
 
 from ..device import target_device
 from ..ecc.layout import OVERALL_PARITY_BIT
 from ..formats.protected import ProtectedMatrix
 from ..ops.spmv import ERR_DOUBLE, ERRCODES
+from ..tracing import span
 from . import registry
 from .base import Backend, HostResult
 from .torch_backend import jacobi_minv, warn_live_schedule
@@ -288,7 +288,7 @@ class CppBackend(Backend):
             # must reach it first.
             sys.stdout.flush()
         t0 = time.perf_counter()
-        with record_function("abft_cg_solve"):  # a span for --profile
+        with span("abft_cg_solve"):  # a span for --profile
             self.lib.abft_cg_solve(
                 mat.fmt.encode(), self.mode.encode(), w[0], w[1], w[2],
                 _ptr(w3), _ptr(row_ptr), mat.N, mat.nnz, b, _ptr(minv),
@@ -321,7 +321,7 @@ class CppBackend(Backend):
         y = np.zeros(mat.N, dtype=np.float64)
         res = _CgResult()
         x = np.ascontiguousarray(x, dtype=np.float64)
-        with record_function("abft_spmv"):
+        with span("abft_spmv"):
             self.lib.abft_spmv(
                 mat.fmt.encode(), self.mode.encode(), w[0], w[1], w[2],
                 _ptr(w3), _ptr(row_ptr), mat.N, mat.nnz, x, y,

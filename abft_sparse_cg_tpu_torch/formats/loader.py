@@ -25,6 +25,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..tracing import span
 from .mmio import read_coordinate
 
 __all__ = ["AssembledMatrix", "assemble", "load_matrix"]
@@ -43,6 +44,7 @@ class AssembledMatrix:
     num_blocks: int
 
 
+@span("formats.assemble")
 def assemble(cols, rows, values, width: int, num_blocks: int) -> AssembledMatrix:
     """Symmetrize + sort + replicate raw 0-based triplets of one block."""
     cols = np.asarray(cols, dtype=np.int64)

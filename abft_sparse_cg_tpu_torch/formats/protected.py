@@ -36,6 +36,7 @@ import numpy as np
 from ..ecc import codec
 from ..ecc.layout import COO128, CSR96, CodewordLayout
 from ..ecc.values import f64_to_planes
+from ..tracing import span
 from .loader import AssembledMatrix
 
 __all__ = ["ProtectedMatrix", "build_protected", "FORMATS", "not_ported"]
@@ -190,6 +191,7 @@ class ProtectedMatrix:
         return replace(out, ell_cksum=ell_cksum, flat_cksum=flat_cksum)
 
 
+@span("formats.encode")
 def _encode_planes(fmt, assembled: AssembledMatrix, mode: str):
     """Build the canonical flat planes, ECC bits included."""
     layout = CSR96 if fmt == "csr" else COO128
@@ -215,6 +217,7 @@ def _encode_planes(fmt, assembled: AssembledMatrix, mode: str):
 CKSUM_BLOCK = 8  # rows per checksum block; 8 divides every padded R
 
 
+@span("formats.checksums")
 def flat_checksums(planes: Dict[str, np.ndarray], layout,
                    nnz: int) -> np.ndarray:
     """XOR checksums of the canonical FLAT planes per 8-element block:
@@ -228,6 +231,7 @@ def flat_checksums(planes: Dict[str, np.ndarray], layout,
     return out
 
 
+@span("formats.checksums")
 def compute_exec_checksums(ell: Dict[str, np.ndarray],
                            word_names) -> np.ndarray:
     """XOR checksums of the exec planes per 8-row block -> (W, R/8)
@@ -242,6 +246,7 @@ def compute_exec_checksums(ell: Dict[str, np.ndarray],
     return np.stack(out).astype(np.uint32)
 
 
+@span("formats.scatter")
 def _scatter_exec(planes, layout, slot, shape):
     """Scatter flat planes into execution planes (all-zero padding)."""
     out = {}
@@ -268,6 +273,7 @@ def _group_structure(group, gidx, N, nnz, presorted):
     return within, glen
 
 
+@span("formats.build")
 def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
                     force_exec: str = None, reorder: str = "auto",
                     split: str = "auto", force_perm: np.ndarray = None,
@@ -338,35 +344,36 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
             ok = np.unique(inv * R + group).size == nnz
         return ok, uoffs, inv
 
-    perm = force_perm if mode != "constraints" else None
-    group, gidx = exec_indices(perm)
-    dia_ok, uoffs, inv = dia_check(group, gidx)
-    band = int(np.abs(gidx - group).max()) if nnz else 0
+    with span("formats.layout"):
+        perm = force_perm if mode != "constraints" else None
+        group, gidx = exec_indices(perm)
+        dia_ok, uoffs, inv = dia_check(group, gidx)
+        band = int(np.abs(gidx - group).max()) if nnz else 0
 
-    if (perm is None and not dia_ok and mode != "constraints" and nnz > 0
-            and reorder in ("auto", "rcm")):
-        from .reorder import rcm_permutation
+        if (perm is None and not dia_ok and mode != "constraints"
+                and nnz > 0 and reorder in ("auto", "rcm")):
+            from .reorder import rcm_permutation
 
-        cand = rcm_permutation(rows, cols, N)
-        pgroup, pgidx = exec_indices(cand)
-        pdia_ok, puoffs, pinv = dia_check(pgroup, pgidx)
-        pband = int(np.abs(pgidx - pgroup).max())
-        # Adopt when it unlocks the DIA stencil, or narrows the band.
-        if pdia_ok or (pband < band and pband <= _BAND_KERNEL_MAX):
-            perm = cand
-            group, gidx = pgroup, pgidx
-            dia_ok, uoffs, inv = pdia_ok, puoffs, pinv
-            band = pband
+            cand = rcm_permutation(rows, cols, N)
+            pgroup, pgidx = exec_indices(cand)
+            pdia_ok, puoffs, pinv = dia_check(pgroup, pgidx)
+            pband = int(np.abs(pgidx - pgroup).max())
+            # Adopt when it unlocks the DIA stencil, or narrows the band.
+            if pdia_ok or (pband < band and pband <= _BAND_KERNEL_MAX):
+                perm = cand
+                group, gidx = pgroup, pgidx
+                dia_ok, uoffs, inv = pdia_ok, puoffs, pinv
+                band = pband
 
-    if force_exec in ("ell", "flat"):
-        dia_ok = False
-    elif force_exec == "dia" and not dia_ok:
-        raise ValueError("matrix is not representable as DIA")
+        if force_exec in ("ell", "flat"):
+            dia_ok = False
+        elif force_exec == "dia" and not dia_ok:
+            raise ValueError("matrix is not representable as DIA")
 
-    within, glen = _group_structure(
-        group, gidx, N, nnz,
-        presorted=(perm is None and fmt == "csr"),
-    )
+        within, glen = _group_structure(
+            group, gidx, N, nnz,
+            presorted=(perm is None and fmt == "csr"),
+        )
     K = max(1, int(glen.max()) if nnz else 1)
     ell_len = np.zeros(R, dtype=np.int32)
     ell_len[:N] = glen
@@ -394,19 +401,20 @@ def build_protected(fmt: str, assembled: AssembledMatrix, mode: str,
         # order itself.
         exec_kind = "flat"
         nnz_pad = -(-nnz // CKSUM_BLOCK) * CKSUM_BLOCK
-        order = np.lexsort((gidx, group))
-        ell_slot = np.empty(nnz, dtype=np.int64)
-        ell_slot[order] = np.arange(nnz, dtype=np.int64)
-        ell = {}
-        for name in layout.word_names:
-            flat = np.zeros(nnz_pad, dtype=np.uint32)
-            flat[ell_slot] = planes[name]
-            ell[name] = flat
-        # Output index per exec slot (the segment ids of the reduce).
-        grp_exec = np.zeros(nnz_pad, dtype=np.int32)
-        grp_exec[ell_slot] = group.astype(np.int32)
-        grp_exec[nnz:] = R - 1 if R else 0   # padding joins the last row
-        ell["__flat_group__"] = grp_exec
+        with span("formats.scatter"):
+            order = np.lexsort((gidx, group))
+            ell_slot = np.empty(nnz, dtype=np.int64)
+            ell_slot[order] = np.arange(nnz, dtype=np.int64)
+            ell = {}
+            for name in layout.word_names:
+                flat = np.zeros(nnz_pad, dtype=np.uint32)
+                flat[ell_slot] = planes[name]
+                ell[name] = flat
+            # Output index per exec slot (the segment ids of the reduce).
+            grp_exec = np.zeros(nnz_pad, dtype=np.int32)
+            grp_exec[ell_slot] = group.astype(np.int32)
+            grp_exec[nnz:] = R - 1 if R else 0   # padding joins the last row
+            ell["__flat_group__"] = grp_exec
         dia_offsets = ()
     else:
         if (split == "auto" and force_exec is None and force_perm is None

@@ -58,6 +58,7 @@ from ..ecc.layout import ECC_COL_MASK
 from ..ecc.values import planes_to_value
 from ..formats.protected import not_ported
 from ..formats.reorder import inverse_permutation
+from ..tracing import span
 
 __all__ = [
     "ERRCODES",
@@ -208,6 +209,7 @@ def perm_positions(mat, device) -> torch.Tensor:
     return torch.from_numpy(pp).to(device)
 
 
+@span("ops.upload")
 def make_matrix_device(mat, dtype: torch.dtype, device: torch.device,
                        rows: tuple = None):
     """Upload a ProtectedMatrix's exec planes to ``device`` and derive

@@ -25,6 +25,7 @@ import torch
 
 from ..ops.blas1 import calc_p, calc_xr, dot
 from ..ops.spmv import ERR_BREAKDOWN, ERR_PHANTOM, SpmvImpl, SpmvStats
+from ..tracing import count, span
 
 __all__ = ["CGResult", "CGState", "make_cg_solver", "make_cg_continue",
            "make_lazy_ci_continue", "make_lazy_ci_solver", "init_state",
@@ -78,6 +79,7 @@ def _iterate(x, r, p, rr, rz, w, minv=None, pw=None):
     return x1, r1, p1, rr1, rz1, bad
 
 
+@span("solver.init")
 def init_state(b: torch.Tensor, max_itrs: int, minv=None):
     """x0 = 0, r = b, p = M^-1 r (r itself unpreconditioned;
     cg.cpp:85-88)."""
@@ -117,6 +119,7 @@ def make_cg_solver(impl: SpmvImpl, max_itrs: int, conv_threshold: float):
 def solver_of(cont, max_itrs):
     """``solve(md, b, minv=None) -> CGResult``: a continue function run
     from the initial state to ``max_itrs``."""
+    @span("solver.solve")
     def solve(md, b, minv=None):
         s, md_out = cont(md, init_state(b, max_itrs, minv), max_itrs, minv)
         return CGResult(x=s.x, iterations=s.itr, rr=s.rr, stats=s.stats,
@@ -184,7 +187,11 @@ def _baseline_changed(md_before, md_after) -> bool:
     """Did a repair change the stored-checksum baseline (cg.py:233)?"""
     la, lb = _cksum_leaves(md_before), _cksum_leaves(md_after)
     assert len(la) == len(lb), (len(la), len(lb))
-    return any(bool(torch.any(a != b)) for a, b in zip(la, lb))
+    for a, b in zip(la, lb):
+        count("solver.host_reads")
+        if bool(torch.any(a != b)):
+            return True
+    return False
 
 
 def _phantom_guard(trigged: bool, st1: SpmvStats, consumed: bool,

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.spmv import SpmvStats
+from ..tracing import span
 from .cg import CGResult, CGState, init_state, make_cg_continue, trace_length
 
 __all__ = ["save_state", "load_state", "CheckpointedSolve"]
@@ -77,6 +78,7 @@ class CheckpointedSolve:
             continue_fn = make_cg_continue(impl, conv_threshold)
         self._cont = continue_fn
 
+    @span("solver.solve")
     def run(self, md, b, max_itrs: int, resume: bool = False,
             minv=None) -> CGResult:
         if resume and os.path.exists(self.path):

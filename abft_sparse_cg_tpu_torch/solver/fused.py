@@ -51,6 +51,7 @@ from ..ops.spmv_cuda import (
     gather_mask,
     signals_plain,
 )
+from ..tracing import count, span
 from .cg import (
     CGState,
     _baseline_changed,
@@ -497,12 +498,17 @@ def _launch_args(what, md, spec, x, r, p, rr, rz, itr, upto, trace,
 
 
 def _launch_result(a):
-    itr_out, trig, err = (int(v) for v in a["iscal_out"].tolist())
-    snap = None
-    o = a["opts"]["keep"]
-    if "xs" in o:
-        snap = Snapshot(int(o["its"][0]), o["xs"], o["rs"], o["ps"],
-                        o["fs"][0], o["fs"][1])
+    """The launch's outputs, read back once it has ended: the host
+    waits here for the kernel."""
+    with span("fused.read"):
+        itr_out, trig, err = (int(v) for v in a["iscal_out"].tolist())
+        count("solver.host_reads")
+        snap = None
+        o = a["opts"]["keep"]
+        if "xs" in o:
+            snap = Snapshot(int(o["its"][0]), o["xs"], o["rs"], o["ps"],
+                            o["fs"][0], o["fs"][1])
+            count("solver.host_reads")
     return FusedOut(itr_out, a["fscal_out"][0], a["fscal_out"][1], trig,
                     err, snap)
 
@@ -547,34 +553,36 @@ def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
     if tail is not None and schedule is not None:
         raise ValueError("fused_cg_dia: the split-tail instances have one "
                          "schedule")
-    ci = _lazy_ci(spec, ci)
-    a = _launch_args("fused_cg_dia", md, spec, x, r, p, rr, rz, itr, upto,
-                     trace, tail, minv, ci)
-    sched, buf2 = None, (None, None)
-    if tail is None:
-        sched = schedule or dia_schedule(spec.offsets)
-        if sched == "fold":
-            if max(abs(int(o)) for o in spec.offsets) > FOLD_MAX_HALO:
-                raise ValueError(f"fused_cg_dia: the fold schedule takes "
-                                 f"offsets up to {FOLD_MAX_HALO}")
-            buf2 = (torch.empty_like(r), torch.empty_like(p))
-    offs, offs_ptr = _offsets_arg(spec.offsets)
-    rc = library("fused_cg_dia").abft_fused_cg_dia(
-        md.values.data_ptr(), offs_ptr, a["D"], a["R"], x.data_ptr(),
-        r.data_ptr(), p.data_ptr(), a["w"].data_ptr(), *a["sig"],
-        int(spec.use_parity), int(spec.use_cksum),
-        a["part_pw"].data_ptr(), a["part_rr"].data_ptr(),
-        a["part_flag"].data_ptr(), a["grid"], a["iscal_in"].data_ptr(),
-        a["fscal_in"].data_ptr(), a["iscal_out"].data_ptr(),
-        a["fscal_out"].data_ptr(), trace.data_ptr(), trace.shape[0],
-        float(conv), *a["tail"]["ptrs"], *a["opts"]["ptrs"],
-        int(sched == "fold"), _ptr(buf2[0]), _ptr(buf2[1]),
-        dia_block_rows(a["R"], a["grid"]), a["dev"], a["stream"])
-    del offs
-    check(rc, "fused_cg_dia cooperative launch")
-    _count(fused_cg_dia, tail, minv, ci, a["planes"])
-    if sched is not None:
-        fused_cg_dia.schedules[sched] += 1
+    with span("fused.args"):
+        ci = _lazy_ci(spec, ci)
+        a = _launch_args("fused_cg_dia", md, spec, x, r, p, rr, rz, itr,
+                         upto, trace, tail, minv, ci)
+        sched, buf2 = None, (None, None)
+        if tail is None:
+            sched = schedule or dia_schedule(spec.offsets)
+            if sched == "fold":
+                if max(abs(int(o)) for o in spec.offsets) > FOLD_MAX_HALO:
+                    raise ValueError(f"fused_cg_dia: the fold schedule "
+                                     f"takes offsets up to {FOLD_MAX_HALO}")
+                buf2 = (torch.empty_like(r), torch.empty_like(p))
+        offs, offs_ptr = _offsets_arg(spec.offsets)
+    with span("fused.launch"):
+        rc = library("fused_cg_dia").abft_fused_cg_dia(
+            md.values.data_ptr(), offs_ptr, a["D"], a["R"], x.data_ptr(),
+            r.data_ptr(), p.data_ptr(), a["w"].data_ptr(), *a["sig"],
+            int(spec.use_parity), int(spec.use_cksum),
+            a["part_pw"].data_ptr(), a["part_rr"].data_ptr(),
+            a["part_flag"].data_ptr(), a["grid"], a["iscal_in"].data_ptr(),
+            a["fscal_in"].data_ptr(), a["iscal_out"].data_ptr(),
+            a["fscal_out"].data_ptr(), trace.data_ptr(), trace.shape[0],
+            float(conv), *a["tail"]["ptrs"], *a["opts"]["ptrs"],
+            int(sched == "fold"), _ptr(buf2[0]), _ptr(buf2[1]),
+            dia_block_rows(a["R"], a["grid"]), a["dev"], a["stream"])
+        del offs
+        check(rc, "fused_cg_dia cooperative launch")
+        _count(fused_cg_dia, tail, minv, ci, a["planes"])
+        if sched is not None:
+            fused_cg_dia.schedules[sched] += 1
     return _launch_result(a)
 
 
@@ -603,25 +611,28 @@ def fused_cg_ell(md, spec: EllSpec, x, r, p, rr, rz, itr: int, upto: int,
     if tail is not None and schedule is not None:
         raise ValueError("fused_cg_ell: the split-tail instances have one "
                          "schedule")
-    ci = _lazy_ci(spec, ci)
-    a = _launch_args("fused_cg_ell", md, spec, x, r, p, rr, rz, itr, upto,
-                     trace, tail, minv, ci, schedule)
-    sched = a["schedule"]
-    hb = ell_halo(spec.band) if sched == "window" else -1
-    rc = library("fused_cg_ell").abft_fused_cg_ell(
-        md.values.data_ptr(), a["gsrc"].data_ptr(), gather_mask(spec),
-        md.ell_len.data_ptr(), a["D"], a["R"], x.data_ptr(), r.data_ptr(),
-        p.data_ptr(), a["w"].data_ptr(), *a["sig"],
-        int(spec.use_parity), int(spec.use_cksum), a["part_pw"].data_ptr(),
-        a["part_rr"].data_ptr(), a["part_flag"].data_ptr(), a["grid"],
-        a["iscal_in"].data_ptr(), a["fscal_in"].data_ptr(),
-        a["iscal_out"].data_ptr(), a["fscal_out"].data_ptr(),
-        trace.data_ptr(), trace.shape[0], float(conv), *a["tail"]["ptrs"],
-        *a["opts"]["ptrs"], hb, a["dev"], a["stream"])
-    check(rc, "fused_cg_ell cooperative launch")
-    _count(fused_cg_ell, tail, minv, ci, a["planes"])
-    if sched is not None:
-        fused_cg_ell.schedules[sched] += 1
+    with span("fused.args"):
+        ci = _lazy_ci(spec, ci)
+        a = _launch_args("fused_cg_ell", md, spec, x, r, p, rr, rz, itr,
+                         upto, trace, tail, minv, ci, schedule)
+        sched = a["schedule"]
+        hb = ell_halo(spec.band) if sched == "window" else -1
+    with span("fused.launch"):
+        rc = library("fused_cg_ell").abft_fused_cg_ell(
+            md.values.data_ptr(), a["gsrc"].data_ptr(), gather_mask(spec),
+            md.ell_len.data_ptr(), a["D"], a["R"], x.data_ptr(),
+            r.data_ptr(), p.data_ptr(), a["w"].data_ptr(), *a["sig"],
+            int(spec.use_parity), int(spec.use_cksum),
+            a["part_pw"].data_ptr(), a["part_rr"].data_ptr(),
+            a["part_flag"].data_ptr(), a["grid"], a["iscal_in"].data_ptr(),
+            a["fscal_in"].data_ptr(), a["iscal_out"].data_ptr(),
+            a["fscal_out"].data_ptr(), trace.data_ptr(), trace.shape[0],
+            float(conv), *a["tail"]["ptrs"], *a["opts"]["ptrs"], hb,
+            a["dev"], a["stream"])
+        check(rc, "fused_cg_ell cooperative launch")
+        _count(fused_cg_ell, tail, minv, ci, a["planes"])
+        if sched is not None:
+            fused_cg_ell.schedules[sched] += 1
     return _launch_result(a)
 
 
@@ -678,6 +689,8 @@ def make_fused_continue(mat, mode, conv_threshold, precond=False,
     tspec = tail_spec(mat, mode) if split else None
     kernel = fused_cg_dia if isinstance(spec, DiaSpec) else fused_cg_ell
     classify = make_spmv(mat, torch.float32, mode).classify
+    if classify is not None:
+        classify = span("solver.classify")(classify)
     ci = _lazy_ci(spec, check_interval)
     kw = {} if schedule is None else {"schedule": schedule}
 
@@ -688,15 +701,17 @@ def make_fused_continue(mat, mode, conv_threshold, precond=False,
             md, tail = md[0], (md[1], tspec)
         out = kernel(md, spec, s.x, s.r, s.p, s.rr, s.rz, s.itr, upto,
                      conv_threshold, ktrace, tail, minv, ci, **kw)
-        # Merge the kernel's trace: it wrote slots [s.itr, itr) only.
-        tio = torch.arange(s.trace.shape[0], device=s.trace.device)
-        trace = torch.where((tio >= s.itr) & (tio < out.itr), ktrace,
-                            s.trace)
-        s1 = s._replace(itr=out.itr, rr=out.rr, rz=out.rz, trace=trace)
-        snap = None
-        if out.snap is not None:
-            snap = CGState(out.snap.itr, out.snap.x, out.snap.r, out.snap.p,
-                           out.snap.rr, out.snap.rz, s.stats, trace)
+        with span("fused.merge"):
+            # Merge the kernel's trace: it wrote slots [s.itr, itr) only.
+            tio = torch.arange(s.trace.shape[0], device=s.trace.device)
+            trace = torch.where((tio >= s.itr) & (tio < out.itr), ktrace,
+                                s.trace)
+            s1 = s._replace(itr=out.itr, rr=out.rr, rz=out.rz, trace=trace)
+            snap = None
+            if out.snap is not None:
+                snap = CGState(out.snap.itr, out.snap.x, out.snap.r,
+                               out.snap.p, out.snap.rr, out.snap.rz,
+                               s.stats, trace)
         return s1, snap, out.trig, out.err
 
     def continue_(md, state: CGState, upto, minv=None):
@@ -707,8 +722,9 @@ def make_fused_continue(mat, mode, conv_threshold, precond=False,
         upto = int(upto)
         # The kernel updates x, r, p in place: work on copies so the
         # caller's state stays as it was.
-        s = state._replace(x=state.x.clone(), r=state.r.clone(),
-                           p=state.p.clone())
+        with span("fused.args"):
+            s = state._replace(x=state.x.clone(), r=state.r.clone(),
+                               p=state.p.clone())
         if spec.plane is None and (tspec is None or tspec.plane is None):
             # Mode none: no detection, no repair — one launch runs the
             # loop to convergence, the limit or a breakdown.
@@ -721,9 +737,10 @@ def make_fused_continue(mat, mode, conv_threshold, precond=False,
             if ci > 1:
                 # A rollback restores the snapshot's buffers, on which
                 # the next launch runs in place.
-                done, md, s, stuck = _lazy_exit_resolve(
-                    md, s1, snap, bool(trig), err, lambda md_, p_: False,
-                    classify, stuck)
+                with span("solver.resolve"):
+                    done, md, s, stuck = _lazy_exit_resolve(
+                        md, s1, snap, bool(trig), err,
+                        lambda md_, p_: False, classify, stuck)
                 if done:
                     return s, md
                 continue
@@ -732,8 +749,9 @@ def make_fused_continue(mat, mode, conv_threshold, precond=False,
             md_in = md
             if trig:
                 st1, md = classify(md)
-            st1, stuck = _phantom_guard(bool(trig), st1,
-                                        _baseline_changed(md_in, md), stuck)
+            with span("solver.guard"):
+                st1, stuck = _phantom_guard(
+                    bool(trig), st1, _baseline_changed(md_in, md), stuck)
             st = s.stats.merge_first(
                 SpmvStats(errcode=err)).merge_first(st1)
             s = s._replace(stats=st)

@@ -26,6 +26,7 @@ import torch
 
 from ..ops.blas1 import dot
 from ..ops.spmv import ERR_BREAKDOWN, SpmvImpl, SpmvStats
+from ..tracing import span
 from .cg import CGResult, trace_length
 
 __all__ = ["make_pipelined_solver"]
@@ -50,6 +51,7 @@ def make_pipelined_solver(impl: SpmvImpl, max_itrs: int,
         n, st = impl.full(md, x)
         return n, st.errcode != 0, st
 
+    @span("solver.solve")
     def solve(md, b, minv=None):
         if minv is not None:
             raise ValueError(
@@ -101,7 +103,8 @@ def make_pipelined_solver(impl: SpmvImpl, max_itrs: int,
                          r=s["r"] - alpha * s1, w=s["w"] - alpha * z1,
                          s=s1, z=z1, p=p1, g_old=gamma, a_old=alpha)
 
-        s = init(md, 0, torch.zeros_like(b), b, SpmvStats.clean())
+        with span("solver.init"):
+            s = init(md, 0, torch.zeros_like(b), b, SpmvStats.clean())
         while True:
             inner(md, s)
             if not (lazy and s["trig"]):

@@ -156,6 +156,20 @@ def test_profile_writes_a_trace_and_keeps_stdout(tmp_path, capfd):
     assert "abft_cg_solve" in names
 
 
+def test_profile_on_torch_records_the_solve_spans(tmp_path, capfd):
+    """--profile DIR on -t torch: the trace holds the port's own spans
+    of the solve and of the upload that TorchBackend.solve makes inside
+    the window."""
+    pdir = tmp_path / "torch"
+    argv = [*BASE[:-1], "torch", "-m", "secded", "-x", "--profile",
+            str(pdir)]
+    code, out, _ = run_fd(cli.main_csr, argv, capfd)
+    assert code == 0 and "[ECC] corrected" in out
+    with open(pdir / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"solver.solve", "solver.init", "ops.upload"} <= names
+
+
 def test_through_a_pipe_the_lines_keep_their_order(capfd):
     """bin/cg-csr-torch -t cpu into a pipe: Python's block-buffered echo
     and banner still come before the library's own lines (the backend

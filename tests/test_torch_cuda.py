@@ -1693,3 +1693,36 @@ def test_pipelined_on_the_kernels_matches_plain(dev, shape, flips):
     it = rk.iterations
     assert same_bits(rk.rr_trace[:it], rp.rr_trace[:it])
     assert same_bits(rk.x, rp.x)
+
+
+@pytest.mark.parametrize("ci", [1, 4])
+def test_kernel_b_solve_spans_and_host_reads(dev, ci):
+    """One clean kernel-B solve, live and lazy (CI 4): the launch's spans
+    once per launch, the state clones under ``fused.args`` once per
+    solve beside the launch's arguments, and two blocking host reads (the
+    launch's outputs; live, the repair check's baseline compare, lazy,
+    the snapshot's iteration)."""
+    from abft_sparse_cg_tpu_torch import tracing
+
+    m = dia_matrix("secded")
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    md = make_matrix_device(m, torch.float32, dev)
+    solve = make_fused_solver(m, "secded", 300, 1e-8, check_interval=ci)
+    solve(md, b.to(dev))            # builds and loads the kernel
+    torch.cuda.synchronize()
+    tracing.reset()
+    before = fused_cg_dia.launches
+    res = solve(md, b.to(dev))
+    launches = fused_cg_dia.launches - before
+    snap = tracing.snapshot()
+    tracing.reset()
+    t = {name: e["count"] for (name, prof), e in snap.items() if not prof}
+    assert res.stats.errcode == 0 and launches == 1
+    assert t["solver.solve"] == t["solver.init"] == 1
+    for name in ("fused.launch", "fused.read", "fused.merge"):
+        assert t[name] == launches, name
+    assert t["fused.args"] == launches + 1
+    assert t["solver.guard" if ci == 1 else "solver.resolve"] == 1
+    assert t["solver.host_reads"] == 2
+    assert "solver.classify" not in t
