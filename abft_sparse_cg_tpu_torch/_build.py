@@ -62,11 +62,13 @@ _SIGNATURES = {
     "fused_cg_dia": {
         # device, tail, Jacobi, lazy, signal planes, grid out
         "abft_fused_grid": [_I, _I, _I, _I, _I, _P],
-        # ... the tail-free schedule (fold or not), the fold's second r
-        # and p buffers, the tail-free rows per block
+        # ... the tail-free schedule (0 three-sync, 1 fold, 2 window), the
+        # fold's second r and p buffers, the window plan, the tail-free
+        # rows per block
         "abft_fused_cg_dia": [_P, _P, _I, _I, _P, _P, _P, _P, *_SIG, _I,
                               _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                              _F, *_TAIL, *_OPTS, _I, _P, _P, _I, _I, _P],
+                              _F, *_TAIL, *_OPTS, _I, _P, _P, _P, _I, _I,
+                              _P],
     },
     "ell_spmv_detect": {
         "abft_ell_spmv_detect": [_P, _P, _U, _P, _I, _I, _P, _P, *_SIG,

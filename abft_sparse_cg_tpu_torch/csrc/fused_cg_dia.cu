@@ -50,10 +50,20 @@
 //     or the limit runs the last update in one pass; every exit leaves
 //     the state in the caller's buffers.  Where max|offset| passes
 //     kFoldHalo (solver/fused.py::dia_schedule decides once per matrix)
-//     the shared tile would not fit, and the "three-sync" schedule runs:
-//     the same product read from p in place, then the r1 pass, then the
-//     update pass, three barriers (the fold was the faster one at every
-//     halo measured up to the cap);
+//     the shared tile would not fit, and the "window" schedule runs: the
+//     same product, then the r1 pass, then the update pass, three
+//     barriers (the fold was the faster one at every halo measured up to
+//     the cap); its product reads p from shared memory, one window per
+//     cluster of diagonal offsets (solver/fused.py::dia_window_plan: the
+//     tile's rows shifted by the cluster's least offset, and the
+//     cluster's width more), staged with cp.async for the next tile
+//     while the stencil runs on this one (two window sets), and streams
+//     the planes without allocating in L1.  Gathered from L2 instead,
+//     a warp's scalar reads of p fetch ~4x the bytes they deliver: on
+//     HPCG's 104^3 stencil the window takes ~128 us per live iteration
+//     where that gather took ~155 (PERF.md §6).  Where the windows do
+//     not fit kWindowSmem, the "three-sync" schedule gathers p from
+//     device memory instead;
 //   - grid reductions without the O(grid^2) re-read: one barrier both
 //     synchronises and reduces (dia_common.cuh grid_reduce: the block
 //     that arrives last sums the partials in a fixed order and publishes
@@ -89,6 +99,7 @@
 
 #include <cooperative_groups.h>
 
+#include "cp_async.cuh"
 #include "dia_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -109,6 +120,11 @@ constexpr int kRows = 4;
 constexpr int kTile = kRows * kBlock;
 constexpr int kRowBlocksPerSM = 4;
 constexpr int kFoldHalo = 512;
+// The window schedule: at most kMaxWindows windows, and the two window
+// sets in at most kWindowSmem bytes of dynamic shared memory (4 blocks of
+// it and their static arrays fit the SM's 228 KB).
+constexpr int kMaxWindows = 8;
+constexpr int kWindowSmem = 48 * 1024;
 
 __device__ GridSync g_sync;   // grid_reduce's barrier state
 
@@ -135,6 +151,64 @@ struct FusedArgs {
   int trace_len;
   float conv;
 };
+
+// The window schedule's plan (solver/fused.py::dia_window_plan), passed
+// by value: window c holds the rows [lo + start[c], hi + start[c] +
+// ext[c]) of a tile [lo, hi) at float at[c] of a window set of ``set``
+// floats; diagonal d reads row lo + 4t + j + off[d] of its window at
+// shift[d] + 4t + j of the set.
+struct WindowPlan {
+  int n;
+  int set;
+  int start[kMaxWindows];
+  int ext[kMaxWindows];
+  int at[kMaxWindows];
+  int shift[ABFT_MAX_D];
+};
+
+// 16 bytes of a plane the window schedule's stencil streams once, read
+// without allocating in L1 (L1::no_allocate): with p in shared memory the
+// planes are the stencil's only loads from device memory, and cycling
+// them through L1 cost 8-12% of the solve on HPCG's stencil (PERF.md §6).
+// The fold and three-sync keep ld4 / __ldg: with these loads the fold's
+// -b 100 solves took 0.9-1.5% longer in every mode (PERF.md §6).
+__device__ __forceinline__ float4 ld4_stream(const float* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint4 ldu4_stream(const uint32_t* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// Copies p's rows of the windows of tile [lo, hi) into ``set`` (16-byte
+// cp.async through L2; the caller commits and waits), rows outside
+// [0, R) as 0: every window starts at a multiple of 4 rows and R is a
+// multiple of 32, so a 16-byte group is wholly inside or outside.
+__device__ __forceinline__ void stage_windows(float* set,
+                                              const WindowPlan& wp,
+                                              const float* p, int R, int lo,
+                                              int hi) {
+  for (int c = 0; c < wp.n; ++c) {
+    const int j0 = lo + wp.start[c];
+    float* dst = set + wp.at[c];
+    const int n4 = (hi - lo + wp.ext[c]) >> 2;
+    for (int q = threadIdx.x; q < n4; q += kBlock) {
+      const int j = j0 + 4 * q;
+      if (j >= 0 && j < R)
+        cp16(dst + 4 * q, p + j);
+      else
+        st4(dst + 4 * q, make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+  }
+}
 
 // The split-tail instances' loop (their own schedule: one row per thread,
 // grid-strided, three grid syncs); each __global__ below inlines it with
@@ -299,13 +373,17 @@ __device__ __forceinline__ void tail_loop(const FusedArgs& a,
 // [b nb, (b + 1) nb); thread t takes rows lo + 4t .. lo + 4t + 3 of each
 // kTile-row tile [lo, hi) of that range, in every pass, so each thread
 // reads back only rows it wrote itself, but for the fold's halo rows.
-template <bool kFold, bool kPrecond, bool kLazy, int kPlanes>
+// ``wp``: the window schedule's plan (kWindow), else null.
+template <bool kFold, bool kWindow, bool kPrecond, bool kLazy, int kPlanes>
 __device__ __forceinline__ void row_loop(const FusedArgs& a,
                                          const DiaOffsets& offs,
+                                         const WindowPlan* wp,
                                          const CgOpts& o) {
   __shared__ float fbuf[72];
   __shared__ int ibuf[44];
   __shared__ __align__(16) float tile[kFold ? kTile + 2 * kFoldHalo + 8 : 4];
+  // the window schedule's two window sets
+  extern __shared__ __align__(16) float wsets[];
   const int R = a.R;
   const int lo0 = min((int)blockIdx.x * a.nb, R);
   const int hi0 = min(lo0 + a.nb, R);
@@ -348,7 +426,13 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
     // 1. (the pending update,) stencil, pw and signals
     float pw_l = 0.0f;
     int bad = 0;
-    for (int lo = lo0; lo < hi0; lo += kTile) {
+    if constexpr (kWindow) {
+      if (lo0 < hi0)
+        stage_windows(wsets, *wp, a.p, R, lo0, min(lo0 + kTile, hi0));
+      cp_commit();
+    }
+    int cur = 0;   // the window set of this tile
+    for (int lo = lo0; lo < hi0; lo += kTile, cur ^= 1) {
       const int hi = min(lo + kTile, hi0);
       const int r = lo + t4;
       float4 pk = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -400,6 +484,18 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
       } else {
         if (r < hi) pk = ld4cg(a.p + r);
       }
+      if constexpr (kWindow) {
+        // the next tile's windows into the other set, in flight during
+        // this tile's stencil (that set's last reader was the tile before,
+        // which ended with a __syncthreads)
+        const int nlo = lo + kTile;
+        if (nlo < hi0)
+          stage_windows(wsets + (cur ^ 1) * wp->set, *wp, a.p, R, nlo,
+                        min(nlo + kTile, hi0));
+        cp_commit();
+        cp_wait<1>();     // this thread's copies of this tile's set
+        __syncthreads();  // everyone's
+      }
       // the stencil, and the signal words beside the values (both
       // planes' loads in flight together)
       const bool sig = a.sig.plane != nullptr && chk;
@@ -407,14 +503,18 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
       if (r < hi) {
         float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
         for (int d = 0; d < offs.n; ++d) {
-          const float4 v = ld4(a.vals + (size_t)d * R + r);
+          const float* vp = a.vals + (size_t)d * R + r;
+          const float4 v = kWindow ? ld4_stream(vp) : ld4(vp);
           if (sig) {
-            const uint4 u = __ldg(reinterpret_cast<const uint4*>(
-                a.sig.plane + (size_t)d * R + r));
+            const uint32_t* up = a.sig.plane + (size_t)d * R + r;
+            const uint4 u = kWindow ? ldu4_stream(up)
+                                    : __ldg(reinterpret_cast<const uint4*>(up));
             uint4 pu = u;
             if constexpr (kPlanes == 2) {
-              const uint4 u2 = __ldg(reinterpret_cast<const uint4*>(
-                  a.sig.plane2 + (size_t)d * R + r));
+              const uint32_t* up2 = a.sig.plane2 + (size_t)d * R + r;
+              const uint4 u2 =
+                  kWindow ? ldu4_stream(up2)
+                          : __ldg(reinterpret_cast<const uint4*>(up2));
               acc2 ^= u2.x ^ u2.y ^ u2.z ^ u2.w;
               pu = make_uint4(u.x ^ u2.x, u.y ^ u2.y, u.z ^ u2.z, u.w ^ u2.w);
             }
@@ -427,6 +527,8 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
           float4 s;
           if constexpr (kFold) {
             s = tile_window(tile, kFoldHalo + t4 + offs.off[d]);
+          } else if constexpr (kWindow) {
+            s = tile_window(wsets + cur * wp->set, t4 + wp->shift[d]);
           } else {
             const int c = r + offs.off[d];
             s.x = (c >= 0 && c < R) ? __ldcg(a.p + c) : 0.0f;
@@ -460,7 +562,7 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
             bad = 1;
         }
       }
-      if constexpr (kFold) __syncthreads();  // the next tile's stage
+      if constexpr (kFold || kWindow) __syncthreads();  // the next stage
     }
     // 2. pw and the trigger in one barrier; a trigger exits before the
     // update
@@ -677,7 +779,13 @@ __device__ __forceinline__ void row_loop(const FusedArgs& a,
 template <bool kFold, bool kPrecond, bool kLazy, int kPlanes>
 __global__ void __launch_bounds__(kBlock, kRowBlocksPerSM)
 fused_cg_dia_rows(FusedArgs a, DiaOffsets offs, CgOpts o) {
-  row_loop<kFold, kPrecond, kLazy, kPlanes>(a, offs, o);
+  row_loop<kFold, false, kPrecond, kLazy, kPlanes>(a, offs, nullptr, o);
+}
+
+template <bool kPrecond, bool kLazy, int kPlanes>
+__global__ void __launch_bounds__(kBlock, kRowBlocksPerSM)
+fused_cg_dia_window(FusedArgs a, DiaOffsets offs, WindowPlan wp, CgOpts o) {
+  row_loop<false, true, kPrecond, kLazy, kPlanes>(a, offs, &wp, o);
 }
 
 template <bool kPrecond, int kPlanes>
@@ -694,14 +802,25 @@ fused_cg_dia_tail_lazy_kernel(FusedArgs a, DiaOffsets offs, TailPlan tp,
   tail_loop<kPrecond, true, kPlanes>(a, offs, tp, o);
 }
 
+// The tail-free schedules, as the C interface numbers them.
+enum Schedule { kThreeSync = 0, kFoldSched = 1, kWindowSched = 2 };
+
 template <int kPlanes>
-const void* instance_of(bool tail, bool precond, bool lazy, bool fold) {
+const void* instance_of(bool tail, bool precond, bool lazy, int sched) {
   if (tail) {
     const void* fns[4] = {
         (const void*)fused_cg_dia_tail_kernel<false, kPlanes>,
         (const void*)fused_cg_dia_tail_kernel<true, kPlanes>,
         (const void*)fused_cg_dia_tail_lazy_kernel<false, kPlanes>,
         (const void*)fused_cg_dia_tail_lazy_kernel<true, kPlanes>};
+    return fns[(precond ? 1 : 0) + (lazy ? 2 : 0)];
+  }
+  if (sched == kWindowSched) {
+    const void* fns[4] = {
+        (const void*)fused_cg_dia_window<false, false, kPlanes>,
+        (const void*)fused_cg_dia_window<true, false, kPlanes>,
+        (const void*)fused_cg_dia_window<false, true, kPlanes>,
+        (const void*)fused_cg_dia_window<true, true, kPlanes>};
     return fns[(precond ? 1 : 0) + (lazy ? 2 : 0)];
   }
   const void* fns[8] = {
@@ -713,18 +832,63 @@ const void* instance_of(bool tail, bool precond, bool lazy, bool fold) {
       (const void*)fused_cg_dia_rows<true, false, true, kPlanes>,
       (const void*)fused_cg_dia_rows<false, true, true, kPlanes>,
       (const void*)fused_cg_dia_rows<true, true, true, kPlanes>};
-  return fns[(fold ? 1 : 0) + (precond ? 2 : 0) + (lazy ? 4 : 0)];
+  return fns[(sched == kFoldSched ? 1 : 0) + (precond ? 2 : 0) +
+             (lazy ? 4 : 0)];
 }
 
-// The instance of (tail, Jacobi, lazy, fold, signal planes).  The
+// The instance of (tail, Jacobi, lazy, schedule, signal planes).  The
 // split-tail instances have one schedule.
-const void* instance(bool tail, bool precond, bool lazy, bool fold,
+const void* instance(bool tail, bool precond, bool lazy, int sched,
                      int planes) {
-  return planes == 2 ? instance_of<2>(tail, precond, lazy, fold)
-                     : instance_of<1>(tail, precond, lazy, fold);
+  return planes == 2 ? instance_of<2>(tail, precond, lazy, sched)
+                     : instance_of<1>(tail, precond, lazy, sched);
 }
 
 bool aligned16(const void* q) { return ((uintptr_t)q & 15u) == 0; }
+
+// The window plan of the C interface's ``windows`` (n, then start[n],
+// ext[n] and the window of each of the D diagonals), checked: every
+// window starts and ends on a multiple of 4 rows and holds every row its
+// diagonals read, and the two sets fit kWindowSmem.
+bool make_window_plan(WindowPlan* wp, const int* windows, const int* offsets,
+                      int D) {
+  if (windows == nullptr) return false;
+  const int n = windows[0];
+  if (n < 1 || n > kMaxWindows) return false;
+  wp->n = n;
+  int at = 0;
+  for (int c = 0; c < n; ++c) {
+    const int start = windows[1 + c], ext = windows[1 + n + c];
+    if (start % 4 != 0 || ext % 4 != 0 || ext < 0 || ext > kWindowSmem)
+      return false;
+    wp->start[c] = start;
+    wp->ext[c] = ext;
+    wp->at[c] = at;
+    at += kTile + ext;
+  }
+  wp->set = at;
+  if (2LL * 4 * at > kWindowSmem) return false;
+  for (int d = 0; d < D; ++d) {
+    const int c = windows[1 + 2 * n + d];
+    if (c < 0 || c >= n) return false;
+    // rows lo + 4t .. + 3 + off of a tile [lo, hi) lie in [lo + start,
+    // hi + start + ext) for every 4t < hi - lo
+    const int k = offsets[d] - wp->start[c];
+    if (k < 0 || k > wp->ext[c]) return false;
+    wp->shift[d] = wp->at[c] + k;
+  }
+  return true;
+}
+
+// Lets a window instance take kWindowSmem of dynamic shared memory (with
+// its static arrays, past the 48 KB default).  The carveout is left to
+// the driver, which sizes it to each launch's windows: the SM's whole
+// carveout for every launch left too little L1 and was ~1% slower on
+// HPCG's stencil (PERF.md §6).
+cudaError_t allow_window_smem(const void* fn) {
+  return cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kWindowSmem);
+}
 
 }  // namespace
 
@@ -733,9 +897,10 @@ bool aligned16(const void* q) { return ((uintptr_t)q & 15u) == 0; }
 // signal planes (1, or 2: constraints mode on COO128).  A split-tail instance
 // gets SMs x its own resident blocks per SM (the tail live instance fits
 // 6, the lazy ones 8, launched on the live grid).  Every tail-free
-// instance, either schedule, gets SMs x kRowBlocksPerSM, which its launch
-// bounds guarantee (the query checks it): one partition of the rows for
-// all of them.  Returns a cudaError_t.
+// instance, any schedule, gets SMs x kRowBlocksPerSM, which its launch
+// bounds guarantee (the query checks it, the window instance at
+// kWindowSmem): one partition of the rows for all of them.  Returns a
+// cudaError_t.
 extern "C" int abft_fused_grid(int device, int tail, int precond, int lazy,
                                int planes, int* grid) {
   if (planes < 1 || planes > 2) return (int)cudaErrorInvalidValue;
@@ -749,10 +914,14 @@ extern "C" int abft_fused_grid(int device, int tail, int precond, int lazy,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   int per_sm = tail ? 1 << 30 : kRowBlocksPerSM;
-  for (int fold = 0; fold < (tail ? 1 : 2); ++fold) {
+  for (int sched = 0; sched < (tail ? 1 : 3); ++sched) {
+    const void* fn = instance(tail, precond, lazy, sched, planes);
+    const int smem = sched == kWindowSched ? kWindowSmem : 0;
     int n = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, instance(tail, precond, lazy, fold, planes), kBlock, 0);
+    if (sched == kWindowSched) err = allow_window_smem(fn);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kBlock,
+                                                          smem);
     if (err != cudaSuccess) return (int)err;
     per_sm = n < per_sm ? n : per_sm;
   }
@@ -764,10 +933,12 @@ extern "C" int abft_fused_grid(int device, int tail, int precond, int lazy,
 
 // ``plane2``, ``tplane2``: the second signal planes of the main part and
 // the tail (constraints mode on COO128: the row word), null but with a
-// first plane; they select the two-plane instances.  ``fold``: the
-// tail-free schedule (1 fold, 0 three-sync; ignored with a tail); ``r2``,
-// ``p2``: the fold's second r and p buffers (R floats, 16-byte aligned);
-// ``nb``: the tail-free rows per block (a multiple of 8, nb x grid >= R).
+// first plane; they select the two-plane instances.  ``sched``: the
+// tail-free schedule (0 three-sync, 1 fold, 2 window; ignored with a
+// tail); ``r2``, ``p2``: the fold's second r and p buffers (R floats,
+// 16-byte aligned); ``windows``: the window schedule's plan
+// (make_window_plan), else null; ``nb``: the tail-free rows per block (a
+// multiple of 8, nb x grid >= R).
 extern "C" int abft_fused_cg_dia(
     const float* vals, const int* offsets, int D, int R, float* x, float* r,
     float* p, float* w, const uint32_t* plane, const uint32_t* base,
@@ -781,8 +952,8 @@ extern "C" int abft_fused_cg_dia(
     const uint32_t* tplane2, const uint32_t* tbase2, int E,
     const float* minv, float* part_rz,
     float* xs, float* rs, float* ps, int ci, int* snap_iout,
-    float* snap_fout, int fold, float* r2, float* p2, int nb, int device,
-    void* stream) {
+    float* snap_fout, int sched, float* r2, float* p2, const int* windows,
+    int nb, int device, void* stream) {
   const bool precond = minv != nullptr, lazy = ci > 1, tail = T > 0;
   const int planes = plane2 != nullptr ? 2 : 1;
   if (D < 1 || D > ABFT_MAX_D || R % 32 != 0 || grid < 1 || ci < 1 ||
@@ -802,15 +973,22 @@ extern "C" int abft_fused_cg_dia(
     const int h = offsets[d] < 0 ? -offsets[d] : offsets[d];
     halo = h > halo ? h : halo;
   }
-  fold = !tail && fold;
+  if (tail) sched = kThreeSync;
+  if (sched < kThreeSync || sched > kWindowSched)
+    return (int)cudaErrorInvalidValue;
+  const bool fold = sched == kFoldSched;
+  WindowPlan wp;
   if (!tail) {
-    // the 16-byte loads, the partition, the fold's buffers and its halo
+    // the 16-byte loads, the partition, the fold's buffers and its halo,
+    // the windows
     const void* vecs[] = {vals, x,  r,  p,  w,  plane, plane2,
                           minv, xs, rs, ps, r2, p2};
     for (const void* v : vecs)
       if (!aligned16(v)) return (int)cudaErrorInvalidValue;
     if (nb < 8 || nb % 8 != 0 || (long long)nb * grid < R ||
-        (fold && (r2 == nullptr || p2 == nullptr || halo > kFoldHalo)))
+        (fold && (r2 == nullptr || p2 == nullptr || halo > kFoldHalo)) ||
+        (sched == kWindowSched &&
+         !make_window_plan(&wp, windows, offsets, D)))
       return (int)cudaErrorInvalidValue;
   }
   // (the launch itself refuses a grid past the co-resident one; the
@@ -846,9 +1024,12 @@ extern "C" int abft_fused_cg_dia(
   CgOpts o{minv, part_rz, xs, rs, ps, ci, snap_iout, snap_fout};
   void* tail_args[] = {&a, &offs, &t, &o};
   void* row_args[] = {&a, &offs, &o};
+  void* window_args[] = {&a, &offs, &wp, &o};
+  const bool window = sched == kWindowSched;
   err = cudaLaunchCooperativeKernel(
-      instance(tail, precond, lazy, fold, planes), dim3(grid), dim3(kBlock),
-      tail ? tail_args : row_args, 0, (cudaStream_t)stream);
+      instance(tail, precond, lazy, sched, planes), dim3(grid), dim3(kBlock),
+      tail ? tail_args : window ? window_args : row_args,
+      window ? 2 * 4 * wp.set : 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -64,7 +64,8 @@ __all__ = ["supports_fused", "make_fused_continue", "make_fused_solver",
            "fused_cg_dia", "fused_cg_dia_plain", "fused_cg_ell",
            "fused_cg_ell_plain", "TailSpec", "tail_spec", "split_tail_plain",
            "tail_chunk", "tail_tiles", "Snapshot", "FusedOut", "SCHEDULES",
-           "FOLD_MAX_HALO", "dia_schedule", "dia_block_rows",
+           "FOLD_MAX_HALO", "WINDOW_MAX", "WINDOW_MAX_SMEM", "WindowPlan",
+           "dia_window_plan", "dia_schedule", "dia_block_rows",
            "ELL_SCHEDULES", "ELL_MAX_BLOCKS_PER_SM", "ell_ring_bytes",
            "ell_halo", "ell_window_rows", "ell_row_plan", "ell_plan"]
 
@@ -73,12 +74,20 @@ _MAX_T = 64         # csrc/dia_common.cuh ABFT_MAX_T
 TILE_ROWS = 128     # the rows of one window-mask tile (dia_common.cuh)
 # Kernel B's tail-free schedules (csrc/fused_cg_dia.cu): "fold" runs the
 # update of each iteration in the next one's product pass (two grid
-# barriers per iteration, halo rows of p recomputed), "three-sync" a pass
-# of its own (three).  The fold stages max|offset| halo rows on either
-# side of a tile in shared memory, at most FOLD_MAX_HALO (kFoldHalo); it
-# was the faster schedule at every halo up to that cap (PERF.md §6).
-SCHEDULES = ("fold", "three-sync")
+# barriers per iteration, halo rows of p recomputed), "window" and
+# "three-sync" a pass of its own (three).  The fold stages max|offset|
+# halo rows on either side of a tile in shared memory, at most
+# FOLD_MAX_HALO (kFoldHalo); it was the faster schedule at every halo up
+# to that cap (PERF.md §6).  Past the cap, "window" stages p in shared
+# memory too, one window per cluster of offsets (dia_window_plan), where
+# its two window sets fit WINDOW_MAX_SMEM (kWindowSmem), and "three-sync"
+# gathers p from device memory where they do not.
+SCHEDULES = ("fold", "three-sync", "window")
 FOLD_MAX_HALO = 512
+DIA_TILE = 1024                # kTile: the rows of one tile of kernel B
+WINDOW_MAX = 8                 # kMaxWindows
+WINDOW_MAX_SMEM = 48 * 1024    # kWindowSmem
+_SCHEDULE_CODES = {"three-sync": 0, "fold": 1, "window": 2}
 # Kernel D's tail-free schedules (csrc/fused_cg_ell.cu): in the modes with
 # signals, the staged plane stream, gathering p from a band window in
 # shared memory that each block stages after the barrier publishing p
@@ -119,11 +128,81 @@ def supports_fused(mat, dtype, precond=False, check_interval=1) -> bool:
     return mat.exec_kind == "ell" and mat.K <= _MAX_K
 
 
+class WindowPlan(NamedTuple):
+    """Kernel B's windows (csrc/fused_cg_dia.cu WindowPlan): window c
+    holds the rows [lo + starts[c], hi + starts[c] + ext[c]) of a tile
+    [lo, hi), each a multiple of 4; ``window[d]`` is the window that
+    diagonal d (in the matrix's order) reads."""
+
+    starts: tuple
+    ext: tuple
+    window: tuple
+
+    @property
+    def set_floats(self) -> int:
+        """The floats of one window set (a whole tile's windows)."""
+        return sum(DIA_TILE + e for e in self.ext)
+
+
+def dia_window_plan(offsets):
+    """The window schedule's plan for these diagonal offsets, or None
+    where its two window sets pass WINDOW_MAX_SMEM or WINDOW_MAX windows.
+    The sorted offsets split into clusters wherever two neighbours lie
+    more than a tile apart (a new window stages a tile's rows; bridging
+    the gap would stage the gap's); a cluster's window starts at its
+    least offset rounded down to a multiple of 4 and reaches its greatest
+    (ext rounded up to a multiple of 4)."""
+    offs = sorted({int(o) for o in offsets})
+    clusters = [[offs[0]]]
+    for o in offs[1:]:
+        if o - clusters[-1][-1] > DIA_TILE:
+            clusters.append([o])
+        else:
+            clusters[-1].append(o)
+    starts = tuple(c[0] // 4 * 4 for c in clusters)
+    ext = tuple(-(-(c[-1] - st) // 4) * 4 for c, st in zip(clusters, starts))
+    cluster_of = {o: i for i, c in enumerate(clusters) for o in c}
+    plan = WindowPlan(starts, ext,
+                      tuple(cluster_of[int(o)] for o in offsets))
+    if (len(clusters) > WINDOW_MAX
+            or 2 * 4 * plan.set_floats > WINDOW_MAX_SMEM):
+        return None
+    return plan
+
+
 def dia_schedule(offsets) -> str:
     """Kernel B's tail-free schedule for a DIA matrix of these diagonal
     offsets, resolved once per matrix."""
-    return ("fold" if max(abs(int(o)) for o in offsets) <= FOLD_MAX_HALO
-            else "three-sync")
+    if max(abs(int(o)) for o in offsets) <= FOLD_MAX_HALO:
+        return "fold"
+    return "window" if dia_window_plan(offsets) is not None else "three-sync"
+
+
+_dia_plans = {}
+
+
+def _dia_plan(offsets, schedule=None):
+    """(schedule, its window plan as the C interface's ``windows`` takes
+    it, or None) of a tail-free launch over these offsets, ``schedule``
+    forcing one; cached per offsets, so that a solve's launches pay a
+    lookup."""
+    key = (offsets, schedule)
+    if key not in _dia_plans:
+        sched = schedule or dia_schedule(offsets)
+        halo = max(abs(int(o)) for o in offsets)
+        if sched == "fold" and halo > FOLD_MAX_HALO:
+            raise ValueError(f"fused_cg_dia: the fold schedule takes "
+                             f"offsets up to {FOLD_MAX_HALO}")
+        wins = None
+        if sched == "window":
+            plan = dia_window_plan(offsets)
+            if plan is None:
+                raise ValueError(f"fused_cg_dia: the windows of these "
+                                 f"offsets pass {WINDOW_MAX_SMEM} bytes")
+            vals = (len(plan.starts), *plan.starts, *plan.ext, *plan.window)
+            wins = (ctypes.c_int * len(vals))(*vals)
+        _dia_plans[key] = (sched, wins)
+    return _dia_plans[key]
 
 
 def ell_halo(band: int) -> int:
@@ -541,7 +620,8 @@ def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
     TailSpec) runs the split-tail instance, ``minv`` (the (R,) Jacobi
     M^-1) the Jacobi one, ``ci`` > 1 the lazy one (in the modes with
     signals), which returns its Snapshot.  ``schedule`` forces a
-    tail-free schedule of SCHEDULES (default: ``dia_schedule``)."""
+    tail-free schedule of SCHEDULES (default: ``dia_schedule``; "fold"
+    needs offsets up to FOLD_MAX_HALO, "window" windows that fit)."""
     if schedule is not None and schedule not in SCHEDULES:
         raise ValueError(f"fused_cg_dia: schedule {schedule!r} is not one "
                          f"of {SCHEDULES}")
@@ -557,13 +637,10 @@ def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
         ci = _lazy_ci(spec, ci)
         a = _launch_args("fused_cg_dia", md, spec, x, r, p, rr, rz, itr,
                          upto, trace, tail, minv, ci)
-        sched, buf2 = None, (None, None)
+        sched, wins, buf2 = None, None, (None, None)
         if tail is None:
-            sched = schedule or dia_schedule(spec.offsets)
+            sched, wins = _dia_plan(spec.offsets, schedule)
             if sched == "fold":
-                if max(abs(int(o)) for o in spec.offsets) > FOLD_MAX_HALO:
-                    raise ValueError(f"fused_cg_dia: the fold schedule "
-                                     f"takes offsets up to {FOLD_MAX_HALO}")
                 buf2 = (torch.empty_like(r), torch.empty_like(p))
         offs, offs_ptr = _offsets_arg(spec.offsets)
     with span("fused.launch"):
@@ -576,7 +653,8 @@ def fused_cg_dia(md, spec: DiaSpec, x, r, p, rr, rz, itr: int, upto: int,
             a["fscal_in"].data_ptr(), a["iscal_out"].data_ptr(),
             a["fscal_out"].data_ptr(), trace.data_ptr(), trace.shape[0],
             float(conv), *a["tail"]["ptrs"], *a["opts"]["ptrs"],
-            int(sched == "fold"), _ptr(buf2[0]), _ptr(buf2[1]),
+            _SCHEDULE_CODES.get(sched, 0), _ptr(buf2[0]), _ptr(buf2[1]),
+            None if wins is None else ctypes.addressof(wins),
             dia_block_rows(a["R"], a["grid"]), a["dev"], a["stream"])
         del offs
         check(rc, "fused_cg_dia cooperative launch")

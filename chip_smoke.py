@@ -47,8 +47,8 @@ Phases:
   3. kernel A vs its plain version, every mode, clean and with injected
      1- and 2-bit faults: w bit-exact, pw within 1e-5;
   4. kernel B vs its plain loop: a clean and a faulted secded solve on
-     each tail-free schedule (fold, three-sync; solver/fused.py::
-     SCHEDULES), the two schedules' x equal bit for bit;
+     each tail-free schedule (fold, three-sync, window; solver/fused.py::
+     SCHEDULES), the schedules' x equal bit for bit;
   5. the DIA main path: the four run_tests classes on -t cuda at -b 10
      --seed 11, through abft_sparse_cg_tpu_torch.cli.main_csr (what
      bin/cg-csr-torch runs), every launch count reset before and read
@@ -137,7 +137,11 @@ Phases:
      unpreconditioned one by far more than the check's tolerance;
  23. kernel B at DIA -b 100, what the TPU routes to its streaming
      kernel: live, lazy CI 32 and Jacobi against the plain loop, on each
-     tail-free schedule;
+     tail-free schedule; then HPCG's 27-point stencil at 88^3 (built in
+     the background from phase 4 on): three windows and two tiles per
+     block on the card's grid, the window and three-sync schedules live
+     against the plain loop (trace to 1e-4), and the window's live and
+     lazy CI 32 runs against three-sync's bit for bit;
  24. the detection-free products of kernels A, C and E (no signal
      plane, the mode's gather masking kept) against their plain
      versions on the phase 3, 10 and 16 shapes (C's edges included),
@@ -330,6 +334,34 @@ def parallel_builds(asm, modes, fmt="csr", **kw):
         futs = {mode: ex.submit(build_protected, fmt, asm, mode, **kw)
                 for mode in modes}
         return {mode: f.result() for mode, f in futs.items()}
+
+
+def hpcg_stencil(side, mode):
+    """HPCG's 27-point stencil (26 on the diagonal, -1 off it) on a
+    side^3 grid in its natural order, built in ``mode``: DIA, offsets to
+    +-(side^2 + side + 1)."""
+    import numpy as np
+
+    from abft_sparse_cg_tpu_torch.formats import assemble, build_protected
+
+    rows, cols = [], []
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                d = dz * side * side + dy * side + dx
+                if d > 0:
+                    continue
+                iz = np.arange(max(0, -dz), side - max(0, dz))
+                iy = np.arange(max(0, -dy), side - max(0, dy))
+                ix = np.arange(max(0, -dx), side - max(0, dx))
+                r = np.add.outer(np.add.outer(iz * side * side, iy * side),
+                                 ix).ravel()
+                rows.append(r)
+                cols.append(r + d)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    vals = np.where(rows == cols, 26.0, -1.0)
+    return build_protected("csr", assemble(cols, rows, vals, side ** 3, 1),
+                           mode)
 
 
 def host_ms(fn, reps):
@@ -1420,9 +1452,9 @@ def main():
     from abft_sparse_cg_tpu_torch.solver.cg import init_state, make_cg_solver
     from abft_sparse_cg_tpu_torch.backends.cuda_backend import CudaBackend
     from abft_sparse_cg_tpu_torch.solver.fused import (
-        SCHEDULES, dia_schedule, ell_plan, fused_cg_dia,
-        fused_cg_dia_plain, fused_cg_ell, fused_cg_ell_plain, fused_grid,
-        make_fused_solver, tail_spec)
+        DIA_TILE, SCHEDULES, dia_block_rows, dia_schedule, dia_window_plan,
+        ell_plan, fused_cg_dia, fused_cg_dia_plain, fused_cg_ell,
+        fused_cg_ell_plain, fused_grid, make_fused_solver, tail_spec)
     from abft_sparse_cg_tpu_torch.utils.ell_edges import (
         ROW_CUT, cut_rows, ell_edge_cases)
 
@@ -1556,6 +1588,11 @@ def main():
 
     # ---- 4. kernel B vs plain loop ----------------------------------------
     phase("4. kernel B (fused_cg_dia) vs plain loop, -b 10 secded")
+    from concurrent.futures import ThreadPoolExecutor
+
+    # phase 23's HPCG stencil, built meanwhile
+    hpcg_pool = ThreadPoolExecutor(max_workers=1)
+    hpcg88 = hpcg_pool.submit(hpcg_stencil, 88, "secded")
     m = mats["secded"]
     spec = dia_spec(m, "secded")
     b = np.random.default_rng(11).random(m.N)
@@ -1579,8 +1616,8 @@ def main():
         return out, x_, tr
 
     def check_loops(kernel, plain, md_, spec_, bvec, label, tail=None,
-                    schedule=None):
-        """Kernel against plain loop: iterations equal, the trace to 1e-5
+                    schedule=None, tol=1e-5):
+        """Kernel against plain loop: iterations equal, the trace to ``tol``
         (a split tail's to 1e-3 above float32's noise floor, rr0 * 1e-5:
         its dot products are summed in another order), x beside.  Returns
         (iterations, max |x err|, the kernel's x)."""
@@ -1594,7 +1631,6 @@ def main():
                 f"{ip} it (trig {tp}, err {ep})")
         err = float((xk - xp).abs().max())
         rel = (trk[:ik] - trp[:ip]).abs() / trp[:ip].abs()
-        tol = 1e-5
         if tail is not None:
             rel, tol = rel[trp[:ip] > trp[0] * 1e-5], 1e-3
         dev_tr = float(rel.max())
@@ -1626,8 +1662,9 @@ def main():
                 f"{label}: one correction, no error")
         require(dev_tr <= tol, f"{label} trace dev {dev_tr:.2e}")
 
-    # Kernel B's tail-free instances have two schedules (the update folded
-    # into the next product pass, or a pass of its own): both against the
+    # Kernel B's tail-free instances have three schedules (the update
+    # folded into the next product pass, or a pass of its own with p read
+    # from shared-memory windows or from device memory): each against the
     # plain loop, and against each other bit for bit (one partition, one
     # reduction order).
     print(f"the matrix's schedule: {dia_schedule(spec.offsets)}")
@@ -1640,8 +1677,9 @@ def main():
         check_faulted(inject_bitflips(m, "ANY", 1, np.random.default_rng(12),
                                       echo=lambda s: None), "secded",
                       f"1-bit flip [{sched}]", sched)
-    require(torch.equal(*xs_sched.values()),
-            "kernel B: the two schedules' x differ")
+    xs_first, *xs_rest = xs_sched.values()
+    require(all(torch.equal(xs_first, v) for v in xs_rest),
+            "kernel B: the schedules' x differ")
 
     # ---- 5. DIA main path: the four run_tests classes ----------------------
     phase("5. DIA main path: run_tests classes, cg-csr -t cuda -b 10 "
@@ -2608,6 +2646,44 @@ def main():
                           mi100 if precond else None, ci, schedule=sched)
             merge_opt("DIA -b 100", f"{vname}, -b 100",
                       f"DIA -b 100 [{sched}]")
+
+    # HPCG's stencil at 88^3 (681,472 rows, offsets to +-7,833): three
+    # windows, and two tiles per block on the card's grid, so that the
+    # window schedule stages the second tile's windows into the other set
+    # behind the first tile's stencil.  Window and three-sync against the
+    # plain loop, and against each other bit for bit (one partition, one
+    # reduction order).  The trace to 1e-4: ~100 iterations of float32 dot
+    # products over 681,472 rows, each summed in another order than
+    # torch.sum's (~sqrt(R) 2^-24 = 5e-5 relative apiece); the first run
+    # on the card read 2.1e-5.
+    mh = hpcg88.result()
+    hpcg_pool.shutdown()
+    mdh, spech, bh = make_matrix_device(mh, f32, dev), dia_spec(mh,
+                                                                "secded"), \
+        bvec_of(mh)
+    plan_h = dia_window_plan(spech.offsets)
+    nb_h = dia_block_rows(mh.R, fused_grid(0, "dia"))
+    print(f"HPCG 88^3: R {mh.R}, max|offset| "
+          f"{max(abs(o) for o in spech.offsets)}, schedule "
+          f"{dia_schedule(spech.offsets)}, windows {plan_h}, {nb_h} rows "
+          f"per block")
+    require(dia_schedule(spech.offsets) == "window"
+            and len(plan_h.starts) == 3 and nb_h > DIA_TILE,
+            "HPCG 88^3: not three windows and two tiles per block")
+    for sched in ("three-sync", "window"):
+        check_loops(fused_cg_dia, fused_cg_dia_plain, mdh, spech, bh,
+                    f"HPCG 88^3 live [{sched}]", schedule=sched, tol=1e-4)
+    for vname, ci in (("live", 1), ("lazy CI 32", 32)):
+        (ow, xw, trw), (o3, x3, tr3) = (
+            run_loop(fused_cg_dia, mdh, spech, bh, ci=ci, schedule=sched)
+            for sched in ("window", "three-sync"))
+        same = ((ow.itr, ow.trig, ow.err) == (o3.itr, o3.trig, o3.err)
+                and torch.equal(ow.rr, o3.rr) and torch.equal(xw, x3)
+                and torch.equal(trw[: ow.itr], tr3[: o3.itr]))
+        print(f"HPCG 88^3 {vname}: window {ow.itr} it, three-sync "
+              f"{o3.itr} it; rr, x and trace bit for bit: {same}")
+        require(same, f"HPCG 88^3 {vname}: window differs from three-sync")
+    del mh, mdh
 
     # ---- 24. the detection-free products of kernels A, C and E -------------
     phase("24. the detection-free products of kernels A, C and E vs plain "

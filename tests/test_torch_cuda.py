@@ -36,9 +36,15 @@ from abft_sparse_cg_tpu_torch.ops.spmv_cuda import (
     ell_fast_plain,
     ell_spec,
 )
+from abft_sparse_cg_tpu_torch.solver import fused as fused_module
 from abft_sparse_cg_tpu_torch.solver.cg import init_state
 from abft_sparse_cg_tpu_torch.solver.fused import (
+    DIA_TILE,
     SCHEDULES,
+    WINDOW_MAX_SMEM,
+    dia_block_rows,
+    dia_schedule,
+    dia_window_plan,
     fused_cg_dia,
     fused_cg_ell,
     fused_grid,
@@ -245,6 +251,136 @@ def test_kernel_b_replays_bit_for_bit(dev, shape, schedule):
     assert same_bits(tk[:itr].cpu(), torch.from_numpy(trace))
     for a, c in zip((xk, rk, pk), (x, r, p)):
         assert same_bits(a.cpu(), torch.from_numpy(np.asarray(c)))
+
+
+def stencil27_matrix(mode, side=24, fmt="csr"):
+    """HPCG's 27-point stencil (26 on the diagonal, -1 off it) on a
+    side^3 grid in its natural order: DIA, offsets to +-(side^2 + side +
+    1), past the fold's cap from side 22 on."""
+    rows, cols = [], []
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                d = dz * side * side + dy * side + dx
+                if d > 0:
+                    continue
+                iz = np.arange(max(0, -dz), side - max(0, dz))
+                iy = np.arange(max(0, -dy), side - max(0, dy))
+                ix = np.arange(max(0, -dx), side - max(0, dx))
+                r = np.add.outer(np.add.outer(iz * side * side, iy * side),
+                                 ix).ravel()
+                rows.append(r)
+                cols.append(r + d)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    vals = np.where(rows == cols, 26.0, -1.0)
+    return build_protected(fmt, assemble(cols, rows, vals, side ** 3, 1),
+                           mode)
+
+
+def budget_window_matrix(mode, fmt="csr"):
+    """A DIA matrix whose offsets (0, +-1, +-1000, +-2000, +-2560) make one
+    window of 1,024 + 5,120 rows: its two window sets take the whole of
+    WINDOW_MAX_SMEM.  Diagonal 8, -1 off it: SPD."""
+    n = 8192
+    rows, cols, vals = [np.arange(n)], [np.arange(n)], [np.full(n, 8.0)]
+    for d in (1, 1000, 2000, 2560):
+        rows.append(np.arange(d, n))
+        cols.append(np.arange(n - d))
+        vals.append(np.full(n - d, -1.0))
+    return build_protected(fmt, assemble(
+        np.concatenate(cols), np.concatenate(rows), np.concatenate(vals), n,
+        1), mode)
+
+
+def periodic_matrix(mode, fmt="csr"):
+    """The zoo's periodic-3d (side 44): DIA, offsets to +-83,248 in five
+    clusters, so five windows."""
+    from abft_sparse_cg_tpu_torch.utils.matzoo import zoo_assembled
+
+    return build_protected(fmt, zoo_assembled("periodic-3d", 1), mode)
+
+
+@pytest.mark.parametrize("shape", ["stencil 24", "varied", "budget",
+                                   "periodic", "stencil 40 on 16 blocks"])
+@pytest.mark.parametrize("variant,mode,fmt", [
+    ("live", "secded", "csr"), ("lazy", "secded", "csr"),
+    ("lazy fault", "secded", "csr"), ("Jacobi", "secded", "csr"),
+    ("lazy Jacobi", "secded", "csr"), ("live", "constraints", "coo"),
+    ("lazy", "constraints", "coo")])
+def test_kernel_b_window_equals_three_sync(dev, monkeypatch, shape, variant,
+                                          mode, fmt):
+    """Kernel B's window schedule against three-sync, one launch each
+    from the same entry state: only where the stencil reads p from
+    differs, so itr, trig, err, rr, x, r, p and the trace are the same
+    bits.  HPCG's stencil at 24^3 (offsets to +-601, one window), the
+    varied tridiagonal, a matrix whose windows take the whole budget,
+    the zoo's periodic-3d (five windows) and HPCG's stencil at 40^3
+    (three windows) on a grid of 16 blocks, so that each block runs four
+    tiles and restages all three windows into both window sets in turn
+    (the card's own grid gives these shapes one tile per block),
+    live, lazy CI 4 (and a 1-bit fault that triggers at the first
+    check), Jacobi, secded on CSR96 and the two-plane constraints
+    instances on COO128; each launch counted under its schedule."""
+    m = {"stencil 24": stencil27_matrix, "varied": varied_dia_matrix,
+         "budget": budget_window_matrix, "periodic": periodic_matrix,
+         "stencil 40 on 16 blocks": lambda mode, fmt: stencil27_matrix(
+             mode, side=40, fmt=fmt)}[shape](mode, fmt=fmt)
+    if "fault" in variant:
+        m = faulted(m, 1, 12)
+    spec = dia_spec(m, mode)
+    if shape == "stencil 24":
+        assert max(abs(o) for o in spec.offsets) == 601
+        assert dia_schedule(spec.offsets) == "window"
+    if shape == "budget":
+        assert 2 * 4 * dia_window_plan(spec.offsets).set_floats == \
+            WINDOW_MAX_SMEM
+    if shape == "periodic":
+        assert len(dia_window_plan(spec.offsets).starts) == 5
+    if shape == "stencil 40 on 16 blocks":
+        assert len(dia_window_plan(spec.offsets).starts) == 3
+        monkeypatch.setattr(fused_module, "fused_grid",
+                            lambda *args, **kw: 16)
+        assert dia_block_rows(m.R, 16) > 3 * DIA_TILE
+    assert (spec.plane2 is not None) == (mode == "constraints")
+    md = make_matrix_device(m, torch.float32, dev)
+    b = torch.zeros(m.R, dtype=torch.float32)
+    b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+    minv = jacobi_minv(m, dev) if "Jacobi" in variant else None
+    ci = 4 if "lazy" in variant else 1
+    runs = []
+    for sched in ("three-sync", "window"):
+        before = dict(fused_cg_dia.schedules)
+        runs.append(kernel_b_run(md, spec, b.to(dev), 60, minv, ci, sched,
+                                 1e-8))
+        before[sched] += 1
+        assert fused_cg_dia.schedules == before
+    (o3, *v3), (ow, *vw) = runs
+    assert (ow.itr, ow.trig, ow.err) == (o3.itr, o3.trig, o3.err)
+    assert ow.itr > 0 and (ow.trig == 1) == ("fault" in variant)
+    assert same_bits(ow.rr.cpu(), o3.rr.cpu())
+    for a, c in zip(vw, v3):
+        assert same_bits(a.cpu(), c.cpu())
+    if ci > 1:
+        for a, c in zip(ow.snap[1:4], o3.snap[1:4]):
+            assert same_bits(a.cpu(), c.cpu())
+
+
+def test_kernel_b_counts_window_launches(dev):
+    """fused_cg_dia.schedules["window"] counts every tail-free launch of
+    a solve on a matrix past the fold's cap (HPCG's stencil at 24^3),
+    and none on a fold matrix, whose launches all count as "fold"."""
+    for m, sched in ((stencil27_matrix("secded"), "window"),
+                     (dia_matrix("secded"), "fold")):
+        b = torch.zeros(m.R, dtype=torch.float32)
+        b[: m.N] = torch.tensor(np.random.default_rng(7).random(m.N))
+        solve = make_fused_solver(faulted(m, 1, 6), "secded", 300, 1e-8)
+        before, launches = dict(fused_cg_dia.schedules), fused_cg_dia.launches
+        res = solve(make_matrix_device(faulted(m, 1, 6), torch.float32, dev),
+                    b.to(dev))
+        n = fused_cg_dia.launches - launches
+        assert n >= 2 and res.stats.corrected_count == 1   # a repair: 2+
+        before[sched] += n
+        assert fused_cg_dia.schedules == before
 
 
 def ell_matrix(mode, shape="dense-radius", fmt="csr"):
@@ -946,7 +1082,8 @@ def fused_matrix(layout, mode, fmt="csr"):
 
 
 @pytest.mark.parametrize("layout,schedule", [
-    ("dia", "fold"), ("dia", "three-sync"), ("ell", None), ("split", None)])
+    ("dia", "fold"), ("dia", "three-sync"), ("dia", "window"), ("ell", None),
+    ("split", None)])
 @pytest.mark.parametrize("variant", ["lazy", "Jacobi", "lazy Jacobi"])
 @pytest.mark.parametrize("mode,flips,seed", [
     ("secded", 0, 0), ("secded", 1, 6), ("sed", 1, 6)])

@@ -10,7 +10,10 @@ tile and of max|offset| halo rows on either side (recomputed from r_k
 and p_(k-1) by the same operations) in shared memory, and runs the
 stencil from there; r and p are double-buffered, and the exit leaves
 the state in the caller's buffers.  Under "three-sync" the same product
-reads p in place and a pass of its own updates x, r, p.  pw, rr and rz
+reads p in place and a pass of its own updates x, r, p; "window" runs
+three-sync's passes with the product reading p from shared memory,
+staged per tile in one window per cluster of offsets
+(solver.fused.dia_window_plan).  pw, rr and rz
 are summed per thread over its rows in order, per block (warp
 butterflies, then the warps in order) and over the grid by the block
 that arrives last at the barrier (partials i, i + 256, ... per thread,
@@ -23,8 +26,9 @@ float32, one rounding per operation, and hold:
   - with the plain loop's alpha and beta (solver.fused.
     fused_cg_dia_plain run one iteration at a time), x, r and p after
     every iteration bit for bit against the plain loop's, w against
-    ops.spmv.dia_product, the staged tile against p_k on every row the
-    stencil reads; and pw and rr in the new fixed order within float32
+    ops.spmv.dia_product, the staged tile (fold) or windows (window)
+    against p_k on every row the stencil reads, each read inside the
+    window of its diagonal; and pw and rr in the new fixed order within float32
     reach of the plain loop's sums (and, in that order, equal to a
     straight sum over the partition);
   - the exit state: after the limit, a trigger at the first checked
@@ -34,8 +38,11 @@ float32, one rounding per operation, and hold:
 
 Cases: a tridiagonal of one tile, a tridiagonal whose blocks take
 several tiles and whose last block is short, 2-D Laplacians (offsets
-+-1, +-side) below the fold threshold (fold) and above it (three-sync),
-Jacobi, lazy CI 4.
++-1, +-side) below the fold threshold (fold) and above it (window, one
+window; three-sync forced), a tridiagonal with couplings 2,000 rows away
+(three windows), Jacobi, lazy CI 4.  The window plan itself: its
+clusters, its budget, and every read of every tile at HPCG's 104^3
+stencil and other shapes inside its window.
 """
 
 import math
@@ -56,8 +63,10 @@ from abft_sparse_cg_tpu_torch.solver.cg import init_state
 from abft_sparse_cg_tpu_torch.solver.fused import (
     FOLD_MAX_HALO,
     SCHEDULES,
+    WINDOW_MAX_SMEM,
     dia_block_rows,
     dia_schedule,
+    dia_window_plan,
     fused_cg_dia_plain,
 )
 from abft_sparse_cg_tpu_torch.utils.matgen import (
@@ -136,6 +145,45 @@ class Partition:
         return grid_sum(part), part
 
 
+class Windows:
+    """The window schedule's stage of one tile of every block at once,
+    from a window plan (csrc/fused_cg_dia.cu stage_windows and the
+    stencil's shift): window c at float ``at[c]`` of the set, of
+    (hi - lo) + ext[c] staged rows from lo + starts[c]; diagonal d reads
+    float shift[d] + (row - lo)."""
+
+    def __init__(self, plan, offsets):
+        self.plan = plan
+        self.at = np.cumsum([0] + [TILE + e for e in plan.ext])[:-1]
+        self.set = plan.set_floats
+        self.shift = [int(self.at[c]) + int(o) - plan.starts[c]
+                      for o, c in zip(offsets, plan.window)]
+
+    def stage(self, p, lo, hi):
+        """The staged sets (G, set) of tile [lo, hi) of every block, as
+        float64 (rows outside [0, R) 0, unstaged floats NaN)."""
+        R = p.shape[0]
+        s = np.full((lo.shape[0], self.set), np.nan)
+        for c, (st, e) in enumerate(zip(self.plan.starts, self.plan.ext)):
+            rows = lo[:, None] + st + np.arange(TILE + e)[None, :]
+            v = np.where((rows >= 0) & (rows < R),
+                         p[np.clip(rows, 0, R - 1)], 0.0)
+            staged = np.arange(TILE + e)[None, :] < (hi - lo + e)[:, None]
+            s[:, self.at[c]:self.at[c] + TILE + e] = np.where(staged, v,
+                                                              np.nan)
+        return s
+
+    def read(self, s, g, rows, lo, hi, d):
+        """Diagonal d's read of ``rows`` (of blocks g) of tile [lo, hi)
+        from its staged sets ``s``: (values, whether each index lies in
+        its window's staged floats)."""
+        c = self.plan.window[d]
+        idx = rows - lo[g] + self.shift[d]
+        inside = (idx >= self.at[c]) & (
+            idx < self.at[c] + hi[g] - lo[g] + self.plan.ext[c])
+        return s[g, np.clip(idx, 0, self.set - 1)], inside
+
+
 class Replay:
     """Kernel B's tail-free loop over one DIA matrix in NumPy float32."""
 
@@ -146,6 +194,8 @@ class Replay:
         self.H = max(abs(o) for o in self.offsets)
         self.part = Partition(self.R, grid)
         self.fold = schedule == "fold"
+        self.windows = (Windows(dia_window_plan(self.offsets), self.offsets)
+                        if schedule == "window" else None)
         self.minv = None if minv is None else np.asarray(minv, F32)
         self.x = np.asarray(x, F32).copy()
         self.rb = [np.asarray(r, F32).copy(), np.zeros(self.R, F32)]
@@ -168,16 +218,38 @@ class Replay:
 
     def stencil(self, pk_at):
         """w of every thread row, the D products in diagonal order, each
-        x entry from ``pk_at(j, rows)`` (tile j)."""
+        x entry from ``pk_at(j, cols, ok, d)`` (tile j, diagonal d)."""
         for j, (r, ok, lo, hi) in enumerate(self.part.tiles):
             for k in range(ROWS):
                 rows = r[ok] + k
                 acc = np.zeros(rows.shape, F32)
                 for d, off in enumerate(self.offsets):
                     acc = (acc + (self.vals[d, rows]
-                                  * pk_at(j, rows + off, ok)).astype(F32)
+                                  * pk_at(j, rows + off, ok, d)).astype(F32)
                            ).astype(F32)
                 self.w[rows] = acc
+
+    def window_stencil(self, pk):
+        """The window schedule's stencil: each tile's windows staged from
+        p_k, every read checked against p_k (0 outside [0, R)) and
+        against its window's staged floats."""
+        R, wn = self.R, self.windows
+        sets = []
+        for r, ok, lo, hi in self.part.tiles:
+            sets.append(wn.stage(pk.astype(np.float64), lo, hi))
+
+        def from_window(j, c, ok, d):
+            _, _, lo, hi = self.part.tiles[j]
+            g = np.nonzero(ok)[0]
+            v, inside = wn.read(sets[j], g, c - self.offsets[d], lo, hi, d)
+            v = v.astype(F32)
+            want = np.where((c >= 0) & (c < R), pk[np.clip(c, 0, R - 1)],
+                            F32(0))
+            self.tile_ok &= bool(inside.all()) and np.array_equal(
+                v.view(np.int32), want.view(np.int32))
+            return v
+
+        self.stencil(from_window)
 
     def product(self, snapshot):
         """The product pass: the pending update (fold), the stencil, and
@@ -186,8 +258,11 @@ class Replay:
         R, H, allr = self.R, self.H, np.arange(self.R)
         if not self.fold:
             pk = self.pb[0]
-            self.stencil(lambda j, c, ok: np.where(
-                (c >= 0) & (c < R), pk[np.clip(c, 0, R - 1)], F32(0)))
+            if self.windows is not None:
+                self.window_stencil(pk)
+            else:
+                self.stencil(lambda j, c, ok, d: np.where(
+                    (c >= 0) & (c < R), pk[np.clip(c, 0, R - 1)], F32(0)))
             pw, _ = self.part.total(lambda rows: (pk[rows] * self.w[rows])
                                     .astype(F32))
             return pw, (self.x, self.rb[0], pk)
@@ -221,7 +296,7 @@ class Replay:
                 t[gg, H + rows - np.repeat(lo, H)] = v
             tiles.append(t)
 
-        def from_tile(j, c, ok):
+        def from_tile(j, c, ok, d):
             lo = self.part.tiles[j][2]
             g = np.nonzero(ok)[0]
             v = tiles[j][g, H + c - lo[g]]
@@ -334,11 +409,15 @@ def matrix(case):
         rows, cols, vals, n = spd_tridiagonal(4096)
         return build_protected("csr", assemble(cols, rows, vals, n, 3),
                                "secded")
-    if case == "laplacian above the threshold":
+    if case.startswith("laplacian above the threshold"):
         side = FOLD_MAX_HALO + 18
         rows, cols, vals, n = spd_laplacian_2d(side)
         return build_protected("csr", assemble(cols, rows, vals, n, 1),
                                "none")
+    if case == "far couplings":
+        rows, cols, vals, n = far_coupled(6144, FAR)
+        return build_protected("csr", assemble(cols, rows, vals, n, 2),
+                               "secded")
     if case == "breakdown":
         # symmetric, indefinite: the last 8 diagonal entries negative; pw
         # turns negative at iteration 2
@@ -352,6 +431,19 @@ def matrix(case):
                            "secded")
 
 
+FAR = 2000    # far_coupled's second band: three windows
+
+
+def far_coupled(n, far):
+    """A tridiagonal (4, -1) with couplings -1 at distance ``far``, whose
+    offsets (0, +-1, +-far) cluster into three windows: strictly
+    diagonally dominant, so SPD.  One triangle, 0-based."""
+    rows, cols, vals, n = spd_tridiagonal(n)
+    fi = np.arange(n - far, dtype=np.int64)
+    return (np.concatenate([rows, fi + far]), np.concatenate([cols, fi]),
+            np.concatenate([vals, np.full(n - far, -1.0)]), n)
+
+
 # case -> (grid, Jacobi, check interval, limit, fault seed)
 CASES = {
     "tridiagonal one tile": (1, False, 1, 40, None),
@@ -359,10 +451,17 @@ CASES = {
     "laplacian fold": (3, False, 1, 25, None),
     "laplacian fold Jacobi": (7, True, 1, 25, None),
     "laplacian above the threshold": (37, False, 1, 4, None),
+    "laplacian above the threshold three-sync": (37, False, 1, 4, None),
+    "far couplings": (5, False, 4, 12, None),
     "trigger after folded updates": (3, False, 4, 25, 12),
     "breakdown": (3, False, 1, 60, None),
     "lazy window closing mid-run": (4, True, 4, 6, None),
 }
+# the cases that force a schedule, and each case's schedule (else fold)
+FORCED = {"laplacian above the threshold three-sync": "three-sync"}
+SCHEDULE_OF = {"laplacian above the threshold": "window",
+               "laplacian above the threshold three-sync": "three-sync",
+               "far couplings": "window"}
 
 
 def plain_steps(md, spec, b, minv, upto):
@@ -410,8 +509,108 @@ def test_partition_covers_every_row_once():
 def test_schedule_follows_the_offsets():
     assert dia_schedule((-1, 0, 1)) == "fold"
     assert dia_schedule((-FOLD_MAX_HALO, 0, FOLD_MAX_HALO)) == "fold"
-    assert dia_schedule((-FOLD_MAX_HALO - 1, 0, 1)) == "three-sync"
-    assert set(SCHEDULES) == {"fold", "three-sync"}
+    assert dia_schedule((-FOLD_MAX_HALO - 1, 0, 1)) == "window"
+    assert dia_schedule(SCATTERED) == "three-sync"
+    assert set(SCHEDULES) == {"fold", "three-sync", "window"}
+
+
+def stencil27(side):
+    """The offsets of the 27-point stencil on a side^3 grid."""
+    return tuple(sorted({dz * side * side + dy * side + dx
+                         for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                         for dx in (-1, 0, 1)}))
+
+
+def laplacian(side):
+    return (-side, -1, 0, 1, side)
+
+
+# offsets whose windows pass the budget: seven clusters a tile apart and
+# more, each a window of 1,024 rows and more
+SCATTERED = tuple(sorted({0, 1, -1} | {k * 5000 for k in range(-3, 4)}))
+
+
+def test_window_plan_of_hpcg_104():
+    """HPCG's 104^3 stencil: three windows (offsets around -10,816, 0 and
+    +10,816), each 210 rows wide, their starts and ends on multiples of 4,
+    both sets inside the budget."""
+    offs = stencil27(104)
+    plan = dia_window_plan(offs)
+    assert len(plan.starts) == 3 and plan.window == (0,) * 9 + (1,) * 9 + (
+        2,) * 9
+    for c in range(3):
+        mine = [o for o, w in zip(offs, plan.window) if w == c]
+        assert max(mine) - min(mine) == 210
+        assert plan.starts[c] % 4 == 0 and plan.ext[c] % 4 == 0
+        assert plan.starts[c] <= min(mine) < plan.starts[c] + 4
+        assert max(mine) - plan.starts[c] <= plan.ext[c] < max(
+            mine) - plan.starts[c] + 4
+    assert [(min(c) + max(c)) // 2 for c in (
+        [o for o, w in zip(offs, plan.window) if w == k] for k in range(3))
+    ] == [-10816, 0, 10816]
+    assert plan.set_floats == 3 * (TILE + 216)
+    assert 2 * 4 * plan.set_floats <= WINDOW_MAX_SMEM
+
+
+@pytest.mark.parametrize("side,windows", [(1100, 3), (530, 1), (2048, 3)])
+def test_window_plan_of_a_laplacian(side, windows):
+    """A 2-D Laplacian past the fold's cap: three small windows where
+    +-side lies more than a tile from +-1, else one window over all."""
+    plan = dia_window_plan(laplacian(side))
+    assert len(plan.starts) == windows
+    if windows == 3:
+        assert max(plan.ext) <= 8 and plan.window == (0, 1, 1, 1, 2)
+    else:
+        assert plan.ext == (-(-(2 * side + side % 4) // 4) * 4,)
+
+
+@pytest.mark.parametrize("offsets", [
+    SCATTERED,                                      # too many floats
+    tuple(range(-3000, 3001, 900)),                 # one cluster too wide
+    tuple(k * 1100 for k in range(-5, 5)),          # too many windows
+])
+def test_window_plan_past_the_budget_falls_back(offsets):
+    """Offsets whose windows pass WINDOW_MAX_SMEM or WINDOW_MAX windows
+    have no plan and take the three-sync schedule."""
+    assert dia_window_plan(offsets) is None
+    assert dia_schedule(offsets) == "three-sync"
+
+
+@pytest.mark.parametrize("shape", ["hpcg 104", "laplacian 1100",
+                                   "stencil 24", "far couplings",
+                                   "tridiagonal", "periodic 3d"])
+def test_window_reads_land_in_their_windows(shape):
+    """For every row of every tile of every block, and every diagonal,
+    the index the stencil reads lands inside the staged floats of its
+    diagonal's window and reads p there (0 for a column outside [0, R)),
+    at the card's grid (528 blocks: 132 SMs x 4) and at small ones."""
+    offsets, R, grid = {
+        "hpcg 104": (stencil27(104), 104 ** 3, 528),
+        "laplacian 1100": (laplacian(1100), 1100 ** 2 + 16, 528),
+        "stencil 24": (stencil27(24), 24 ** 3, 7),
+        "far couplings": ((-FAR, -1, 0, 1, FAR), 12288, 5),
+        "tridiagonal": ((-1, 0, 1), 288, 7),
+        # the zoo's periodic-3d at side 44: five windows
+        "periodic 3d": ((-83248, -1936, -1892, -44, -43, -1, 0, 1, 43, 44,
+                         1892, 1936, 83248), 85248, 528),
+    }[shape]
+    assert R % 32 == 0
+    wn = Windows(dia_window_plan(offsets), offsets)
+    part = Partition(R, grid)
+    p = np.arange(1, R + 1, dtype=np.float64)     # every row its own value
+    reads = 0
+    for r, ok, lo, hi in part.tiles:
+        sets = wn.stage(p, lo, hi)
+        g = np.nonzero(ok)[0]
+        for k in range(ROWS):
+            rows = r[ok] + k
+            for d, off in enumerate(offsets):
+                v, inside = wn.read(sets, g, rows, lo, hi, d)
+                c = rows + off
+                want = np.where((c >= 0) & (c < R), c + 1.0, 0.0)
+                assert inside.all() and np.array_equal(v, want), (shape, d)
+                reads += rows.size
+    assert reads == R * len(offsets)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -421,11 +620,11 @@ def test_replay_holds_the_plain_loop(case):
     if fault is not None:
         m = inject_bitflips(m, "ANY", 1, np.random.default_rng(fault),
                             echo=lambda s: None)
-    mode = "none" if case == "laplacian above the threshold" else "secded"
+    mode = "none" if "above" in case else "secded"
     md = make_matrix_device(m, torch.float32, CPU)
     spec = dia_spec(m, mode)
-    schedule = dia_schedule(spec.offsets)
-    assert schedule == ("three-sync" if "above" in case else "fold")
+    schedule = FORCED.get(case) or dia_schedule(spec.offsets)
+    assert schedule == SCHEDULE_OF.get(case, "fold")
     rng = np.random.default_rng(7)
     b = torch.zeros(m.R, dtype=torch.float32)
     b[: m.N] = torch.tensor(rng.random(m.N), dtype=torch.float32)
