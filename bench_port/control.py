@@ -10,6 +10,9 @@ for each of ``--control-seeds``, the same window with the reference run
 in bfloat16 in the program's place (the control, the upper readings).
 One JSON line per window on standard output (and in ``--out``), then
 the worst program reading and the best control reading of each number.
+Under fault traffic both sides see the same faults, made in the
+program's resident matrix, which the program repairs from window to
+window and the control ignores.
 The benchmark's own runs never run this.
 """
 
@@ -35,7 +38,7 @@ def control_solve(tri, config, device, dtype):
 
     def solve(md, b):
         sol = reference.cg(a, b, config["max_itrs"], config["conv"])
-        return Answer(sol.x, sol.iterations, sol.rr, 0, 0)
+        return Answer(sol.x, sol.iterations, sol.rr, 0, 0, md=md)
 
     return solve
 
@@ -54,7 +57,10 @@ def windows(cell, seeds, control_seeds, seconds, device, emit):
     mat = ent.build(tri, cfg)
     md = ent.upload(mat, cfg, device)
     solve = ent.prepare(mat, cfg, mix, device)
+    inject = ent.Injector(mat, cfg) if "fault_every" in mix else None
+    del mat
     n = tri[3] * cfg["num_blocks"]
+    nnz = harness.stored_entries(tri, cfg["num_blocks"])
     ctl = control_solve(tri, cfg, device, torch.bfloat16)
 
     def sync():
@@ -65,9 +71,11 @@ def windows(cell, seeds, control_seeds, seconds, device, emit):
                           ("control", ctl, control_seeds)):
         for seed in sds:
             rhs = harness.Rhs(seed, n, device)
-            fn(md, rhs(-1))
-            win = harness.closed_loop(fn, md, rhs, seconds, mix["sample"],
-                                      seed, sync)
+            faults = (None if inject is None
+                      else harness.Faults(mix, seed, nnz, inject))
+            md = fn(md, rhs(-1)).md
+            win, md = harness.closed_loop(fn, md, rhs, seconds,
+                                          mix["sample"], seed, sync, faults)
             readings, _ = harness.judge(cell, tri, rhs, win.kept, device)
             worst = {k: max(r[k] for r in readings) for k in compare.NAMES}
             rec = {"cell": cell.name, "side": side, "seed": seed,

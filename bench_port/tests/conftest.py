@@ -11,6 +11,11 @@ import os
 import sys
 
 import pytest
+import torch
+
+# One thread per process: with torch's default, each of several test
+# workers spreads over every core, and a small run's solves crawl.
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))

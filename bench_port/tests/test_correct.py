@@ -8,7 +8,8 @@ import torch
 
 from bench_port import control, entry, harness
 
-CELLS = ["hpcg-104-secded.stream", "hpcg-104-secded.lazy32"]
+CELLS = ["hpcg-104-secded.stream", "hpcg-104-secded.lazy32",
+         "hpcg-104-secded.faults"]
 CPU = torch.device("cpu")
 
 
